@@ -1,9 +1,14 @@
-"""Model configuration, a copy of ``item_alignment_tpu.config.ModelConfig``.
+"""Configuration, a copy of ``item_alignment_tpu.config``: ``ModelConfig``,
+``MeshConfig``, ``OptimizerConfig`` and ``TrainConfig``.
 
 The port keeps its own copy so that it never imports the JAX package.  Every
 field, default, property and preset is the same as there (a test holds the
-two equal); fields used only by families not yet ported are kept so that
-configs and checkpoints move between the packages unchanged.
+two equal); fields used only by families or features not yet ported are
+kept so that configs and checkpoints move between the packages unchanged.
+In the port's ``Trainer``, ``TrainConfig.scan_steps`` and
+``dropout_rng_impl`` have no effect (PyTorch runs each step eagerly, and the
+dropout masks are hashes of integer seeds), and a mesh of more than one
+device, ``checkpoint_dir`` and ``resume`` raise (ROADMAP Queue 1 #17, #18).
 
 - ``interaction_type``:       one_tower | two_tower
 - ``classification_method``:  cls | vec_sim
@@ -18,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
 
@@ -200,3 +205,75 @@ class ModelConfig:
                 kw[key] = tuple(int(i) for i in kw[key].split(","))
         kw.update(overrides)
         return cls(**kw)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: data (DP), fsdp (ZeRO-style), tensor (TP)."""
+
+    data: int = -1      # -1: use all remaining devices
+    fsdp: int = 1
+    tensor: int = 1
+
+    def axis_sizes(self, n_devices: int) -> Tuple[int, int, int]:
+        fsdp, tensor = max(self.fsdp, 1), max(self.tensor, 1)
+        data = self.data
+        if data == -1:
+            if n_devices % (fsdp * tensor):
+                raise ValueError(f"{n_devices} devices not divisible by "
+                                 f"fsdp={fsdp}*tensor={tensor}")
+            data = n_devices // (fsdp * tensor)
+        if data * fsdp * tensor != n_devices:
+            raise ValueError(f"mesh {data}x{fsdp}x{tensor} != {n_devices} "
+                             "devices")
+        return data, fsdp, tensor
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW + linear warmup/decay: no weight decay on biases and LayerNorm,
+    betas (0.9, 0.98)."""
+
+    learning_rate: float = 5e-5
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.98
+    eps: float = 1e-8
+    warmup_proportion: float = 0.1
+    total_steps: int = 10000
+    grad_accumulation_steps: int = 1
+    max_grad_norm: Optional[float] = None
+    # substring patterns matched against the '/'-joined Flax parameter path;
+    # matching parameters receive zero updates
+    freeze_patterns: Tuple[str, ...] = ()
+    # the JAX package's single-pass AdamW; the port always takes one pass
+    # per tensor, and False only keeps the moments in float32
+    fused: bool = True
+    # storage dtype of the fused optimizer's moments ("float32" |
+    # "bfloat16"); their arithmetic stays fp32
+    state_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    seed: int = 2345
+    train_batch_size: int = 32
+    eval_batch_size: int = 64
+    num_epochs: int = 10
+    log_steps: int = 100
+    output_dir: str = "output"
+    threshold: float = 0.5
+    eval_thresholds: Tuple[float, ...] = tuple(round(0.1 * i, 1) for i in range(1, 10))
+    checkpoint_every_epochs: int = 1
+    keep_checkpoints: int = 20
+    checkpoint_dir: Optional[str] = None     # full-train-state checkpoints
+    resume: bool = False                     # restore the latest before fit
+    eval_every_steps: Optional[int] = None   # step-based eval
+    early_stopping_patience: Optional[int] = None  # evals without F1 gain
+    dropout_rng_impl: str = "rbg"            # no effect in the port
+    scan_steps: int = 8                      # no effect in the port
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+
+    def replace(self, **kw: Any) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

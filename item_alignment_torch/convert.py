@@ -1,4 +1,5 @@
-"""Weight conversion from the JAX package's Flax parameter trees.
+"""Weight conversion between the JAX package's Flax parameter trees and the
+port's state dicts.
 
 ``state_dict_from_flax`` takes a ``{"params": ...}`` tree of nested dicts of
 numpy arrays (as ``jax.tree_util.tree_map(np.asarray, variables)`` gives, or
@@ -10,11 +11,15 @@ mapping is the tree path joined with dots, plus three leaf renames:
 - Dense ``kernel [in, out]`` -> ``weight [out, in]``
 - LayerNorm ``scale``        -> ``weight``
 - Embed ``embedding``        -> ``weight``
+
+``flax_path`` maps a port parameter name back to its Flax path (a LayerNorm
+module's name contains ``layer_norm``, an embedding table's ends in
+``embeddings``), and ``flax_from_state_dict`` is the reverse conversion.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -41,3 +46,36 @@ def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(params, "")
     return out
+
+
+def flax_path(name: str) -> Tuple[str, ...]:
+    """``roberta.encoder.layer_0.attention.query.weight`` ->
+    ``("roberta", "encoder", "layer_0", "attention", "query", "kernel")``."""
+    *mods, leaf = name.split(".")
+    if leaf == "weight":
+        if "layer_norm" in mods[-1]:
+            leaf = "scale"
+        elif mods[-1].endswith("embeddings"):
+            leaf = "embedding"
+        else:
+            leaf = "kernel"
+    elif leaf != "bias":
+        raise KeyError(f"unknown parameter leaf {name}")
+    return tuple(mods) + (leaf,)
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor]
+                         ) -> Dict[str, Any]:
+    """A port ``state_dict`` -> ``{"params": ...}`` nested dicts of float32
+    numpy arrays in the Flax layout."""
+    params: Dict[str, Any] = {}
+    for name, value in state.items():
+        *mods, leaf = flax_path(name)
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "kernel":
+            arr = arr.T
+        node = params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": params}

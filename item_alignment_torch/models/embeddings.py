@@ -38,11 +38,12 @@ class EmbedPostprocess(nn.Module):
         self.dropout = ReplayDropout(cfg.hidden_dropout_prob)
 
     def forward(self, inputs_embeds, token_type_ids, position_ids,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                dropout_seed: Optional[int] = None):
         x = (inputs_embeds + self.token_type_embeddings(token_type_ids)
              + self.position_embeddings(position_ids))
         x = self.layer_norm(x)
-        return self.dropout(x, deterministic=deterministic)
+        return self.dropout(x, dropout_seed, deterministic)
 
 
 class RobertaEmbeddings(nn.Module):
@@ -63,6 +64,7 @@ class RobertaEmbeddings(nn.Module):
         position_ids: Optional[torch.Tensor] = None,
         cate_ids: Optional[torch.Tensor] = None,
         deterministic: bool = True,
+        dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
         cfg = self.config
         if position_ids is None:
@@ -74,4 +76,5 @@ class RobertaEmbeddings(nn.Module):
             if not cfg.cate_size:
                 raise ValueError("cate_ids passed but config.cate_size unset")
             embeds = embeds + self.cate_embeddings(cate_ids)
-        return self.post(embeds, token_type_ids, position_ids, deterministic)
+        return self.post(embeds, token_type_ids, position_ids, deterministic,
+                         dropout_seed)

@@ -1,8 +1,10 @@
 """Pair-classification heads.
 
 Port of ``item_alignment_tpu/models/heads.py``.  Heads run in fp32 on hidden
-states already cast to fp32.  Dropout in the heads is the identity in
-evaluation; training-mode dropout comes with the training slice.
+states already cast to fp32.  Their dropout is flax's ``nn.Dropout`` at the
+exact rate (``ops.dropout.dropout``): each call site folds its own number
+into the head's ``dropout_seed``, as each call of a flax ``nn.Dropout``
+draws a fresh key.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from torch import nn
 
 from item_alignment_torch.config import ModelConfig
 from item_alignment_torch.models.layers import Dense
-from item_alignment_torch.ops.dropout import ReplayDropout
+from item_alignment_torch.ops.dropout import dropout, fold_seed
 
 
 def inner_product(x1: torch.Tensor, x2: torch.Tensor, normalize: bool = False
@@ -43,10 +45,9 @@ def pairwise_distance(x1: torch.Tensor, x2: torch.Tensor, p: int,
     return torch.sqrt(torch.clamp(torch.sum(d * d, dim=-1), min=0.0))
 
 
-def _head_dropout(cfg: ModelConfig) -> ReplayDropout:
-    rate = (cfg.classifier_dropout if cfg.classifier_dropout is not None
+def _head_rate(cfg: ModelConfig) -> float:
+    return (cfg.classifier_dropout if cfg.classifier_dropout is not None
             else cfg.hidden_dropout_prob)
-    return ReplayDropout(rate)
 
 
 class VecSimClassificationHead(nn.Module):
@@ -59,15 +60,19 @@ class VecSimClassificationHead(nn.Module):
         super().__init__()
         self.config = config
         self.dense = Dense(config.num_cls_features, config.hidden_size)
-        self.dropout = _head_dropout(config)
+        self.rate = _head_rate(config)
 
-    def forward(self, features_1, features_2, deterministic: bool = True):
-        def proj(f):
-            x = self.dropout(f, deterministic=deterministic)
-            x = torch.tanh(self.dense(x))
-            return self.dropout(x, deterministic=deterministic)
+    def forward(self, features_1, features_2, deterministic: bool = True,
+                dropout_seed=None):
+        def drop(x, site):
+            return dropout(x, self.rate, fold_seed(dropout_seed, site),
+                           deterministic)
 
-        x, y = proj(features_1), proj(features_2)
+        def proj(f, site):
+            x = torch.tanh(self.dense(drop(f, site)))
+            return drop(x, site + 1)
+
+        x, y = proj(features_1, 0), proj(features_2, 2)
         sm = self.config.similarity_measure
         if sm == "inner_product":
             sim = inner_product(x, y)
@@ -92,12 +97,15 @@ class TwoTowerClassificationHead(nn.Module):
     def __init__(self, in_features: int, dropout_rate: float = 0.0,
                  num_labels: int = 2):
         super().__init__()
-        self.dropout = ReplayDropout(dropout_rate)
+        self.rate = float(dropout_rate)
         self.out_proj = Dense(2 * in_features, num_labels)
 
-    def forward(self, features_1, features_2, deterministic: bool = True):
-        x = self.dropout(features_1, deterministic=deterministic)
-        y = self.dropout(features_2, deterministic=deterministic)
+    def forward(self, features_1, features_2, deterministic: bool = True,
+                dropout_seed=None):
+        x = dropout(features_1, self.rate, fold_seed(dropout_seed, 0),
+                    deterministic)
+        y = dropout(features_2, self.rate, fold_seed(dropout_seed, 1),
+                    deterministic)
         logits = self.out_proj(torch.cat((x, y), dim=-1))
         return x, y, logits, torch.softmax(logits, dim=-1)
 
@@ -115,12 +123,14 @@ class ClsClassificationHead(nn.Module):
                 "(ROADMAP Queue 1 #9)")
         self.dense = Dense(config.num_cls_features, config.hidden_size)
         self.out_proj = Dense(config.hidden_size, config.num_labels)
-        self.dropout = _head_dropout(config)
+        self.rate = _head_rate(config)
 
-    def forward(self, features, deterministic: bool = True):
-        x = self.dropout(features[:, 0, :], deterministic=deterministic)
+    def forward(self, features, deterministic: bool = True,
+                dropout_seed=None):
+        x = dropout(features[:, 0, :], self.rate,
+                    fold_seed(dropout_seed, 0), deterministic)
         x = torch.tanh(self.dense(x))
-        x = self.dropout(x, deterministic=deterministic)
+        x = dropout(x, self.rate, fold_seed(dropout_seed, 1), deterministic)
         return self.out_proj(x)
 
 
@@ -133,10 +143,10 @@ class AuxiliaryPairHead(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         self.out_proj = Dense(2 * config.num_cls_features, config.num_labels)
-        self.dropout = _head_dropout(config)
+        self.rate = _head_rate(config)
 
     def forward(self, sequence_output: torch.Tensor, pair_spans: torch.Tensor,
-                deterministic: bool = True):
+                deterministic: bool = True, dropout_seed=None):
         S = sequence_output.shape[1]
         t = torch.arange(S, device=sequence_output.device)[None, None, :]
         seq = sequence_output.float()
@@ -148,8 +158,8 @@ class AuxiliaryPairHead(nn.Module):
 
         x = span_mean(pair_spans[..., 0], pair_spans[..., 1])
         y = span_mean(pair_spans[..., 2], pair_spans[..., 3])
-        x = self.dropout(x, deterministic=deterministic)
-        y = self.dropout(y, deterministic=deterministic)
+        x = dropout(x, self.rate, fold_seed(dropout_seed, 0), deterministic)
+        y = dropout(y, self.rate, fold_seed(dropout_seed, 1), deterministic)
         logits = self.out_proj(torch.cat((x, y), dim=-1))
         labels = torch.clamp(pair_spans[..., 4], min=0)
         valid = pair_spans[..., 0] >= 0

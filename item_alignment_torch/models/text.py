@@ -6,7 +6,9 @@ classes take ``device`` (None means ``"cuda"``) and ``seed``, the seed of
 the ``torch.Generator`` that draws the initial weights; ``seed=None`` skips
 the draw for callers that load a state dict next.  Module and parameter
 names follow the Flax tree, so ``convert.state_dict_from_flax`` is a plain
-mapping.
+mapping.  In training (``deterministic=False``) ``dropout_seed`` is the
+forward's dropout seed; each submodule gets ``fold_seed(seed, site)`` with a
+site number fixed by its place in the model.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from item_alignment_torch.models.heads import (
 from item_alignment_torch.models.layers import init_weights
 from item_alignment_torch.models.losses import pair_loss
 from item_alignment_torch.models.outputs import PairClassifierOutput
+from item_alignment_torch.ops.dropout import fold_seed
 
 Device = Optional[Union[str, torch.device]]
 
@@ -66,12 +69,15 @@ class RobertaBackbone(nn.Module):
         _initialise(self, config, dev, seed)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                position_ids=None, cate_ids=None, deterministic: bool = True):
+                position_ids=None, cate_ids=None, deterministic: bool = True,
+                dropout_seed: Optional[int] = None):
         hidden = self.embeddings(input_ids, token_type_ids, position_ids,
-                                 cate_ids, deterministic)
+                                 cate_ids, deterministic,
+                                 fold_seed(dropout_seed, 0))
         if self.config.dtype == "bfloat16":
             hidden = hidden.to(torch.bfloat16)
-        states = self.encoder(hidden, attention_mask, deterministic)
+        states = self.encoder(hidden, attention_mask, deterministic,
+                              fold_seed(dropout_seed, 1))
         return [s.float() for s in states]
 
 
@@ -90,15 +96,17 @@ class _OneTowerHead(nn.Module):
             self.auxiliary_task = AuxiliaryPairHead(config)
 
     def forward(self, states, labels=None, pair_spans=None,
-                deterministic: bool = True) -> PairClassifierOutput:
+                deterministic: bool = True,
+                dropout_seed: Optional[int] = None) -> PairClassifierOutput:
         cfg = self.config
         seq_out = combine_cls_layers(states, cfg.cls_layers, cfg.cls_pool)
+        head_seed = fold_seed(dropout_seed, 0)
         if cfg.classification_method == "vec_sim":
             src_embeds, tgt_embeds, logits, probs = self.classifier(
                 seq_out[:, 0, :], seq_out[:, self.tgt_cls_position, :],
-                deterministic)
+                deterministic, head_seed)
         else:
-            logits = self.classifier(seq_out, deterministic=deterministic)
+            logits = self.classifier(seq_out, deterministic, head_seed)
             full_probs = torch.softmax(logits, dim=-1)
             # reference quirk: the embeds are the two probability columns,
             # probs is P(label=1)
@@ -113,7 +121,8 @@ class _OneTowerHead(nn.Module):
                              cfg.num_labels)
             if cfg.auxiliary_task and pair_spans is not None:
                 aux_logits, aux_labels, valid = self.auxiliary_task(
-                    seq_out, pair_spans, deterministic)
+                    seq_out, pair_spans, deterministic,
+                    fold_seed(dropout_seed, 1))
                 loss = loss + masked_cross_entropy(aux_logits, aux_labels,
                                                    valid)
         return PairClassifierOutput(loss=loss, logits=logits, probs=probs,
@@ -137,12 +146,13 @@ class RobertaOneTower(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 position_ids=None, cate_ids=None, labels=None,
-                pair_spans=None, deterministic: bool = True
-                ) -> PairClassifierOutput:
+                pair_spans=None, deterministic: bool = True,
+                dropout_seed: Optional[int] = None) -> PairClassifierOutput:
         states = self.roberta(input_ids, attention_mask, token_type_ids,
-                              position_ids, cate_ids, deterministic)
-        return self.head(states, labels, pair_spans,
-                         deterministic=deterministic)
+                              position_ids, cate_ids, deterministic,
+                              fold_seed(dropout_seed, 0))
+        return self.head(states, labels, pair_spans, deterministic,
+                         fold_seed(dropout_seed, 1))
 
 
 class RobertaTwoTower(nn.Module):
@@ -163,17 +173,19 @@ class RobertaTwoTower(nn.Module):
     def forward(self, input_ids_1, input_ids_2, attention_mask_1=None,
                 attention_mask_2=None, token_type_ids_1=None,
                 token_type_ids_2=None, cate_ids_1=None, cate_ids_2=None,
-                labels=None, deterministic: bool = True
-                ) -> PairClassifierOutput:
+                labels=None, deterministic: bool = True,
+                dropout_seed: Optional[int] = None) -> PairClassifierOutput:
         cfg = self.config
+        # the two passes draw their own masks, as flax's second call does
         out_1 = self.roberta(input_ids_1, attention_mask_1, token_type_ids_1,
-                             cate_ids=cate_ids_1,
-                             deterministic=deterministic)[-1]
+                             cate_ids=cate_ids_1, deterministic=deterministic,
+                             dropout_seed=fold_seed(dropout_seed, 0))[-1]
         out_2 = self.roberta(input_ids_2, attention_mask_2, token_type_ids_2,
-                             cate_ids=cate_ids_2,
-                             deterministic=deterministic)[-1]
+                             cate_ids=cate_ids_2, deterministic=deterministic,
+                             dropout_seed=fold_seed(dropout_seed, 1))[-1]
         src_embeds, tgt_embeds, logits, full_probs = self.classifier(
-            out_1[:, 0, :], out_2[:, 0, :], deterministic)
+            out_1[:, 0, :], out_2[:, 0, :], deterministic,
+            fold_seed(dropout_seed, 2))
         probs = full_probs[:, 1]  # P(same); embeds stay the CLS vectors
         loss = None
         if labels is not None:

@@ -1,9 +1,12 @@
 """Attention ops.
 
-``dot_product_attention`` is the plain math path (any device);
-``flash_attention`` dispatches to the fused CUDA kernel
-(``ops/cuda_attention.py``) for CUDA tensors, and to that kernel's plain
-version for CPU tensors.  Port of ``item_alignment_tpu/ops/attention.py``.
+``dot_product_attention`` is the plain math path (any device), with JAX's
+continuous-rate dropout on the probabilities.  ``flash_attention``
+dispatches to the fused kernels: ``ops/cuda_attention.py`` (kernel #1, and
+kernels #2/#3 at rate 0 when a gradient is wanted) without dropout, and
+``ops/cuda_attention_train.py`` (kernels #2/#3) with dropout.  CUDA tensors
+launch them; CPU tensors run their plain versions.  Port of
+``item_alignment_tpu/ops/attention.py``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Optional
 import torch
 
 from item_alignment_torch.ops.cuda_attention import fused_attention
+from item_alignment_torch.ops.cuda_attention_train import fused_attention_dropout
 
 NEG_INF = -1e9  # matches BERT-style additive masking ((1-mask)*-10000 in HF)
 MAX_FUSED_SEQ = 512
@@ -32,19 +36,22 @@ def dot_product_attention(
     v: torch.Tensor,  # [B, T, N, H]
     bias: Optional[torch.Tensor] = None,  # [B, 1|N, 1|S, T] additive
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    dropout_seed: Optional[int] = None,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain masked multi-head attention: fp32 scores and softmax, probs
-    cast to ``dtype`` before the product with v."""
+    cast to ``dtype`` before the product with v.  With a rate and a seed,
+    each probability is kept with probability 1 - rate and survivors are
+    divided by 1 - rate, as JAX's bernoulli dropout does."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bsnh,btnh->bnst", q.float(), k.float()) * scale
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1).to(dtype)
-    if dropout_rate > 0.0:
-        keep = torch.rand(probs.shape, generator=generator,
-                          device=probs.device) >= dropout_rate
+    if dropout_rate > 0.0 and dropout_seed is not None:
+        gen = torch.Generator(device=probs.device).manual_seed(dropout_seed)
+        keep = torch.rand(probs.shape, generator=gen,
+                          device=probs.device) < 1.0 - dropout_rate
         probs = probs * keep.to(dtype) / (1.0 - dropout_rate)
     ct = torch.promote_types(probs.dtype, v.dtype)
     return torch.einsum("bnst,btnh->bsnh", probs.to(ct), v.to(ct))
@@ -56,25 +63,19 @@ def flash_attention(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    dropout_seed: Optional[int] = None,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Fused attention.  CUDA tensors with no dropout and S <= 512 launch
-    the fused kernel; CPU tensors take the plain versions.  The CUDA
-    training kernels (dropout) and the blockwise kernels (S > 512) are not
-    ported yet, and asking for them raises."""
-    if q.device.type == "cuda":
-        if dropout_rate > 0.0:
-            raise NotImplementedError(
-                "attention dropout on CUDA needs the training kernels "
-                "(ROADMAP Queue 2 #2-#3, _attn_dropout_kernel and its "
-                "backward), not ported yet")
-        if q.shape[1] > MAX_FUSED_SEQ:
-            raise NotImplementedError(
-                f"S={q.shape[1]} > {MAX_FUSED_SEQ} on CUDA needs the blockwise "
-                "kernels (ROADMAP Queue 2 #4-#6, _flash_kernel), not ported "
-                "yet")
-    elif dropout_rate > 0.0:
-        return dot_product_attention(q, k, v, bias, dropout_rate, generator,
-                                     dtype)
+    """Fused attention.  With a rate and a seed it runs
+    ``fused_attention_dropout`` (kernels #2/#3, the mask a hash of the
+    seed), otherwise ``fused_attention``.  CUDA tensors at S <= 512 launch
+    the kernels, CPU tensors take their plain versions; the blockwise
+    kernels for S > 512 are not ported yet, and asking for them raises."""
+    if q.device.type == "cuda" and q.shape[1] > MAX_FUSED_SEQ:
+        raise NotImplementedError(
+            f"S={q.shape[1]} > {MAX_FUSED_SEQ} on CUDA needs the blockwise "
+            "kernels (ROADMAP Queue 2 #4-#6, _flash_kernel), not ported yet")
+    if dropout_rate > 0.0 and dropout_seed is not None:
+        return fused_attention_dropout(dropout_rate, dropout_seed, q, k, v,
+                                       bias).to(dtype)
     return fused_attention(q, k, v, bias).to(dtype)

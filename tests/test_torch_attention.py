@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from item_alignment_torch.ops import attention as tatt
-from item_alignment_torch.ops import cuda_attention
+from item_alignment_torch.ops import cuda_attention, cuda_attention_train
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -114,15 +114,29 @@ def _pretend_cuda(monkeypatch):
     class FakeDevice:
         type = "cuda"
 
-    monkeypatch.setattr(torch.Tensor, "device",
-                        property(lambda self: FakeDevice()))
+    fake = FakeDevice()
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: fake))
 
 
 def test_dispatcher_raises_on_cuda_dropout(monkeypatch):
+    """CUDA dropout at S <= 512 goes to the training kernels' wrapper (its
+    launcher stubbed here); at S > 512 it still raises."""
+    calls = []
+
+    def launch(rate, seed, q, k, v, bias):
+        calls.append((rate, seed))
+        return torch.full_like(q, 3.0), torch.zeros(q.shape[0], q.shape[2],
+                                                    q.shape[1], dtype=torch.float64)
+
     q = torch.zeros(1, 8, 2, 32)
+    monkeypatch.setattr(cuda_attention_train, "_launch_fwd", launch)
     _pretend_cuda(monkeypatch)
-    with pytest.raises(NotImplementedError, match="Queue 2 #2"):
-        tatt.flash_attention(q, q, q, None, dropout_rate=0.1)
+    out = tatt.flash_attention(q, q, q, None, dropout_rate=0.1,
+                               dropout_seed=5)
+    assert calls == [(0.1, 5)] and float(out.max()) == 3.0
+    with pytest.raises(NotImplementedError, match="Queue 2 #4"):
+        tatt.flash_attention(torch.zeros(1, 520, 1, 32), q, q, None,
+                             dropout_rate=0.1, dropout_seed=5)
 
 
 def test_dispatcher_raises_on_cuda_long_sequence(monkeypatch):

@@ -7,8 +7,9 @@ import pathlib
 import pytest
 import torch
 
-from item_alignment_torch.config import ModelConfig
+from item_alignment_torch.config import ModelConfig, TrainConfig
 from item_alignment_torch.engine.inference import TwoTowerInference
+from item_alignment_torch.engine.train import Trainer
 from item_alignment_torch.models.text import (
     RobertaBackbone,
     RobertaOneTower,
@@ -44,8 +45,9 @@ def test_port_imports_no_jax():
 
 
 def test_kernel_source_ships_with_the_package():
-    assert (ROOT / "item_alignment_torch" / "csrc"
-            / "fused_attention.cu").is_file()
+    for source in ("fused_attention.cu", "attention_dropout_fwd.cu",
+                   "attention_dropout_bwd.cu", "attention_common.cuh"):
+        assert (ROOT / "item_alignment_torch" / "csrc" / source).is_file()
 
 
 @pytest.mark.parametrize("build", [
@@ -53,6 +55,7 @@ def test_kernel_source_ships_with_the_package():
     lambda: RobertaTwoTower(TINY),
     lambda: RobertaBackbone(TINY),
     lambda: TwoTowerInference(lambda b: b, lambda s, t: s),
+    lambda: Trainer(torch.nn.Linear(2, 2), TrainConfig()),
 ])
 def test_entry_points_default_to_cuda(build, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
