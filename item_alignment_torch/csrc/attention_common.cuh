@@ -91,6 +91,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+// all but the most recently committed group have landed
+__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
 // rows [row0, row0 + ROWS) of one (batch, head) slice -> shared memory with
 // row pitch LD (in elements); rows past S are zero-filled

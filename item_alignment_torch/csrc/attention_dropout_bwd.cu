@@ -14,9 +14,10 @@
 //   dq  = ds (k * scale),   dk = ds^T (q * scale)
 //
 // the algebra of the TPU kernel (:262-302), with the same hashed keep bits
-// as attention_dropout_fwd.cu (attention_common.cuh).  x - lse is taken in
-// float64 before the exponential, so a fully masked row gets the uniform
-// 1/S back.
+// as attention_dropout_fwd.cu (attention_common.cuh).  x - lse keeps the
+// float64 lse's precision (float-float in bf16, float64 in fp32), so a fully
+// masked row, whose scores all sit at the -1e9 bias, gets the uniform 1/S
+// back.
 //
 // Design.  The TPU kernel recomputes a whole [S, S] tile per head; here the
 // backward is the two-kernel split that the TPU's blockwise kernels
@@ -30,7 +31,8 @@
 //     queries, looping over 64-key tiles.
 // Both run on the tensor cores in bf16 (mma.sync m16n8k16, fp32
 // accumulate; keep * p_r and ds rounded to bf16 as the TPU kernel rounds
-// them) with single-stage cp.async tile loads.  fp32 is a scalar-FMA
+// them).  The looped tiles come through a two-stage cp.async pipeline: the
+// next tile loads while this one computes.  fp32 is a scalar-FMA
 // correctness path on 32 x 32 tiles.  One wrapper call launches both.
 //
 // Bound on this card (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s).  Work
@@ -76,13 +78,23 @@ struct Params {
   float keep_p;
 };
 
+// the block's own pair of tiles, then two stages of the looped pair, then
+// two stages of per-row statistics (4 floats or words a row)
 template <int HD>
 struct Bf16Layout {
   static constexpr int LD = HD + 8;
   static constexpr int TILE = BLOCK * LD;
-  static constexpr int STAT_OFF = 4 * TILE * 2;
-  static constexpr int BYTES = STAT_OFF + BLOCK * (8 + 4 + 4);  // double, float, u32
+  static constexpr int STAT_OFF = 6 * TILE * 2;
+  static constexpr int STAT = 4 * BLOCK;  // 4-byte words per stage
+  static constexpr int BYTES = STAT_OFF + 2 * STAT * 4;
 };
+
+// lse + ln keep_p as a float-float pair: x - hi is exact for the scores
+// that matter (a fully masked row's x equals hi), and lo carries the rest
+__device__ __forceinline__ void split_lse(double lse, float& hi, float& lo) {
+  hi = float(lse);
+  lo = float(lse - double(hi));
+}
 
 template <typename T>
 __device__ __forceinline__ const T* slice(const void* base, int b, int h, long long sb,
@@ -96,11 +108,10 @@ __global__ void __launch_bounds__(THREADS) attn_dkdv_bf16(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + L::TILE;
-  bf16* Qs = Vs + L::TILE;
-  bf16* Gs = Qs + L::TILE;
-  double* lse_s = reinterpret_cast<double*>(smem + L::STAT_OFF);  // lse + ln keep_p
-  float* dkp_s = reinterpret_cast<float*>(lse_s + BLOCK);         // delta * keep_p
-  uint32_t* rk_s = reinterpret_cast<uint32_t*>(dkp_s + BLOCK);    // row keys
+  bf16* Qs = Vs + L::TILE;       // stages at Qs, Qs + 2 TILE
+  bf16* Gs = Qs + L::TILE;       // stages at Gs, Gs + 2 TILE
+  // per stage: lse hi, lse lo, delta * keep_p, row key
+  float* st = reinterpret_cast<float*>(smem + L::STAT_OFF);
 
   const int S = p.S;
   const int n0 = blockIdx.x * BLOCK;
@@ -122,9 +133,24 @@ __global__ void __launch_bounds__(THREADS) attn_dkdv_bf16(Params p) {
   const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
   const double log_keep = log(double(p.keep_p));
 
+  // stage `sg` <- query tile starting at q0 (tiles async, stats by hand)
+  auto load_stage = [&](int sg, int q0) {
+    load_tile_bf16<BLOCK, HD, L::LD>(Qs + 2 * sg * L::TILE, q, p.q_ss, q0, S);
+    load_tile_bf16<BLOCK, HD, L::LD>(Gs + 2 * sg * L::TILE, gr, p.g_ss, q0, S);
+    cp_async_commit();
+    if (tid < BLOCK) {
+      float* s4 = st + sg * L::STAT;
+      const int i = q0 + tid;
+      const bool ok = i < S;
+      split_lse(ok ? lse[i] + log_keep : 0.0, s4[tid], s4[BLOCK + tid]);
+      s4[2 * BLOCK + tid] = ok ? delta[i] * p.keep_p : 0.f;
+      reinterpret_cast<uint32_t*>(s4)[3 * BLOCK + tid] = row_key(hk, uint32_t(i));
+    }
+  };
+
   load_tile_bf16<BLOCK, HD, L::LD>(Ks, k, p.k_ss, n0, S);
   load_tile_bf16<BLOCK, HD, L::LD>(Vs, v, p.v_ss, n0, S);
-  cp_async_commit();
+  load_stage(0, 0);
   float kb[2];  // key bias of this thread's two key rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -138,20 +164,20 @@ __global__ void __launch_bounds__(THREADS) attn_dkdv_bf16(Params p) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
 
-  for (int q0 = 0; q0 < S; q0 += BLOCK) {
-    __syncthreads();  // the previous query tile is consumed
-    load_tile_bf16<BLOCK, HD, L::LD>(Qs, q, p.q_ss, q0, S);
-    load_tile_bf16<BLOCK, HD, L::LD>(Gs, gr, p.g_ss, q0, S);
-    cp_async_commit();
-    if (tid < BLOCK) {
-      const int i = q0 + tid;
-      const bool ok = i < S;
-      lse_s[tid] = ok ? lse[i] + log_keep : 0.0;
-      dkp_s[tid] = ok ? delta[i] * p.keep_p : 0.f;
-      rk_s[tid] = row_key(hk, uint32_t(i));
+  const int n_tiles = (S + BLOCK - 1) / BLOCK;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = it * BLOCK;
+    if (it + 1 < n_tiles) {  // prefetch the next query tile
+      load_stage((it + 1) & 1, q0 + BLOCK);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
     }
-    cp_async_wait_all();
     __syncthreads();
+    const bf16* Qt = Qs + 2 * (it & 1) * L::TILE;
+    const bf16* Gt = Gs + 2 * (it & 1) * L::TILE;
+    const float* s4 = st + (it & 1) * L::STAT;
+    const uint32_t* rk_s = reinterpret_cast<const uint32_t*>(s4) + 3 * BLOCK;
 
     // s = K Q^T and dp = V G^T for this warp's 16 keys x 64 queries
     float s[BLOCK / 8][4], dp[BLOCK / 8][4];
@@ -167,8 +193,8 @@ __global__ void __launch_bounds__(THREADS) attn_dkdv_bf16(Params p) {
 #pragma unroll
       for (int jq = 0; jq < BLOCK / 8; ++jq) {
         uint32_t bq[2], bg[2];
-        load_b_frag_nk(bq, Qs + jq * 8 * L::LD + kk * 16, L::LD, g, t);
-        load_b_frag_nk(bg, Gs + jq * 8 * L::LD + kk * 16, L::LD, g, t);
+        load_b_frag_nk(bq, Qt + jq * 8 * L::LD + kk * 16, L::LD, g, t);
+        load_b_frag_nk(bg, Gt + jq * 8 * L::LD + kk * 16, L::LD, g, t);
         mma_bf16(s[jq], ak, bq);
         mma_bf16(dp[jq], av, bg);
       }
@@ -184,10 +210,10 @@ __global__ void __launch_bounds__(THREADS) attn_dkdv_bf16(Params p) {
         float pr = 0.f;
         if (q0 + ci < S) {
           const float x = fmaf(s[jq][e], p.scale, kb[e >> 1]);
-          pr = exp2f(float(double(x) - lse_s[ci]) * LOG2E);
+          pr = exp2f(((x - s4[ci]) - s4[BLOCK + ci]) * LOG2E);
         }
         const bool kp = !p.threshold || keep_bit(key_word(rk_s[ci], j), j, p.threshold);
-        dp[jq][e] = pr * ((kp ? dp[jq][e] : 0.f) - dkp_s[ci]);
+        dp[jq][e] = pr * ((kp ? dp[jq][e] : 0.f) - s4[2 * BLOCK + ci]);
         s[jq][e] = kp ? pr : 0.f;
       }
     }
@@ -201,12 +227,13 @@ __global__ void __launch_bounds__(THREADS) attn_dkdv_bf16(Params p) {
 #pragma unroll
       for (int jd = 0; jd < HD / 8; ++jd) {
         uint32_t bg[2], bq[2];
-        load_b_frag_kn(bg, Gs + kk * 16 * L::LD + jd * 8, L::LD, lane);
-        load_b_frag_kn(bq, Qs + kk * 16 * L::LD + jd * 8, L::LD, lane);
+        load_b_frag_kn(bg, Gt + kk * 16 * L::LD + jd * 8, L::LD, lane);
+        load_b_frag_kn(bq, Qt + kk * 16 * L::LD + jd * 8, L::LD, lane);
         mma_bf16(dv[jd], pa, bg);
         mma_bf16(dk[jd], da, bq);
       }
     }
+    __syncthreads();  // this stage is free for the prefetch two tiles on
   }
 
   bf16* dkp = static_cast<bf16*>(p.dk) + b * p.o_sb + h * p.o_sn;
@@ -232,9 +259,9 @@ __global__ void __launch_bounds__(THREADS) attn_dq_bf16(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Gs = Qs + L::TILE;
-  bf16* Ks = Gs + L::TILE;
-  bf16* Vs = Ks + L::TILE;
-  float* bias_s = reinterpret_cast<float*>(smem + L::STAT_OFF);
+  bf16* Ks = Gs + L::TILE;  // stages at Ks, Ks + 2 TILE
+  bf16* Vs = Ks + L::TILE;  // stages at Vs, Vs + 2 TILE
+  float* bias_s = reinterpret_cast<float*>(smem + L::STAT_OFF);  // BLOCK per stage
 
   const int S = p.S;
   const int m0 = blockIdx.x * BLOCK;
@@ -256,17 +283,24 @@ __global__ void __launch_bounds__(THREADS) attn_dq_bf16(Params p) {
   const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
   const double log_keep = log(double(p.keep_p));
 
+  // stage `sg` <- key tile starting at k0 (tiles async, bias by hand)
+  auto load_stage = [&](int sg, int k0) {
+    load_tile_bf16<BLOCK, HD, L::LD>(Ks + 2 * sg * L::TILE, k, p.k_ss, k0, S);
+    load_tile_bf16<BLOCK, HD, L::LD>(Vs + 2 * sg * L::TILE, v, p.v_ss, k0, S);
+    cp_async_commit();
+    if (tid < BLOCK) bias_s[sg * BLOCK + tid] = (bias && k0 + tid < S) ? bias[k0 + tid] : 0.f;
+  };
+
   load_tile_bf16<BLOCK, HD, L::LD>(Qs, q, p.q_ss, m0, S);
   load_tile_bf16<BLOCK, HD, L::LD>(Gs, gr, p.g_ss, m0, S);
-  cp_async_commit();
-  double lse_r[2];
-  float dkp[2];
+  load_stage(0, 0);
+  float lse_hi[2], lse_lo[2], dkp[2];
   uint32_t rk[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int i = m0 + w0 + g + 8 * r;
     const bool ok = i < S;
-    lse_r[r] = ok ? lse[i] + log_keep : 0.0;
+    split_lse(ok ? lse[i] + log_keep : 0.0, lse_hi[r], lse_lo[r]);
     dkp[r] = ok ? delta[i] * p.keep_p : 0.f;
     rk[r] = row_key(hk, uint32_t(i));
   }
@@ -275,14 +309,19 @@ __global__ void __launch_bounds__(THREADS) attn_dq_bf16(Params p) {
 #pragma unroll
   for (int d = 0; d < HD / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
 
-  for (int k0 = 0; k0 < S; k0 += BLOCK) {
-    __syncthreads();  // the previous key tile is consumed
-    load_tile_bf16<BLOCK, HD, L::LD>(Ks, k, p.k_ss, k0, S);
-    load_tile_bf16<BLOCK, HD, L::LD>(Vs, v, p.v_ss, k0, S);
-    cp_async_commit();
-    if (tid < BLOCK) bias_s[tid] = (bias && k0 + tid < S) ? bias[k0 + tid] : 0.f;
-    cp_async_wait_all();
+  const int n_tiles = (S + BLOCK - 1) / BLOCK;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BLOCK;
+    if (it + 1 < n_tiles) {  // prefetch the next key tile
+      load_stage((it + 1) & 1, k0 + BLOCK);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
     __syncthreads();
+    const bf16* Kt = Ks + 2 * (it & 1) * L::TILE;
+    const bf16* Vt = Vs + 2 * (it & 1) * L::TILE;
+    const float* bt = bias_s + (it & 1) * BLOCK;
 
     // s = Q K^T and dp = G V^T for this warp's 16 queries x 64 keys
     float s[BLOCK / 8][4], dp[BLOCK / 8][4];
@@ -298,8 +337,8 @@ __global__ void __launch_bounds__(THREADS) attn_dq_bf16(Params p) {
 #pragma unroll
       for (int jk = 0; jk < BLOCK / 8; ++jk) {
         uint32_t bk[2], bv[2];
-        load_b_frag_nk(bk, Ks + jk * 8 * L::LD + kk * 16, L::LD, g, t);
-        load_b_frag_nk(bv, Vs + jk * 8 * L::LD + kk * 16, L::LD, g, t);
+        load_b_frag_nk(bk, Kt + jk * 8 * L::LD + kk * 16, L::LD, g, t);
+        load_b_frag_nk(bv, Vt + jk * 8 * L::LD + kk * 16, L::LD, g, t);
         mma_bf16(s[jk], aq, bk);
         mma_bf16(dp[jk], ag, bv);
       }
@@ -318,8 +357,8 @@ __global__ void __launch_bounds__(THREADS) attn_dq_bf16(Params p) {
           const int e = 2 * r + c;
           float pr = 0.f;
           if (int(col) + c < S) {
-            const float x = fmaf(s[jk][e], p.scale, bias_s[cj + c]);
-            pr = exp2f(float(double(x) - lse_r[r]) * LOG2E);
+            const float x = fmaf(s[jk][e], p.scale, bt[cj + c]);
+            pr = exp2f(((x - lse_hi[r]) - lse_lo[r]) * LOG2E);
           }
           const bool kp = !p.threshold || keep_bit(word, col + c, p.threshold);
           s[jk][e] = pr * ((kp ? dp[jk][e] : 0.f) - dkp[r]);
@@ -335,10 +374,11 @@ __global__ void __launch_bounds__(THREADS) attn_dq_bf16(Params p) {
 #pragma unroll
       for (int jd = 0; jd < HD / 8; ++jd) {
         uint32_t bk[2];
-        load_b_frag_kn(bk, Ks + kk * 16 * L::LD + jd * 8, L::LD, lane);
+        load_b_frag_kn(bk, Kt + kk * 16 * L::LD + jd * 8, L::LD, lane);
         mma_bf16(dq[jd], da, bk);
       }
     }
+    __syncthreads();  // this stage is free for the prefetch two tiles on
   }
 
   bf16* dqp = static_cast<bf16*>(p.dq) + b * p.o_sb + h * p.o_sn;

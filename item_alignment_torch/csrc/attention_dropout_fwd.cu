@@ -19,8 +19,8 @@
 // lse is stored in float64.  A fully masked row has scores of exactly -1e9
 // (the mask bias swallows q.k in fp32), so its fp32 lse, -1e9 + log(S),
 // rounds back to -1e9 and the backward's exp(s - lse) would give 1 instead
-// of the uniform 1/S.  In float64 it keeps log(S), and the backward takes
-// (double)s - lse before the exponential.  The statistics are in natural
+// of the uniform 1/S.  In float64 it keeps log(S), and the backward keeps
+// that precision in s - lse before the exponential.  The statistics are in natural
 // units (exp2f of (x - m) * log2(e)) for the same reason: the backward
 // recomputes x = fmaf(q.k, scale, bias) bit for bit.
 //
