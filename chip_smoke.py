@@ -139,8 +139,11 @@ def _ptxas_summary(log: str) -> str:
         m = re.search(r"(?:Compiling entry function|Function properties for) "
                       r"'?(\w+)", ln)
         if m:
-            k = re.search(r"(attn_[a-z0-9_]+?)ILi(\d+)E", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            k = re.search(r"(attn_[a-z0-9_]+?)I(f|13__nv_bfloat16)?Li(\d+)E",
+                          m.group(1))
+            dtype = {"f": "_f32", "13__nv_bfloat16": "_bf16"}.get(
+                k.group(2), "") if k else ""
+            name = f"{k.group(1)}{dtype}<{k.group(3)}>" if k else m.group(1)
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spill = m.group(1)
@@ -399,9 +402,8 @@ def phase_train_kernels(gen: torch.Generator) -> dict:
             torch.cuda.synchronize()
             ref, ref_lse = cat.fused_attention_dropout_reference(
                 rate, seed, q, k, v, bias)
-            delta = torch.einsum("bsnh,bsnh->bns", g.float(), out.float())
             ref_grads = cat.fused_attention_dropout_bwd_reference(
-                rate, seed, q, k, v, bias, g, lse, delta)
+                rate, seed, q, k, v, bias, g, lse, cat.attention_delta(g, out))
             e_out = (out.float() - ref.float()).abs().max().item()
             e_lse = ((lse - ref_lse).abs() / (ref_lse.abs() + 1.0)).max().item()
             e_grad = max(_rel(a, b) for a, b in zip(grads, ref_grads))
@@ -457,9 +459,9 @@ def time_train_kernels(gen: torch.Generator) -> dict:
         rate, seed, q, k, v, bias, g, out, lse), 20)
     fwd_plain = cuda_ms(lambda: cat.fused_attention_dropout_reference(
         rate, seed, q, k, v, bias), 3, warmup=1)
-    delta = torch.einsum("bsnh,bsnh->bns", g.float(), out.float())
     bwd_plain = cuda_ms(lambda: cat.fused_attention_dropout_bwd_reference(
-        rate, seed, q, k, v, bias, g, lse, delta), 3, warmup=1)
+        rate, seed, q, k, v, bias, g, lse, cat.attention_delta(g, out)), 3,
+        warmup=1)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     mask = bias.to(dt)
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -476,7 +478,7 @@ def time_train_kernels(gen: torch.Generator) -> dict:
             ("fwd", fwd_ms, fwd_plain, sdpa_fwd,
              4 * B * S * N * H * el + stats, 4 * B * N * S * S * H),
             ("bwd", bwd_ms, bwd_plain, sdpa_bwd,
-             8 * B * S * N * H * el + stats + B * N * S * 4,
+             8 * B * S * N * H * el + stats,
              10 * B * N * S * S * H)):
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = flops / PEAK_FLOPS[dt] * 1e3

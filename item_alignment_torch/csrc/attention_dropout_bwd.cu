@@ -4,9 +4,8 @@
 // Replaces the TPU kernel `_attn_dropout_bwd_kernel` in
 // item_alignment_tpu/ops/pallas_attention.py (launched by
 // `_fused_attention_dropout_bwd`, the backward of `fused_attention_dropout`
-// and, at rate 0, of `fused_attention`).  From the forward's saved float64
-// lse and delta = rowsum(g * out) (one torch reduction outside, as JAX
-// leaves it to XLA), with x = q.k * scale + bias:
+// and, at rate 0, of `fused_attention`).  From the forward's out and saved
+// float64 lse, with delta = rowsum(g * out) and x = q.k * scale + bias:
 //
 //   p_r = exp(x - (lse + ln keep_p))                  (= probs / keep_p)
 //   dv  = (keep * p_r)^T g
@@ -22,7 +21,10 @@
 // Design.  The TPU kernel recomputes a whole [S, S] tile per head; here the
 // backward is the two-kernel split that the TPU's blockwise kernels
 // (_flash_dq_kernel / _flash_dkv_kernel) use, which keeps the results free
-// of atomics and the same from run to run:
+// of atomics and the same from run to run, after a delta kernel:
+//   - delta: one thread per (batch row, query, head) sums g * out over the
+//     head dimension in fp32 (JAX leaves this to one XLA reduction,
+//     :399-400; in torch that reduction took longer than the dQ kernel);
 //   - dK/dV: one block per (64-key tile, head, batch row), each warp 16
 //     keys, looping over 64-query tiles.  Scores are computed transposed
 //     (keys as rows), so keep * p_r and ds are the A operands of dv and dk
@@ -33,7 +35,7 @@
 // accumulate; keep * p_r and ds rounded to bf16 as the TPU kernel rounds
 // them).  The looped tiles come through a two-stage cp.async pipeline: the
 // next tile loads while this one computes.  fp32 is a scalar-FMA
-// correctness path on 32 x 32 tiles.  One wrapper call launches both.
+// correctness path on 32 x 32 tiles.  One wrapper call launches all three.
 //
 // Bound on this card (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s).  Work
 // is 10*B*N*S^2*H FLOP (as the TPU kernel's CostEstimate counts it; the
@@ -44,6 +46,7 @@
 // instead of wgmma keep this version well above that bound.
 
 #include <cmath>
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -54,15 +57,17 @@ using namespace ia;
 constexpr int BLOCK = 64;  // bf16 tiles
 constexpr int ROWS_PER_WARP = 16;
 constexpr int FBLOCK = 32;  // fp32 tiles
+constexpr int DELTA_THREADS = 256;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const void* g;
+  const void* out;      // the forward's output
   const float* bias;    // [B, S] key bias rows (stride bias_sb), or nullptr
   const double* lse;    // [B, N, S]
-  const float* delta;   // [B, N, S]
+  float* delta;         // [B, N, S], written by the delta kernel
   void* dq;
   void* dk;
   void* dv;
@@ -71,6 +76,7 @@ struct Params {
   long long k_sb, k_ss, k_sn;
   long long v_sb, v_ss, v_sn;
   long long g_sb, g_ss, g_sn;
+  long long out_sb, out_ss, out_sn;
   long long o_sb, o_ss, o_sn;  // dq, dk and dv share one layout
   long long bias_sb;
   float scale;
@@ -100,6 +106,40 @@ template <typename T>
 __device__ __forceinline__ const T* slice(const void* base, int b, int h, long long sb,
                                           long long sn) {
   return static_cast<const T*>(base) + b * sb + h * sn;
+}
+
+// delta[b, n, i] = sum over h of g[b, i, n, h] * out[b, i, n, h] in fp32,
+// one thread per (b, i, n) row
+template <typename T, int HD>
+__global__ void __launch_bounds__(DELTA_THREADS) attn_delta(Params p, long long rows) {
+  const long long row = (long long)blockIdx.x * DELTA_THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int n = int(row % p.N);
+  const int i = int(row / p.N % p.S);
+  const int b = int(row / ((long long)p.N * p.S));
+  const T* gp = static_cast<const T*>(p.g) + b * p.g_sb + i * p.g_ss + n * p.g_sn;
+  const T* op = static_cast<const T*>(p.out) + b * p.out_sb + i * p.out_ss + n * p.out_sn;
+  float acc = 0.f;
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int d = 0; d < HD; d += 8) {  // 16-byte loads
+      const uint4 gv = *reinterpret_cast<const uint4*>(gp + d);
+      const uint4 ov = *reinterpret_cast<const uint4*>(op + d);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float2 gf = __bfloat1622float2(g2[c]);
+        const float2 of = __bfloat1622float2(o2[c]);
+        acc = fmaf(gf.x, of.x, acc);
+        acc = fmaf(gf.y, of.y, acc);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < HD; ++d) acc = fmaf(gp[d], op[d], acc);
+  }
+  p.delta[((long long)b * p.N + n) * p.S + i] = acc;
 }
 
 template <int HD>
@@ -583,14 +623,26 @@ cudaError_t launch(Kernel kernel, int smem, int block, const Params& p, int B, c
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t launch_delta(const Params& p, int B, cudaStream_t st) {
+  const long long rows = (long long)B * p.S * p.N;
+  const unsigned blocks = unsigned((rows + DELTA_THREADS - 1) / DELTA_THREADS);
+  attn_delta<T, HD><<<blocks, DELTA_THREADS, 0, st>>>(p, rows);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_hd(int dtype, const Params& p, int B, cudaStream_t st) {
   cudaError_t err;
   if (dtype == 1) {
+    err = launch_delta<bf16, HD>(p, B, st);
+    if (err != cudaSuccess) return err;
     err = launch(attn_dkdv_bf16<HD>, Bf16Layout<HD>::BYTES, BLOCK, p, B, st);
     if (err != cudaSuccess) return err;
     return launch(attn_dq_bf16<HD>, Bf16Layout<HD>::BYTES, BLOCK, p, B, st);
   }
+  err = launch_delta<float, HD>(p, B, st);
+  if (err != cudaSuccess) return err;
   err = launch(attn_dkdv_f32<HD>, F32Layout<HD>::BYTES, FBLOCK, p, B, st);
   if (err != cudaSuccess) return err;
   return launch(attn_dq_f32<HD>, F32Layout<HD>::BYTES, FBLOCK, p, B, st);
@@ -601,28 +653,51 @@ cudaError_t launch_hd(int dtype, const Params& p, int B, cudaStream_t st) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64 or 128.  q, k, v, g
-// and the outputs dq, dk, dv are [B, S, N, H] with strides in elements and
-// a contiguous head dimension (bfloat16: 16-byte aligned, other strides
-// multiples of 8); dq, dk and dv share one layout.  `bias` may be null;
-// `lse` (float64) and `delta` (float32) are contiguous [B, N, S].  threshold
-// and keep_p as for ia_attention_dropout_fwd.  Launches the dK/dV kernel,
-// then the dQ kernel; returns the first cudaError_t that is not 0.
+// (the gradient of out), out (the forward's output) and the outputs dq, dk,
+// dv are [B, S, N, H] with strides in elements and a contiguous head
+// dimension (bfloat16: 16-byte aligned, other strides multiples of 8); dq,
+// dk and dv share one layout.  `bias` may be null; `lse` (float64, from the
+// forward) and the workspace `delta` (float32) are contiguous [B, N, S].
+// threshold and keep_p as for ia_attention_dropout_fwd.  Launches the delta,
+// dK/dV and dQ kernels in that order; returns the first cudaError_t that is
+// not 0.
 int ia_attention_dropout_bwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
-                             const void* g, const void* bias, const void* lse, const void* delta,
-                             void* dq, void* dk, void* dv, int B, int S, int N, long long q_sb,
-                             long long q_ss, long long q_sn, long long k_sb, long long k_ss,
-                             long long k_sn, long long v_sb, long long v_ss, long long v_sn,
-                             long long g_sb, long long g_ss, long long g_sn, long long o_sb,
+                             const void* g, const void* out, const void* bias, const void* lse,
+                             void* delta, void* dq, void* dk, void* dv, int B, int S, int N,
+                             long long q_sb, long long q_ss, long long q_sn, long long k_sb,
+                             long long k_ss, long long k_sn, long long v_sb, long long v_ss,
+                             long long v_sn, long long g_sb, long long g_ss, long long g_sn,
+                             long long out_sb, long long out_ss, long long out_sn, long long o_sb,
                              long long o_ss, long long o_sn, long long bias_sb, float scale,
                              unsigned int seed, unsigned int threshold, float keep_p,
                              void* stream) {
   if (B <= 0 || S <= 0 || N <= 0 || (dtype != 0 && dtype != 1) || threshold > 255)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q,    k,    v,    g,    static_cast<const float*>(bias),
-                 static_cast<const double*>(lse), static_cast<const float*>(delta),
-                 dq,   dk,   dv,   S,    N,
-                 q_sb, q_ss, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss, v_sn, g_sb, g_ss, g_sn,
-                 o_sb, o_ss, o_sn, bias_sb, scale, seed, threshold, keep_p};
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.g = g;
+  p.out = out;
+  p.bias = static_cast<const float*>(bias);
+  p.lse = static_cast<const double*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.S = S;
+  p.N = N;
+  p.q_sb = q_sb, p.q_ss = q_ss, p.q_sn = q_sn;
+  p.k_sb = k_sb, p.k_ss = k_ss, p.k_sn = k_sn;
+  p.v_sb = v_sb, p.v_ss = v_ss, p.v_sn = v_sn;
+  p.g_sb = g_sb, p.g_ss = g_ss, p.g_sn = g_sn;
+  p.out_sb = out_sb, p.out_ss = out_ss, p.out_sn = out_sn;
+  p.o_sb = o_sb, p.o_ss = o_ss, p.o_sn = o_sn;
+  p.bias_sb = bias_sb;
+  p.scale = scale;
+  p.seed = seed;
+  p.threshold = threshold;
+  p.keep_p = keep_p;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 32) return launch_hd<32>(dtype, p, B, st);
   if (head_dim == 64) return launch_hd<64>(dtype, p, B, st);

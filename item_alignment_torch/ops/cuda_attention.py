@@ -22,17 +22,18 @@ import torch
 from item_alignment_torch.ops import _build
 from item_alignment_torch.ops import cuda_attention_train as train
 from item_alignment_torch.ops.cuda_attention_train import (
+    DTYPE_CODE,
     BLOCK_N,
     INIT_MAX,
     MIN_DENOM,
+    bias_rows,
+    cuda_stream,
     check_inputs,
     check_launchable,
 )
 
 # launches of the CUDA kernel (never counts the CPU plain version)
 LAUNCHES = 0
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -84,19 +85,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn.restype = i32
     B, S, N, H = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    bias_rows = None
-    if bias is not None:
-        bias_rows = bias.reshape(B, S).to(torch.float32).contiguous()
+    rows = bias_rows(bias, B, S)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            _DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias_rows is None else bias_rows.data_ptr(),
+            DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if rows is None else rows.data_ptr(),
             out.data_ptr(), B, S, N,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3],
-            0 if bias_rows is None else bias_rows.stride(0),
-            1.0 / math.sqrt(H), stream)
+            *out.stride()[:3], 0 if rows is None else rows.stride(0),
+            1.0 / math.sqrt(H), cuda_stream(q))
     _build.check(lib, err, "fused attention")
     return out
 

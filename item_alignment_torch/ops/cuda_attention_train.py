@@ -7,9 +7,9 @@ Port of ``item_alignment_tpu/ops/pallas_attention.py:fused_attention_dropout``
 - ``fused_attention_dropout_fwd`` launches ``csrc/attention_dropout_fwd.cu``
   (kernel #2): out ``[B, S, N, H]`` and the float64 row statistics lse
   ``[B, N, S]``.
-- ``fused_attention_dropout_bwd`` computes delta = rowsum(g * out) with one
-  torch reduction and launches ``csrc/attention_dropout_bwd.cu`` (kernel #3,
-  a dK/dV and a dQ CUDA kernel in one call): dq, dk, dv.
+- ``fused_attention_dropout_bwd`` launches ``csrc/attention_dropout_bwd.cu``
+  (kernel #3: a delta = rowsum(g * out), a dK/dV and a dQ CUDA kernel in one
+  call): dq, dk, dv.
 - ``fused_attention_dropout`` is the ``autograd.Function``: it saves the
   seed, q, k, v, the bias, out and lse, and the backward regenerates the
   mask from the seed.
@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from item_alignment_torch.ops import _build
-from item_alignment_torch.ops.dropout import M32, mix32
+from item_alignment_torch.ops.dropout import M32, dropout_consts, mix32
 
 # launches of the CUDA kernels (never counts the CPU plain versions); one
 # backward call launches its two CUDA kernels and counts once
@@ -40,18 +40,9 @@ BLOCK_N = 64  # keys per tile in the forward kernel
 HEAD_DIMS = (32, 64, 128)
 INIT_MAX = -1e30
 MIN_DENOM = 1e-37
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the plain versions also take float64 (and then compute in it)
 _PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
-
-
-def dropout_consts(rate: float) -> Tuple[int, float]:
-    """(threshold, keep_p): keep iff the uint8 draw >= round(rate * 256);
-    survivors are scaled by 1 / keep_p, the effective keep probability."""
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"attention dropout rate must be in [0, 1), got {rate}")
-    t = int(round(rate * 256.0))
-    return t, 1.0 - t / 256.0
 
 
 def keep_mask_reference(seed: int, B: int, N: int, S: int, threshold: int,
@@ -93,7 +84,7 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def check_launchable(*tensors: torch.Tensor) -> None:
     """What the CUDA kernels need beyond ``check_inputs``."""
-    if tensors[0].dtype not in _DTYPE_CODE:
+    if tensors[0].dtype not in DTYPE_CODE:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16, got "
                         f"{tensors[0].dtype}")
     H = tensors[0].shape[-1]
@@ -113,7 +104,8 @@ def _device_kind(q: torch.Tensor, what: str) -> str:
     return kind
 
 
-def _bias_rows(bias: Optional[torch.Tensor], B: int, S: int):
+def bias_rows(bias: Optional[torch.Tensor], B: int, S: int):
+    """The [B, 1, 1, S] key bias as contiguous fp32 [B, S] rows."""
     if bias is None:
         return None
     return bias.reshape(B, S).to(torch.float32).contiguous()
@@ -176,6 +168,13 @@ def fused_attention_dropout_reference(
     return out.permute(0, 2, 1, 3).to(q.dtype), lse[..., 0]
 
 
+def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(g * out) ``[B, N, S]`` in the accumulation dtype, the
+    row term of the backward (the plain version of its delta kernel)."""
+    ct = _acc_dtype(g)
+    return torch.einsum("bsnh,bsnh->bns", g.to(ct), out.to(ct))
+
+
 def fused_attention_dropout_bwd_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], g: torch.Tensor, lse: torch.Tensor,
@@ -227,7 +226,7 @@ def _load(name: str, fn: str, n_ptr: int, n_dims: int):
     return lib, f
 
 
-def _stream(t: torch.Tensor) -> int:
+def cuda_stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -238,36 +237,37 @@ def _launch_fwd(rate, seed, q, k, v, bias):
     t, keep_p = dropout_consts(rate)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, N, S), dtype=torch.float64, device=q.device)
-    rows = _bias_rows(bias, B, S)
+    rows = bias_rows(bias, B, S)
     with torch.cuda.device(q.device):
-        err = fn(_DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
+        err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), None if rows is None else rows.data_ptr(),
                  out.data_ptr(), lse.data_ptr(), B, S, N,
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], 0 if rows is None else rows.stride(0),
-                 1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, _stream(q))
+                 1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, cuda_stream(q))
     _build.check(lib, err, "attention dropout forward")
     return out, lse
 
 
-def _launch_bwd(rate, seed, q, k, v, bias, g, lse, delta):
-    check_launchable(q, k, v, g)
-    lib, fn = _load("attention_dropout_bwd", "ia_attention_dropout_bwd", 10, 16)
+def _launch_bwd(rate, seed, q, k, v, bias, g, out, lse):
+    check_launchable(q, k, v, g, out)
+    lib, fn = _load("attention_dropout_bwd", "ia_attention_dropout_bwd", 11, 19)
     B, S, N, H = q.shape
     t, keep_p = dropout_consts(rate)
     dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
                   for _ in range(3))
-    rows = _bias_rows(bias, B, S)
-    lse, delta = lse.contiguous(), delta.contiguous()
+    rows = bias_rows(bias, B, S)
+    lse = lse.contiguous()
+    delta = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = fn(_DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), g.data_ptr(),
+        err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), g.data_ptr(), out.data_ptr(),
                  None if rows is None else rows.data_ptr(), lse.data_ptr(),
                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, S, N, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *g.stride()[:3], *dq.stride()[:3],
+                 *g.stride()[:3], *out.stride()[:3], *dq.stride()[:3],
                  0 if rows is None else rows.stride(0), 1.0 / math.sqrt(H),
-                 int(seed) & M32, t, keep_p, _stream(q))
+                 int(seed) & M32, t, keep_p, cuda_stream(q))
     _build.check(lib, err, "attention dropout backward")
     return dq, dk, dv
 
@@ -298,15 +298,15 @@ def fused_attention_dropout_bwd(
     gradient ``g``."""
     global BWD_LAUNCHES
     check_inputs(q, k, v, bias)
-    if g.shape != q.shape or g.dtype != q.dtype:
-        raise ValueError(f"g must match q, got {tuple(g.shape)} {g.dtype}")
+    for name, t in (("g", g), ("out", out)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} must match q, got {tuple(t.shape)} "
+                             f"{t.dtype}")
     g = g.contiguous()
-    ct = _acc_dtype(q)
-    delta = torch.einsum("bsnh,bsnh->bns", g.to(ct), out.to(ct))
     if _device_kind(q, "fused_attention_dropout") == "cpu":
-        return fused_attention_dropout_bwd_reference(rate, seed, q, k, v, bias,
-                                                     g, lse, delta)
-    grads = _launch_bwd(rate, seed, q, k, v, bias, g, lse, delta)
+        return fused_attention_dropout_bwd_reference(
+            rate, seed, q, k, v, bias, g, lse, attention_delta(g, out))
+    grads = _launch_bwd(rate, seed, q, k, v, bias, g, out, lse)
     BWD_LAUNCHES += 1
     return grads
 

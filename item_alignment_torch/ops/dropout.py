@@ -63,8 +63,12 @@ def fold_seed(seed: Optional[int], site: int) -> Optional[int]:
     return mix32(int(seed) ^ mix32(int(site) + 0x632BE5AB))
 
 
-def _consts(rate: float) -> Tuple[int, float]:
-    """(threshold, effective keep probability) for uint8 draws."""
+def dropout_consts(rate: float) -> Tuple[int, float]:
+    """(threshold, keep_p) of dropout on uint8 draws, as the TPU kernels'
+    ``_keep_mask_u8``: keep iff the draw >= round(rate * 256); survivors
+    are scaled by 1 / keep_p, the effective keep probability."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
     t = int(round(rate * 256.0))
     return t, 1.0 - t / 256.0
 
@@ -79,14 +83,14 @@ def _replay_keep(seed: int, shape, device, threshold: int) -> torch.Tensor:
 class _ReplayDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rate: float, seed: int, x: torch.Tensor) -> torch.Tensor:
-        t, keep_p = _consts(rate)
+        t, keep_p = dropout_consts(rate)
         ctx.rate, ctx.seed = rate, seed
         keep = _replay_keep(seed, x.shape, x.device, t)
         return torch.where(keep, x * (1.0 / keep_p), torch.zeros_like(x))
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        t, keep_p = _consts(ctx.rate)
+        t, keep_p = dropout_consts(ctx.rate)
         keep = _replay_keep(ctx.seed, g.shape, g.device, t)
         return None, None, torch.where(keep, g * (1.0 / keep_p),
                                        torch.zeros_like(g))
@@ -94,7 +98,7 @@ class _ReplayDropout(torch.autograd.Function):
 
 def replay_dropout(rate: float, seed: int, x: torch.Tensor) -> torch.Tensor:
     """Inverted dropout whose backward regenerates the mask from ``seed``."""
-    if _consts(rate)[0] == 0:
+    if dropout_consts(rate)[0] == 0:
         return x
     return _ReplayDropout.apply(rate, seed, x)
 

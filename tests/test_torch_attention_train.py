@@ -235,9 +235,9 @@ def test_cuda_attention_gradients_reach_qkv(monkeypatch):
     monkeypatch.setattr(cat, "_launch_fwd", cat.fused_attention_dropout_reference)
     monkeypatch.setattr(
         cat, "_launch_bwd",
-        lambda rate, seed, q, k, v, bias, g, lse, delta:
-        cat.fused_attention_dropout_bwd_reference(rate, seed, q, k, v, bias,
-                                                  g, lse, delta))
+        lambda rate, seed, q, k, v, bias, g, out, lse:
+        cat.fused_attention_dropout_bwd_reference(
+            rate, seed, q, k, v, bias, g, lse, cat.attention_delta(g, out)))
     monkeypatch.setattr(cuda_attention, "_launch",
                         lambda *a: kernel1.append(1) or
                         cuda_attention.fused_attention_reference(*a))
