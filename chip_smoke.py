@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, one line each (more for phases 2, 3 and 6); any failure exits
+Phases, one line each (more for phases 2, 3, 6, 7 and 8); any failure exits
 non-zero:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
@@ -35,7 +35,13 @@ non-zero:
    weights with ``use_flash_attention=False``, every parameter's gradient.
 8. training: RoBERTa-large ``RobertaOneTower`` with the bench.py recipe
    (batch 40, S=510, dropout 0.1, fused AdamW with bf16 moments) takes one
-   warm-up step and three timed steps through the port's ``Trainer``.
+   warm-up step and three timed steps through the port's ``Trainer``, then
+   one more under ``torch.profiler`` for the device time by kernel group
+   and the device's idle share.
+9. remat: RoBERTa-large at batch 4 with dropout 0.1 and one seed; the
+   gradients with each ``remat_policy`` equal those without remat.  It runs
+   last: run before phase 8, it slowed phase 8's host side (the device time
+   per step stayed the same), and phase 8's step is close to host-bound.
 
 Every launch counter is zeroed before phase 4 and read after phase 5 (the
 serving path: only the serving kernel, once per layer of every forward), and
@@ -572,6 +578,91 @@ def phase_grad_check(cfg: ModelConfig, seed: int, gen: torch.Generator) -> None:
         del grads
 
 
+def phase_remat_check(cfg: ModelConfig, seed: int, gen: torch.Generator) -> None:
+    """Remat through the kernels: RoBERTa-large at batch 4 in bf16 with
+    dropout 0.1 and one dropout seed; the gradients with remat_policy
+    full, dots and mlp equal those without remat within 1e-6 of max|ref|
+    (the replay recomputes the same bf16 values with the same masks, since
+    every mask is a function of the seed and the site), and the replay
+    launches #2 once more per layer."""
+    cfg = cfg.replace(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+    B, S = 4, cfg.pair_seq_len
+    ids, mask = pair_batch(B, S, cfg.vocab_size, gen)
+    labels = torch.tensor([0, 1, 1, 0], device="cuda")
+    ref, state, worst = None, None, {}
+    for policy in (None, "full", "dots", "mlp"):
+        model = RobertaOneTower(cfg.replace(remat=policy is not None,
+                                            remat_policy=policy or "full"),
+                                seed=None if state else seed)
+        if state:
+            model.load_state_dict(state)
+        zero_counters()
+        loss = model(ids, mask, labels=labels, deterministic=False,
+                     dropout_seed=5).loss
+        loss.backward()
+        launches = counters()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        if ref is None:
+            ref, state = (loss.item(), grads), model.state_dict()
+            check(launches == (0, LAYERS, LAYERS),
+                  f"remat check: launches without remat {launches}")
+            continue
+        check(launches == (0, 2 * LAYERS, LAYERS),
+              f"remat check {policy}: launches (#1, #2, #3) {launches}")
+        check(loss.item() == ref[0], f"remat check {policy}: loss "
+              f"{loss.item()} vs {ref[0]}")
+        worst[policy] = max(_rel(grads[n], g) for n, g in ref[1].items())
+        check(worst[policy] <= 1e-6, f"remat check {policy}: gradients off "
+              f"by {worst[policy]} of max|ref|")
+        del model, grads
+    print(f"phase 9 remat check bf16 dropout 0.1: batch {B} S={S}, loss "
+          f"{ref[0]:.6f} with and without remat; worst gradient diff of "
+          f"max|ref|: " + ", ".join(f"{p} {e:.3e}" for p, e in worst.items())
+          + f"; launches #2/#3 {launches[1]}/{launches[2]} with remat",
+          flush=True)
+    del ref, state
+    torch.cuda.empty_cache()
+
+
+# device kernels by what they compute, from their names
+KERNEL_GROUPS = (("attention #2/#3", ("attn_",)),
+                 ("matrix products", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+def profile_step(trainer: Trainer, batch, step_ms: float) -> str:
+    """One more train step under torch.profiler: the device time of its
+    kernels by group, the share of the unprofiled step time (``step_ms``)
+    in which the device ran none, and the six host ops whose own kernels
+    took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in name for k in keys)), "other")
+        groups[group] += e.time_range.elapsed_us() / 1e3
+    busy = sum(groups.values())
+    if busy == 0.0:
+        return "device time not measured (the profiler recorded no kernels)"
+    ops = sorted(((e.self_device_time_total / 1e3, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU), reverse=True)[:6]
+    return (f"device busy {busy:.2f} ms of {step_ms:.2f} ms/step (idle share "
+            f"{1 - busy / step_ms:.3f}): " + ", ".join(
+                f"{g} {ms:.2f} ms" for g, ms in groups.items())
+            + "; host ops by own device time: "
+            + ", ".join(f"{name} {ms:.2f} ms" for ms, name in ops))
+
+
 def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator) -> dict:
     """RoBERTa-large at the bench.py recipe through the port's Trainer."""
     B, S, steps = 40, cfg.pair_seq_len, 4  # one warm-up, three timed
@@ -625,6 +716,7 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator) -> dict:
     check(launches == expect, f"training: launches (#1, #2, #3) {launches} "
           f"over {steps} steps, expected {expect}")
     step_ms = sum(times[1:]) / (steps - 1) * 1e3
+    profiled = profile_step(trainer, batches[-1], step_ms)
     print(f"phase 8 training: RoBERTa-large batch {B} S={S} dropout 0.1, "
           f"fused AdamW bf16 moments, remat={remat}: losses "
           f"{[round(x, 6) for x in losses]}; {step_ms:.2f} ms/step over "
@@ -634,6 +726,7 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator) -> dict:
           f"{launches[2]}, #1 {launches[0]}; max |update| "
           + ", ".join(f"{n.split('.')[-2]} {v:.3e}" for n, v in moved.items()),
           flush=True)
+    print(f"phase 8 profile of one more step: {profiled}", flush=True)
     del model, trainer
     torch.cuda.empty_cache()
     return dict(launches=launches)
@@ -665,6 +758,7 @@ def main() -> None:
     train = phase_train_kernels(gen)
     phase_grad_check(cfg, args.seed, gen)
     trained = phase_train(cfg, args.seed, gen)["launches"]  # the training path
+    phase_remat_check(cfg, args.seed, gen)
 
     common = {"route": "cuda"}
     rows = [
