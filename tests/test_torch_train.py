@@ -4,8 +4,8 @@ Weights move from JAX to the port with ``state_dict_from_flax``.  At dropout
 0 with ``deterministic=False`` the loss and every parameter's gradient must
 agree with ``jax.grad``; the port's ``Trainer`` must follow the JAX
 ``Trainer`` (on the 8-device CPU mesh of ``tests/conftest.py``) step for
-step; and the learning check of ``.claude/skills/verify/SKILL.md`` must pass
-through the port's ``Trainer``.
+step; and a tiny pair task must be learned through the port's ``Trainer``
+(loss below half its start, F1 > 0.9).
 """
 
 import json
@@ -155,7 +155,7 @@ TINY = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
 
 
 def _learning_data(seed=0, n=32):
-    """The SKILL.md learning task: tgt copies src for positive pairs."""
+    """The tiny learning task: tgt copies src for positive pairs."""
     cfg = TModel(**TINY)
     rng = np.random.RandomState(seed)
     S = cfg.pair_seq_len
@@ -188,7 +188,7 @@ def learned():
 
 
 def test_trainer_learns(learned):
-    """The learning check of the verify recipe, through the port's Trainer:
+    """The tiny learning task through the port's Trainer:
     loss below half its start and F1 > 0.9."""
     trainer, ds, result = learned
     losses = [h["loss"] for h in result["history"]]
