@@ -23,9 +23,6 @@ from item_alignment_torch.ops import _build
 from item_alignment_torch.ops import cuda_attention_train as train
 from item_alignment_torch.ops.cuda_attention_train import (
     DTYPE_CODE,
-    BLOCK_N,
-    INIT_MAX,
-    MIN_DENOM,
     bias_rows,
     cuda_stream,
     check_inputs,
@@ -40,36 +37,14 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               bias: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, step by step: 64-key tiles, an
-    online softmax from the finite -1e30 start with fp32 scores and stats,
-    unnormalised p rounded to v's dtype before P.V, and a final divide by
-    max(rowsum, 1e-37).  (The bf16 kernel takes its exponentials as exp2 of
-    log2(e)-scaled scores: the same values up to fp32 rounding.)  q/k/v
+    """Plain PyTorch version of the kernel: the attention-dropout plain
+    version at rate 0, step by step (64-key tiles, an online softmax from
+    the finite -1e30 start with fp32 scores and stats, unnormalised p
+    rounded to v's dtype before P.V, and a final divide by max(rowsum,
+    1e-37)).  The bf16 kernel takes its exponentials as exp2 of
+    log2(e)-scaled scores: the same values up to fp32 rounding.  q/k/v
     ``[B, S, N, H]``, bias ``[B, 1, 1, S]``."""
-    B, S, N, H = q.shape
-    scale = 1.0 / math.sqrt(H)
-    qf = q.float().permute(0, 2, 1, 3)           # [B, N, S, H]
-    kf = k.float().permute(0, 2, 1, 3)
-    vf = v.float().permute(0, 2, 1, 3)
-    # every score is one fp32 dot product, as in the kernel; taking them in
-    # one product keeps the summation order of the plain path
-    scores = (qf @ kf.transpose(-1, -2)) * scale        # [B, N, S, S]
-    if bias is not None:
-        scores = scores + bias.reshape(B, 1, 1, S).float()
-    m = scores.new_full((B, N, S, 1), INIT_MAX)
-    l = scores.new_zeros((B, N, S, 1))
-    acc = scores.new_zeros((B, N, S, H))
-    for t0 in range(0, S, BLOCK_N):
-        t1 = min(t0 + BLOCK_N, S)
-        s = scores[..., t0:t1]
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p.to(v.dtype).float() @ vf[:, :, t0:t1]
-        m = m_new
-    out = acc / torch.clamp(l, min=MIN_DENOM)
-    return out.permute(0, 2, 1, 3).to(q.dtype)
+    return train.fused_attention_dropout_reference(0.0, 0, q, k, v, bias)[0]
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -98,24 +73,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-class _FusedAttention(torch.autograd.Function):
-    """The JAX custom VJP of ``fused_attention``: the attention-dropout
-    kernels at rate 0, with lse saved for the backward."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, bias):
-        out, lse = train.fused_attention_dropout_fwd(0.0, 0, q, k, v, bias)
-        ctx.save_for_backward(q, k, v, bias, out, lse)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, bias, out, lse = ctx.saved_tensors
-        dq, dk, dv = train.fused_attention_dropout_bwd(0.0, 0, q, k, v, bias,
-                                                       g, out, lse)
-        return dq, dk, dv, None
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(H) + bias) v in q's dtype.  q/k/v
@@ -129,7 +86,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"fused_attention runs on cuda or cpu, not "
                          f"{q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FusedAttention.apply(q, k, v, bias)
+        return train.fused_attention_dropout(0.0, 0, q, k, v, bias)
     out = _launch(q, k, v, bias)
     LAUNCHES += 1
     return out

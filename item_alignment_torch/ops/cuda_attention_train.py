@@ -32,7 +32,8 @@ from item_alignment_torch.ops import _build
 from item_alignment_torch.ops.dropout import M32, dropout_consts, mix32
 
 # launches of the CUDA kernels (never counts the CPU plain versions); one
-# backward call launches its two CUDA kernels and counts once
+# backward call launches its three CUDA kernels (delta, dK/dV, dQ) and
+# counts once
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
