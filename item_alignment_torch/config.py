@@ -8,7 +8,7 @@ kept so that configs and checkpoints move between the packages unchanged.
 In the port's ``Trainer``, ``TrainConfig.scan_steps`` and
 ``dropout_rng_impl`` have no effect (PyTorch runs each step eagerly, and the
 dropout masks are hashes of integer seeds), and a mesh of more than one
-device, ``checkpoint_dir`` and ``resume`` raise (ROADMAP Queue 1 #17, #18).
+device raises (ROADMAP Queue 1 #17).
 
 - ``interaction_type``:       one_tower | two_tower
 - ``classification_method``:  cls | vec_sim

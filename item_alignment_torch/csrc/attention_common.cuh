@@ -1,6 +1,9 @@
-// Pieces shared by the attention-dropout kernels (attention_dropout_fwd.cu,
-// attention_dropout_bwd.cu): the dropout mask's integer hash, the mma.sync
-// and cp.async helpers, and the tile loaders.
+// Pieces shared by the attention kernels with row statistics
+// (attention_dropout_fwd.cu, attention_dropout_bwd.cu for S <= 512;
+// flash_blockwise_fwd.cu, flash_blockwise_bwd.cu for longer sequences): the
+// dropout mask's integer hash, the mma.sync and cp.async helpers, the tile
+// loaders, the float-float split of lse and the delta kernel of the
+// backward passes.
 //
 // The dropout mask.  The TPU kernels draw their keep bits from the TPU's
 // hardware PRNG, which nothing else reproduces.  Here the keep bit of score
@@ -24,12 +27,14 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace ia {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 128;  // 4 warps
+constexpr int DELTA_THREADS = 256;
 constexpr float INIT_MAX = -1e30f;
 constexpr float MIN_DENOM = 1e-37f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -120,10 +125,6 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long
   }
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -142,21 +143,28 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A fragment (16 rows x 16 cols, starting at p) of a row-major shared tile
-__device__ __forceinline__ void load_a_frag(uint32_t a[4], const bf16* p, int ld, int g, int t) {
-  const bf16* base = p + g * ld + 2 * t;
-  a[0] = ld_u32(base);
-  a[1] = ld_u32(base + 8 * ld);
-  a[2] = ld_u32(base + 8);
-  a[3] = ld_u32(base + 8 * ld + 8);
+// The B fragments of two adjacent 8-row groups (b0: rows 0..7, b1: rows
+// 8..15 of the row-major [n][k] tile at p, the k-dimension contiguous: K in
+// Q K^T) over one 16-deep k step, through one ldmatrix.x4: lane 4g + t gets
+// (row g, k 2t..2t+1) in b[0] and (row g, k 2t+8..2t+9) in b[1].  Rows must
+// be 16-byte aligned.
+__device__ __forceinline__ void load_b_frag_nk_x2(uint32_t b0[2], uint32_t b1[2], const bf16* p,
+                                                  int ld, int lane) {
+  const int m = lane >> 3;  // this lane addresses one row of matrix m
+  const bf16* row = p + ((m >> 1) * 8 + (lane & 7)) * ld + (m & 1) * 8;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1])
+               : "r"(smem_addr(row)));
 }
 
-// B fragment (16 k x 8 n) where the shared tile is row-major [n][k]: the
-// k-dimension is contiguous (K in Q K^T)
-__device__ __forceinline__ void load_b_frag_nk(uint32_t b[2], const bf16* p, int ld, int g, int t) {
-  const bf16* base = p + g * ld + 2 * t;
-  b[0] = ld_u32(base);
-  b[1] = ld_u32(base + 8);
+// An A fragment (16 rows x 16 cols at p of a row-major shared tile) through
+// one ldmatrix.x4
+__device__ __forceinline__ void load_a_frag_x4(uint32_t a[4], const bf16* p, int ld, int lane) {
+  const int m = lane >> 3;
+  const bf16* row = p + ((m & 1) * 8 + (lane & 7)) * ld + (m >> 1) * 8;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr(row)));
 }
 
 // B fragment (16 k x 8 n) where the shared tile is row-major [k][n]: the
@@ -173,6 +181,71 @@ __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4], const
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// lse + ln keep_p as a float-float pair: x - hi is exact for the scores
+// that matter (a fully masked row's x equals hi), and lo carries the rest
+__device__ __forceinline__ void split_lse(double lse, float& hi, float& lo) {
+  hi = float(lse);
+  lo = float(lse - double(hi));
+}
+
+// the (batch row b, head h) slice of a [B, S, N, H] tensor
+template <typename T>
+__device__ __forceinline__ const T* slice(const void* base, int b, int h, long long sb,
+                                          long long sn) {
+  return static_cast<const T*>(base) + b * sb + h * sn;
+}
+
+// delta[b, n, i] = sum over h of g[b, i, n, h] * out[b, i, n, h] in fp32,
+// the row term of both backward passes; one thread per (b, i, n) row
+struct DeltaParams {
+  const void* g;
+  const void* out;
+  float* delta;  // [B, N, S]
+  int S, N;
+  long long g_sb, g_ss, g_sn;
+  long long out_sb, out_ss, out_sn;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(DELTA_THREADS) attn_delta(DeltaParams p, long long rows) {
+  const long long row = (long long)blockIdx.x * DELTA_THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int n = int(row % p.N);
+  const int i = int(row / p.N % p.S);
+  const int b = int(row / ((long long)p.N * p.S));
+  const T* gp = static_cast<const T*>(p.g) + b * p.g_sb + i * p.g_ss + n * p.g_sn;
+  const T* op = static_cast<const T*>(p.out) + b * p.out_sb + i * p.out_ss + n * p.out_sn;
+  float acc = 0.f;
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int d = 0; d < HD; d += 8) {  // 16-byte loads
+      const uint4 gv = *reinterpret_cast<const uint4*>(gp + d);
+      const uint4 ov = *reinterpret_cast<const uint4*>(op + d);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float2 gf = __bfloat1622float2(g2[c]);
+        const float2 of = __bfloat1622float2(o2[c]);
+        acc = fmaf(gf.x, of.x, acc);
+        acc = fmaf(gf.y, of.y, acc);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < HD; ++d) acc = fmaf(gp[d], op[d], acc);
+  }
+  p.delta[((long long)b * p.N + n) * p.S + i] = acc;
+}
+
+template <typename T, int HD>
+cudaError_t launch_delta(const DeltaParams& p, int B, cudaStream_t st) {
+  const long long rows = (long long)B * p.S * p.N;
+  const unsigned blocks = unsigned((rows + DELTA_THREADS - 1) / DELTA_THREADS);
+  attn_delta<T, HD><<<blocks, DELTA_THREADS, 0, st>>>(p, rows);
+  return cudaGetLastError();
 }
 
 }  // namespace ia

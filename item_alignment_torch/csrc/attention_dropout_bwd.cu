@@ -22,9 +22,10 @@
 // backward is the two-kernel split that the TPU's blockwise kernels
 // (_flash_dq_kernel / _flash_dkv_kernel) use, which keeps the results free
 // of atomics and the same from run to run, after a delta kernel:
-//   - delta: one thread per (batch row, query, head) sums g * out over the
-//     head dimension in fp32 (JAX leaves this to one XLA reduction,
-//     :399-400; in torch that reduction took longer than the dQ kernel);
+//   - delta (attention_common.cuh): one thread per (batch row, query, head)
+//     sums g * out over the head dimension in fp32 (JAX leaves this to one
+//     XLA reduction, :399-400; in torch that reduction took longer than the
+//     dQ kernel);
 //   - dK/dV: one block per (64-key tile, head, batch row), each warp 16
 //     keys, looping over 64-query tiles.  Scores are computed transposed
 //     (keys as rows), so keep * p_r and ds are the A operands of dv and dk
@@ -46,7 +47,6 @@
 // instead of wgmma keep this version well above that bound.
 
 #include <cmath>
-#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -57,7 +57,6 @@ using namespace ia;
 constexpr int BLOCK = 64;  // bf16 tiles
 constexpr int ROWS_PER_WARP = 16;
 constexpr int FBLOCK = 32;  // fp32 tiles
-constexpr int DELTA_THREADS = 256;
 
 struct Params {
   const void* q;
@@ -94,53 +93,6 @@ struct Bf16Layout {
   static constexpr int STAT = 4 * BLOCK;  // 4-byte words per stage
   static constexpr int BYTES = STAT_OFF + 2 * STAT * 4;
 };
-
-// lse + ln keep_p as a float-float pair: x - hi is exact for the scores
-// that matter (a fully masked row's x equals hi), and lo carries the rest
-__device__ __forceinline__ void split_lse(double lse, float& hi, float& lo) {
-  hi = float(lse);
-  lo = float(lse - double(hi));
-}
-
-template <typename T>
-__device__ __forceinline__ const T* slice(const void* base, int b, int h, long long sb,
-                                          long long sn) {
-  return static_cast<const T*>(base) + b * sb + h * sn;
-}
-
-// delta[b, n, i] = sum over h of g[b, i, n, h] * out[b, i, n, h] in fp32,
-// one thread per (b, i, n) row
-template <typename T, int HD>
-__global__ void __launch_bounds__(DELTA_THREADS) attn_delta(Params p, long long rows) {
-  const long long row = (long long)blockIdx.x * DELTA_THREADS + threadIdx.x;
-  if (row >= rows) return;
-  const int n = int(row % p.N);
-  const int i = int(row / p.N % p.S);
-  const int b = int(row / ((long long)p.N * p.S));
-  const T* gp = static_cast<const T*>(p.g) + b * p.g_sb + i * p.g_ss + n * p.g_sn;
-  const T* op = static_cast<const T*>(p.out) + b * p.out_sb + i * p.out_ss + n * p.out_sn;
-  float acc = 0.f;
-  if constexpr (std::is_same<T, bf16>::value) {
-#pragma unroll
-    for (int d = 0; d < HD; d += 8) {  // 16-byte loads
-      const uint4 gv = *reinterpret_cast<const uint4*>(gp + d);
-      const uint4 ov = *reinterpret_cast<const uint4*>(op + d);
-      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float2 gf = __bfloat1622float2(g2[c]);
-        const float2 of = __bfloat1622float2(o2[c]);
-        acc = fmaf(gf.x, of.x, acc);
-        acc = fmaf(gf.y, of.y, acc);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc = fmaf(gp[d], op[d], acc);
-  }
-  p.delta[((long long)b * p.N + n) * p.S + i] = acc;
-}
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS) attn_dkdv_bf16(Params p) {
@@ -228,15 +180,17 @@ __global__ void __launch_bounds__(THREADS) attn_dkdv_bf16(Params p) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t ak[4], av[4];
-      load_a_frag(ak, Ks + w0 * L::LD + kk * 16, L::LD, g, t);
-      load_a_frag(av, Vs + w0 * L::LD + kk * 16, L::LD, g, t);
+      load_a_frag_x4(ak, Ks + w0 * L::LD + kk * 16, L::LD, lane);
+      load_a_frag_x4(av, Vs + w0 * L::LD + kk * 16, L::LD, lane);
 #pragma unroll
-      for (int jq = 0; jq < BLOCK / 8; ++jq) {
-        uint32_t bq[2], bg[2];
-        load_b_frag_nk(bq, Qt + jq * 8 * L::LD + kk * 16, L::LD, g, t);
-        load_b_frag_nk(bg, Gt + jq * 8 * L::LD + kk * 16, L::LD, g, t);
-        mma_bf16(s[jq], ak, bq);
-        mma_bf16(dp[jq], av, bg);
+      for (int jq = 0; jq < BLOCK / 8; jq += 2) {
+        uint32_t bq0[2], bq1[2], bg0[2], bg1[2];  // queries jq*8.. and (jq+1)*8..
+        load_b_frag_nk_x2(bq0, bq1, Qt + jq * 8 * L::LD + kk * 16, L::LD, lane);
+        load_b_frag_nk_x2(bg0, bg1, Gt + jq * 8 * L::LD + kk * 16, L::LD, lane);
+        mma_bf16(s[jq], ak, bq0);
+        mma_bf16(s[jq + 1], ak, bq1);
+        mma_bf16(dp[jq], av, bg0);
+        mma_bf16(dp[jq + 1], av, bg1);
       }
     }
 
@@ -372,15 +326,17 @@ __global__ void __launch_bounds__(THREADS) attn_dq_bf16(Params p) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       uint32_t aq[4], ag[4];
-      load_a_frag(aq, Qs + w0 * L::LD + kk * 16, L::LD, g, t);
-      load_a_frag(ag, Gs + w0 * L::LD + kk * 16, L::LD, g, t);
+      load_a_frag_x4(aq, Qs + w0 * L::LD + kk * 16, L::LD, lane);
+      load_a_frag_x4(ag, Gs + w0 * L::LD + kk * 16, L::LD, lane);
 #pragma unroll
-      for (int jk = 0; jk < BLOCK / 8; ++jk) {
-        uint32_t bk[2], bv[2];
-        load_b_frag_nk(bk, Kt + jk * 8 * L::LD + kk * 16, L::LD, g, t);
-        load_b_frag_nk(bv, Vt + jk * 8 * L::LD + kk * 16, L::LD, g, t);
-        mma_bf16(s[jk], aq, bk);
-        mma_bf16(dp[jk], ag, bv);
+      for (int jk = 0; jk < BLOCK / 8; jk += 2) {
+        uint32_t bk0[2], bk1[2], bv0[2], bv1[2];  // keys jk*8.. and (jk+1)*8..
+        load_b_frag_nk_x2(bk0, bk1, Kt + jk * 8 * L::LD + kk * 16, L::LD, lane);
+        load_b_frag_nk_x2(bv0, bv1, Vt + jk * 8 * L::LD + kk * 16, L::LD, lane);
+        mma_bf16(s[jk], aq, bk0);
+        mma_bf16(s[jk + 1], aq, bk1);
+        mma_bf16(dp[jk], ag, bv0);
+        mma_bf16(dp[jk + 1], ag, bv1);
       }
     }
 
@@ -623,25 +579,22 @@ cudaError_t launch(Kernel kernel, int smem, int block, const Params& p, int B, c
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_delta(const Params& p, int B, cudaStream_t st) {
-  const long long rows = (long long)B * p.S * p.N;
-  const unsigned blocks = unsigned((rows + DELTA_THREADS - 1) / DELTA_THREADS);
-  attn_delta<T, HD><<<blocks, DELTA_THREADS, 0, st>>>(p, rows);
-  return cudaGetLastError();
+DeltaParams delta_params(const Params& p) {
+  return DeltaParams{p.g,    p.out,  p.delta, p.S,      p.N,      p.g_sb,
+                     p.g_ss, p.g_sn, p.out_sb, p.out_ss, p.out_sn};
 }
 
 template <int HD>
 cudaError_t launch_hd(int dtype, const Params& p, int B, cudaStream_t st) {
   cudaError_t err;
   if (dtype == 1) {
-    err = launch_delta<bf16, HD>(p, B, st);
+    err = launch_delta<bf16, HD>(delta_params(p), B, st);
     if (err != cudaSuccess) return err;
     err = launch(attn_dkdv_bf16<HD>, Bf16Layout<HD>::BYTES, BLOCK, p, B, st);
     if (err != cudaSuccess) return err;
     return launch(attn_dq_bf16<HD>, Bf16Layout<HD>::BYTES, BLOCK, p, B, st);
   }
-  err = launch_delta<float, HD>(p, B, st);
+  err = launch_delta<float, HD>(delta_params(p), B, st);
   if (err != cudaSuccess) return err;
   err = launch(attn_dkdv_f32<HD>, F32Layout<HD>::BYTES, FBLOCK, p, B, st);
   if (err != cudaSuccess) return err;

@@ -29,10 +29,11 @@
 // warps takes 64 queries of one (batch row, head), each warp 16 rows, and
 // loops over 64-key tiles with an online softmax from the finite -1e30
 // start.  Keys past S are left out of the max and the sum.  bf16 runs on
-// the tensor cores (mma.sync m16n8k16, fp32 accumulate) with Q, the score
-// tile, P and the output in registers and a two-stage cp.async pipeline for
-// K and V; each thread hashes one 32-bit word per two of its scores.  fp32
-// is a scalar-FMA correctness path.
+// the tensor cores (mma.sync m16n8k16, fp32 accumulate; the K fragments of
+// two products per ldmatrix.x4) with Q, the score tile, P and the output in
+// registers and a two-stage cp.async pipeline for K and V; each thread
+// hashes one 32-bit word per two of its scores.  fp32 is a scalar-FMA
+// correctness path.
 //
 // Bound on this card (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s).  Work
 // is 4*B*N*S^2*H FLOP (as the TPU kernel's CostEstimate counts it) and
@@ -137,7 +138,7 @@ __global__ void __launch_bounds__(THREADS) attn_dropout_fwd_bf16(Params p) {
       load_tile_bf16<BLOCK, HD, L::LD>(Ks + ((it + 1) & 1) * L::TILE, k, p.k_ss, kv0 + BLOCK, S);
       load_tile_bf16<BLOCK, HD, L::LD>(Vs + ((it + 1) & 1) * L::TILE, v, p.v_ss, kv0 + BLOCK, S);
       cp_async_commit();
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      cp_async_wait_one();
     } else {
       cp_async_wait_all();
     }
@@ -145,18 +146,20 @@ __global__ void __launch_bounds__(THREADS) attn_dropout_fwd_bf16(Params p) {
 
     if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) load_a_frag(qf[kk], Qs + r0 * L::LD + kk * 16, L::LD, g, t);
+      for (int kk = 0; kk < HD / 16; ++kk) load_a_frag_x4(qf[kk], Qs + r0 * L::LD + kk * 16, L::LD, lane);
     }
 
     float s[BLOCK / 8][4];
 #pragma unroll
-    for (int j = 0; j < BLOCK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < BLOCK / 8; j += 2) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s[j + 1][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t kb[2];
-        load_b_frag_nk(kb, Kt + j * 8 * L::LD + kk * 16, L::LD, g, t);
-        mma_bf16(s[j], qf[kk], kb);
+        uint32_t kb0[2], kb1[2];  // keys j*8.. and (j+1)*8..
+        load_b_frag_nk_x2(kb0, kb1, Kt + j * 8 * L::LD + kk * 16, L::LD, lane);
+        mma_bf16(s[j], qf[kk], kb0);
+        mma_bf16(s[j + 1], qf[kk], kb1);
       }
     }
 

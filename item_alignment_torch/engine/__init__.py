@@ -1,5 +1,7 @@
-"""Engine ported so far: training, metrics and two-tower encode-once
-inference."""
+"""Engine ported so far: training with checkpoint/resume, metrics and
+two-tower encode-once inference."""
+
+from item_alignment_torch.engine.checkpoint import CheckpointManager  # noqa: F401
 
 from item_alignment_torch.engine.inference import (  # noqa: F401
     TwoTowerInference,

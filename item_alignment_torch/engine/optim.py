@@ -151,6 +151,31 @@ class Optimizer:
         for p in self.params.values():
             p.grad = None
 
+    def state_dict(self) -> Dict[str, object]:
+        """What a resumed run needs: the AdamW moments (in their storage
+        dtype) and step count, which is also the schedule's position, and
+        the gradient-accumulation window."""
+        return {"count": self.adamw.count, "mu": dict(self.adamw.mu),
+                "nu": dict(self.adamw.nu), "mini_step": self.mini_step,
+                "acc": dict(self.acc)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, object]) -> None:
+        for ours, theirs in ((self.adamw.mu, state["mu"]),
+                             (self.adamw.nu, state["nu"])):
+            if ours.keys() != theirs.keys():
+                raise KeyError("optimizer state names differ from the model's")
+            for name, t in ours.items():
+                if theirs[name].dtype != t.dtype:
+                    raise TypeError(
+                        f"moment {name} was saved as {theirs[name].dtype}, "
+                        f"this optimizer stores {t.dtype}")
+                t.copy_(theirs[name])
+        self.adamw.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self.acc = {n: t.to(self.params[n].device)
+                    for n, t in state["acc"].items()}
+
 
 def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
                         ) -> Dict[str, torch.Tensor]:

@@ -5,11 +5,17 @@ model's forward with ``deterministic=False``, ``loss.backward()`` and the
 optimizer chain of ``engine/optim.py``; PyTorch runs it eagerly on one
 device (``"cuda"`` unless the caller asks for the CPU).  The step's dropout
 seed is a pure function of ``(config.seed, step)``, so a run is reproduced
-from its config.
+from its config, and ``step`` stands in for the JAX train state's
+``dropout_rng`` in a checkpoint.
+
+With ``config.checkpoint_dir``, ``fit`` saves the full train state every
+``checkpoint_every_epochs`` epochs through ``engine/checkpoint.py``
+(parameters, optimizer moments and step count, ``step``, and the loop's
+bookkeeping), keeps the best-F1 parameters in ``best_f1.pt`` beside them,
+and with ``config.resume`` continues from the latest checkpoint.
 
 Not ported yet, and raising: a mesh of more than one device (ROADMAP Queue
-1 #17), ``checkpoint_dir``/``resume`` (Queue 1 #18) and adversarial
-training (Queue 1 #10).
+1 #17) and adversarial training (Queue 1 #10).
 """
 
 from __future__ import annotations
@@ -28,6 +34,11 @@ from item_alignment_torch.config import TrainConfig
 from item_alignment_torch.data.datasets import ArrayDataset
 from item_alignment_torch.device import resolve_device
 from item_alignment_torch.engine import metrics as M
+from item_alignment_torch.engine.checkpoint import (
+    CheckpointManager,
+    load_params,
+    save_params,
+)
 from item_alignment_torch.engine.optim import Optimizer, make_optimizer
 from item_alignment_torch.ops.dropout import fold_seed
 
@@ -65,10 +76,6 @@ class Trainer:
             raise NotImplementedError(
                 "the port's Trainer runs on one device; data/fsdp/tensor "
                 "meshes are ROADMAP Queue 1 #17")
-        if config.checkpoint_dir or config.resume:
-            raise NotImplementedError(
-                "checkpoint_dir/resume need the port of engine/checkpoint.py "
-                "(ROADMAP Queue 1 #18)")
         if adversarial:
             raise NotImplementedError(
                 "adversarial training needs the port of engine/adversarial.py "
@@ -194,15 +201,72 @@ class Trainer:
                     w.write(json.dumps(row) + "\n")
         return path
 
+    # -------------------------------------------------- checkpoint/resume
+    def _host_params(self) -> Dict[str, torch.Tensor]:
+        return {k: v.detach().cpu().clone()
+                for k, v in self.model.state_dict().items()}
+
+    def save_checkpoint(self, manager: CheckpointManager, epoch: int,
+                        best_f1: float = 0.0, best_epoch: int = -1,
+                        best_threshold: float = 0.5,
+                        stale_evals: int = 0) -> None:
+        """Full train-state checkpoint: parameters, optimizer moments (in
+        their storage dtype) and step count, ``step`` (which fixes every
+        later dropout seed) and the loop's bookkeeping."""
+        if self.optimizer is None:
+            self.setup()
+        manager.save(self.step, {
+            "params": self.model.state_dict(),
+            "opt_state": self.optimizer.state_dict(),
+            "step": self.step,
+            "meta": {"epoch": int(epoch), "best_f1": float(best_f1),
+                     "best_epoch": int(best_epoch),
+                     "best_threshold": float(best_threshold),
+                     "stale_evals": int(stale_evals)},
+        })
+
+    def restore_checkpoint(self, manager: CheckpointManager,
+                           step: Optional[int] = None) -> Dict[str, Any]:
+        """Restore the full train state in place; returns the loop's
+        bookkeeping."""
+        if self.optimizer is None:
+            self.setup()
+        tree = manager.restore(step)
+        self.model.load_state_dict(tree["params"])
+        self.optimizer.load_state_dict(tree["opt_state"])
+        self.step = int(tree["step"])
+        meta = tree["meta"]
+        logger.info(f"[resume] restored step {self.step} (epoch "
+                    f"{meta['epoch']}, best_f1 {meta['best_f1']:.4f})")
+        return meta
+
     def fit(self, train_ds: ArrayDataset,
             valid_ds: Optional[ArrayDataset] = None) -> Dict[str, Any]:
         """Epoch loop with threshold-sweep eval, best-F1 tracking (the best
-        parameters land in ``best_params``) and optional early stopping."""
+        parameters land in ``best_params``), optional early stopping, and
+        full-state checkpoint/resume when ``config.checkpoint_dir`` is
+        set."""
         cfg = self.config
         history = []
         best: Dict[str, Any] = {"best_f1": 0.0, "epoch": -1, "params": None}
         stale_evals = 0
-        for epoch in range(cfg.num_epochs):
+        start_epoch = 0
+        manager = None
+        if cfg.checkpoint_dir:
+            manager = CheckpointManager(cfg.checkpoint_dir,
+                                        keep=cfg.keep_checkpoints)
+            best_path = os.path.join(cfg.checkpoint_dir, "best_f1.pt")
+            if cfg.resume and manager.latest_step() is not None:
+                meta = self.restore_checkpoint(manager)
+                start_epoch = int(meta["epoch"]) + 1
+                stale_evals = int(meta["stale_evals"])
+                best = {"best_f1": float(meta["best_f1"]),
+                        "epoch": int(meta["best_epoch"]),
+                        "threshold": float(meta["best_threshold"]),
+                        "params": None}
+                if best["epoch"] >= 0 and os.path.exists(best_path):
+                    best["params"] = load_params(best_path)
+        for epoch in range(start_epoch, cfg.num_epochs):
             stats = self.train_epoch(train_ds, epoch, valid_ds)
             stop = False
             if valid_ds is not None:
@@ -212,9 +276,10 @@ class Trainer:
                 if ev.get("best_f1", 0.0) > best["best_f1"]:
                     best = {"best_f1": ev["best_f1"], "epoch": epoch,
                             "threshold": ev.get("best_threshold"),
-                            "params": {k: v.detach().cpu().clone() for k, v
-                                       in self.model.state_dict().items()}}
+                            "params": self._host_params()}
                     stale_evals = 0
+                    if manager is not None:
+                        save_params(best_path, best["params"])
                 else:
                     stale_evals += 1
                 logger.info(f"epoch {epoch}: loss {stats['loss']:.4f} "
@@ -224,6 +289,13 @@ class Trainer:
                     logger.info(f"early stopping after {stale_evals} stale evals")
                     stop = True
             history.append(stats)
+            if (manager is not None
+                    and (epoch + 1) % cfg.checkpoint_every_epochs == 0):
+                self.save_checkpoint(
+                    manager, epoch, best_f1=best["best_f1"],
+                    best_epoch=best["epoch"],
+                    best_threshold=best.get("threshold") or 0.5,
+                    stale_evals=stale_evals)
             if stop:
                 break
         best_params = best.pop("params", None)

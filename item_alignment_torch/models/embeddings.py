@@ -3,6 +3,12 @@
 Port of ``item_alignment_tpu/models/embeddings.py``: ``create_position_ids``,
 ``EmbedPostprocess`` and ``RobertaEmbeddings`` (with the ``cate_ids`` hook).
 The embedding LayerNorm has no compute dtype, so it runs and returns fp32.
+
+One deliberate difference: position ids derived from ``input_ids`` run up to
+S + ``pad_token_id``, and a sequence whose last id would lie past the
+position table raises a ``ValueError`` here.  In JAX an index past the table
+is silent (``nn.Embed`` clamps or fills); in torch it is an index error on
+the CPU and a device-side assert on the card.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ import torch
 from torch import nn
 
 from item_alignment_torch.config import ModelConfig
-from item_alignment_torch.models.layers import LayerNorm
+from item_alignment_torch.models.layers import LayerNorm, embedding_lookup
 from item_alignment_torch.ops.dropout import ReplayDropout
 
 
@@ -40,8 +46,9 @@ class EmbedPostprocess(nn.Module):
     def forward(self, inputs_embeds, token_type_ids, position_ids,
                 deterministic: bool = True,
                 dropout_seed: Optional[int] = None):
-        x = (inputs_embeds + self.token_type_embeddings(token_type_ids)
-             + self.position_embeddings(position_ids))
+        x = (inputs_embeds
+             + embedding_lookup(self.token_type_embeddings, token_type_ids)
+             + embedding_lookup(self.position_embeddings, position_ids))
         x = self.layer_norm(x)
         return self.dropout(x, dropout_seed, deterministic)
 
@@ -68,13 +75,21 @@ class RobertaEmbeddings(nn.Module):
     ) -> torch.Tensor:
         cfg = self.config
         if position_ids is None:
+            last = input_ids.shape[1] + cfg.pad_token_id
+            if last >= cfg.max_position_embeddings:
+                raise ValueError(
+                    f"a sequence of {input_ids.shape[1]} tokens needs position "
+                    f"ids up to {last} (S + pad_token_id), but the position "
+                    f"table has max_position_embeddings="
+                    f"{cfg.max_position_embeddings} rows; grow the table "
+                    f"(utils/hf_import.py copies the pretrained rows)")
             position_ids = create_position_ids(input_ids, cfg.pad_token_id)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        embeds = self.word_embeddings(input_ids)
+        embeds = embedding_lookup(self.word_embeddings, input_ids)
         if cate_ids is not None:
             if not cfg.cate_size:
                 raise ValueError("cate_ids passed but config.cate_size unset")
-            embeds = embeds + self.cate_embeddings(cate_ids)
+            embeds = embeds + embedding_lookup(self.cate_embeddings, cate_ids)
         return self.post(embeds, token_type_ids, position_ids, deterministic,
                          dropout_seed)

@@ -1,4 +1,4 @@
-"""Dense and LayerNorm with Flax's dtype rules.
+"""Dense and LayerNorm with Flax's dtype rules, and the embedding lookup.
 
 Parameters are stored in fp32.  ``Dense(dtype=bf16)`` casts both its input
 and its parameters to bf16 before the product, as ``flax.linen.Dense`` does;
@@ -6,6 +6,16 @@ with ``dtype=None`` it computes in the promoted type of input and
 parameters.  ``LayerNorm`` computes its statistics in fp32 (mean and
 E[x^2] - mean^2, clipped at 0) and returns ``dtype``, or the input's
 promoted type when ``dtype`` is None.
+
+``embedding_lookup`` reads rows of an ``nn.Embedding``'s table and sums its
+gradient in a fixed order.  torch's own embedding backward on CUDA sums the
+duplicates of a row (thousands for the pad token, the pad position and the
+token types) in an order that changes from run to run, which would break
+bit-for-bit repeat and resume.  Here a small table's gradient is a one-hot
+matrix product, and a large table's a stable sort of the ids followed by
+``torch.segment_reduce``, which adds each row's duplicates in turn
+(``index_put_`` with ``accumulate=True`` is as repeatable but took 23 ms of
+a RoBERTa-large train step on an H100 against about 2 ms for these).
 """
 
 from __future__ import annotations
@@ -15,6 +25,35 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+ONE_HOT_ROWS = 2048  # tables up to this many rows take the one-hot product
+
+
+class _EmbeddingLookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        flat, g = ids.reshape(-1).long(), g.reshape(-1, g.shape[-1])
+        rows = torch.arange(ctx.rows, device=g.device)
+        if ctx.rows <= ONE_HOT_ROWS:
+            return (rows[:, None] == flat[None, :]).to(g.dtype) @ g, None
+        order = torch.sort(flat, stable=True).indices
+        lengths = torch.zeros_like(rows).index_add_(0, flat,
+                                                    torch.ones_like(flat))
+        return torch.segment_reduce(g[order], "sum", lengths=lengths, axis=0,
+                                    unsafe=True), None
+
+
+def embedding_lookup(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``table.weight[ids]`` with a gradient that repeats run to run."""
+    return _EmbeddingLookup.apply(table.weight, ids)
 
 
 class Dense(nn.Module):

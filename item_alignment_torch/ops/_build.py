@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_attention", "attention_dropout_fwd", "attention_dropout_bwd")
+SOURCES = ("fused_attention", "attention_dropout_fwd", "attention_dropout_bwd",
+           "flash_blockwise_fwd", "flash_blockwise_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per library: path, build seconds (0 when cached) and nvcc's log

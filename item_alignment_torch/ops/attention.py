@@ -2,10 +2,13 @@
 
 ``dot_product_attention`` is the plain math path (any device), with JAX's
 continuous-rate dropout on the probabilities.  ``flash_attention``
-dispatches to the fused kernels: ``ops/cuda_attention.py`` (kernel #1, and
-kernels #2/#3 at rate 0 when a gradient is wanted) without dropout, and
-``ops/cuda_attention_train.py`` (kernels #2/#3) with dropout.  CUDA tensors
-launch them; CPU tensors run their plain versions.  Port of
+dispatches to the fused kernels.  At S <= 512: ``ops/cuda_attention.py``
+(kernel #1, and kernels #2/#3 at rate 0 when a gradient is wanted) without
+dropout, and ``ops/cuda_attention_train.py`` (kernels #2/#3) with dropout.
+At S > 512: ``ops/cuda_attention_blockwise.py`` (kernels #4-#6) with and
+without dropout.  CUDA tensors launch them; CPU tensors run their plain
+versions; a failed build or launch raises (the JAX dispatcher's fallback to
+the plain path is not carried over).  Port of
 ``item_alignment_tpu/ops/attention.py``.
 """
 
@@ -17,6 +20,10 @@ from typing import Optional
 import torch
 
 from item_alignment_torch.ops.cuda_attention import fused_attention
+from item_alignment_torch.ops.cuda_attention_blockwise import (
+    fused_attention_blockwise,
+    fused_attention_blockwise_dropout,
+)
 from item_alignment_torch.ops.cuda_attention_train import fused_attention_dropout
 
 NEG_INF = -1e9  # matches BERT-style additive masking ((1-mask)*-10000 in HF)
@@ -68,14 +75,18 @@ def flash_attention(
 ) -> torch.Tensor:
     """Fused attention.  With a rate and a seed it runs
     ``fused_attention_dropout`` (kernels #2/#3, the mask a hash of the
-    seed), otherwise ``fused_attention``.  CUDA tensors at S <= 512 launch
-    the kernels, CPU tensors take their plain versions; the blockwise
-    kernels for S > 512 are not ported yet, and asking for them raises."""
-    if q.device.type == "cuda" and q.shape[1] > MAX_FUSED_SEQ:
-        raise NotImplementedError(
-            f"S={q.shape[1]} > {MAX_FUSED_SEQ} on CUDA needs the blockwise "
-            "kernels (ROADMAP Queue 2 #4-#6, _flash_kernel), not ported yet")
-    if dropout_rate > 0.0 and dropout_seed is not None:
-        return fused_attention_dropout(dropout_rate, dropout_seed, q, k, v,
-                                       bias).to(dtype)
-    return fused_attention(q, k, v, bias).to(dtype)
+    seed), otherwise ``fused_attention``; at S > 512 their blockwise
+    counterparts (kernels #4-#6), which take any S.  CUDA tensors launch
+    the kernels, CPU tensors take their plain versions."""
+    dropout = dropout_rate > 0.0 and dropout_seed is not None
+    if q.shape[1] > MAX_FUSED_SEQ:
+        if dropout:
+            out = fused_attention_blockwise_dropout(dropout_rate, dropout_seed,
+                                                    q, k, v, bias)
+        else:
+            out = fused_attention_blockwise(q, k, v, bias)
+    elif dropout:
+        out = fused_attention_dropout(dropout_rate, dropout_seed, q, k, v, bias)
+    else:
+        out = fused_attention(q, k, v, bias)
+    return out.to(dtype)

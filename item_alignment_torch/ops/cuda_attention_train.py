@@ -134,15 +134,16 @@ def _scores(q, k, bias):
     return scores
 
 
-def fused_attention_dropout_reference(
+def online_softmax_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor], block_n: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel #2, step by step: 64-key tiles, an
-    online softmax from the finite -1e30 start, l summing the undropped
-    mass, keep * p rounded to v's dtype before P.V, and out divided by
-    max(l, 1e-37) * keep_p.  Returns out ``[B, S, N, H]`` in q's dtype and
-    lse = m + log(max(l, 1e-37)) ``[B, N, S]`` in float64."""
+    """The forward kernels (#2, and #4 of ``cuda_attention_blockwise``) step
+    by step, over key tiles of ``block_n``: an online softmax from the finite
+    -1e30 start, l summing the undropped mass, keep * p rounded to v's dtype
+    before P.V, and out divided by max(l, 1e-37) * keep_p.  Returns out
+    ``[B, S, N, H]`` in q's dtype and lse = m + log(max(l, 1e-37))
+    ``[B, N, S]`` in float64."""
     B, S, N, H = q.shape
     t, keep_p = dropout_consts(rate)
     scores = _scores(q, k, bias)
@@ -152,8 +153,8 @@ def fused_attention_dropout_reference(
     m = scores.new_full((B, N, S, 1), INIT_MAX)
     l = scores.new_zeros((B, N, S, 1))
     acc = scores.new_zeros((B, N, S, H))
-    for t0 in range(0, S, BLOCK_N):
-        t1 = min(t0 + BLOCK_N, S)
+    for t0 in range(0, S, block_n):
+        t1 = min(t0 + block_n, S)
         s = scores[..., t0:t1]
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -169,6 +170,15 @@ def fused_attention_dropout_reference(
     return out.permute(0, 2, 1, 3).to(q.dtype), lse[..., 0]
 
 
+def fused_attention_dropout_reference(
+    rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel #2: ``online_softmax_reference`` over
+    the kernel's 64-key tiles.  Returns (out, lse)."""
+    return online_softmax_reference(rate, seed, q, k, v, bias, BLOCK_N)
+
+
 def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(g * out) ``[B, N, S]`` in the accumulation dtype, the
     row term of the backward (the plain version of its delta kernel)."""
@@ -176,23 +186,22 @@ def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsnh,bsnh->bns", g.to(ct), out.to(ct))
 
 
-def fused_attention_dropout_bwd_reference(
+def backward_terms_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], g: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel #3 (the TPU kernel's algebra):
-    p_r = exp(s - (lse + ln keep_p)) with s - lse taken in float64,
-    dv = (keep * p_r)^T g, ds = p_r * (where(keep, g v^T, 0) - delta *
-    keep_p), dq = ds k / sqrt(H), dk = ds^T q / sqrt(H); keep * p_r and ds
-    are rounded to q's dtype before their products.  ``lse`` float64 and
-    ``delta`` fp32 are ``[B, N, S]``; returns dq, dk, dv in q's dtype."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two score-shaped terms of the backward kernels (#3, and #5/#6 of
+    ``cuda_attention_blockwise``), ``[B, N, S, S]`` in the accumulation
+    dtype, each already rounded to q's dtype as the kernels round them:
+    keep * p_r and ds = p_r * (where(keep, g v^T, 0) - delta * keep_p), with
+    p_r = exp(s - (lse + ln keep_p)) and s - lse taken in float64."""
     B, S, N, H = q.shape
     dt = q.dtype
     t, keep_p = dropout_consts(rate)
     scores = _scores(q, k, bias)
     ct = scores.dtype
-    qf, kf, vf, gf = (x.to(ct).permute(0, 2, 1, 3) for x in (q, k, v, g))
+    vf, gf = (x.to(ct).permute(0, 2, 1, 3) for x in (v, g))
     shift = lse.double() + math.log(keep_p)
     p_r = torch.exp((scores.double() - shift[..., None]).to(ct))
     dpd = gf @ vf.transpose(-1, -2)
@@ -202,12 +211,37 @@ def fused_attention_dropout_bwd_reference(
         dpd = torch.where(keep, dpd, torch.zeros_like(dpd))
     else:
         pd = p_r
-    dv = pd.to(dt).to(ct).transpose(-1, -2) @ gf
-    ds = (p_r * (dpd - delta.to(ct)[..., None] * keep_p)).to(dt).to(ct)
-    scale = 1.0 / math.sqrt(H)
-    dq = (ds @ kf) * scale
-    dk = (ds.transpose(-1, -2) @ qf) * scale
-    return tuple(x.permute(0, 2, 1, 3).to(dt) for x in (dq, dk, dv))
+    ds = p_r * (dpd - delta.to(ct)[..., None] * keep_p)
+    return pd.to(dt).to(ct), ds.to(dt).to(ct)
+
+
+def dq_reference(ds: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """dq = ds k / sqrt(H), ``[B, S, N, H]`` in k's dtype."""
+    kf = k.to(ds.dtype).permute(0, 2, 1, 3)
+    scale = 1.0 / math.sqrt(k.shape[-1])
+    return ((ds @ kf) * scale).permute(0, 2, 1, 3).to(k.dtype)
+
+
+def dkv_reference(pd: torch.Tensor, ds: torch.Tensor, q: torch.Tensor,
+                  g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dk = ds^T q / sqrt(H) and dv = (keep * p_r)^T g, in q's dtype."""
+    qf, gf = (x.to(ds.dtype).permute(0, 2, 1, 3) for x in (q, g))
+    dk = (ds.transpose(-1, -2) @ qf) * (1.0 / math.sqrt(q.shape[-1]))
+    dv = pd.transpose(-1, -2) @ gf
+    return tuple(x.permute(0, 2, 1, 3).to(q.dtype) for x in (dk, dv))
+
+
+def fused_attention_dropout_bwd_reference(
+    rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: Optional[torch.Tensor], g: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of kernel #3 (the TPU kernel's algebra):
+    ``backward_terms_reference``, then dq = ds k / sqrt(H), dk = ds^T q /
+    sqrt(H) and dv = (keep * p_r)^T g.  ``lse`` float64 and ``delta`` fp32
+    are ``[B, N, S]``; returns dq, dk, dv in q's dtype."""
+    pd, ds = backward_terms_reference(rate, seed, q, k, v, bias, g, lse, delta)
+    return (dq_reference(ds, k), *dkv_reference(pd, ds, q, g))
 
 
 # ---------------------------------------------------------------------------

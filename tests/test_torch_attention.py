@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from item_alignment_torch.ops import attention as tatt
-from item_alignment_torch.ops import cuda_attention, cuda_attention_train
+from item_alignment_torch.ops import (
+    cuda_attention,
+    cuda_attention_blockwise,
+    cuda_attention_train,
+)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -119,30 +123,61 @@ def _pretend_cuda(monkeypatch):
 
 
 def test_dispatcher_raises_on_cuda_dropout(monkeypatch):
-    """CUDA dropout at S <= 512 goes to the training kernels' wrapper (its
-    launcher stubbed here); at S > 512 it still raises."""
+    """CUDA dropout at S <= 512 goes to the training kernels' wrapper and at
+    S > 512 to the blockwise kernels' (their launchers stubbed here); a
+    launcher that fails raises, nothing falls back to a plain version."""
     calls = []
 
     def launch(rate, seed, q, k, v, bias):
-        calls.append((rate, seed))
+        calls.append((q.shape[1], rate, seed))
         return torch.full_like(q, 3.0), torch.zeros(q.shape[0], q.shape[2],
                                                     q.shape[1], dtype=torch.float64)
 
-    q = torch.zeros(1, 8, 2, 32)
+    def broken(*args):
+        raise RuntimeError("nvcc not found")
+
+    q, long = torch.zeros(1, 8, 2, 32), torch.zeros(1, 520, 1, 32)
     monkeypatch.setattr(cuda_attention_train, "_launch_fwd", launch)
+    monkeypatch.setattr(cuda_attention_blockwise, "_launch_fwd", launch)
     _pretend_cuda(monkeypatch)
-    out = tatt.flash_attention(q, q, q, None, dropout_rate=0.1,
-                               dropout_seed=5)
-    assert calls == [(0.1, 5)] and float(out.max()) == 3.0
-    with pytest.raises(NotImplementedError, match="Queue 2 #4"):
-        tatt.flash_attention(torch.zeros(1, 520, 1, 32), q, q, None,
-                             dropout_rate=0.1, dropout_seed=5)
+    for x in (q, long):
+        out = tatt.flash_attention(x, x, x, None, dropout_rate=0.1,
+                                   dropout_seed=5)
+        assert float(out.max()) == 3.0
+    assert calls == [(8, 0.1, 5), (520, 0.1, 5)]
+    monkeypatch.setattr(cuda_attention_train, "_launch_fwd", broken)
+    monkeypatch.setattr(cuda_attention_blockwise, "_launch_fwd", broken)
+    for x in (q, long):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            tatt.flash_attention(x, x, x, None, dropout_rate=0.1,
+                                 dropout_seed=5)
 
 
 def test_dispatcher_raises_on_cuda_long_sequence(monkeypatch):
+    """S > 512 on CUDA without dropout launches the blockwise forward
+    (kernel #4) and not the serving kernel; when its build or launch fails
+    the call raises (the JAX dispatcher would fall back to the plain
+    path)."""
     q = torch.zeros(1, 520, 1, 32)
+    launched = []
+    monkeypatch.setattr(
+        cuda_attention_blockwise, "_launch_fwd",
+        lambda rate, seed, q, k, v, bias: launched.append(rate) or (
+            torch.ones_like(q), torch.zeros(1, 1, 520, dtype=torch.float64)))
+    monkeypatch.setattr(cuda_attention, "_launch", lambda *a: pytest.fail(
+        "the serving kernel took S > 512"))
     _pretend_cuda(monkeypatch)
-    with pytest.raises(NotImplementedError, match="Queue 2 #4"):
+    before = cuda_attention_blockwise.FWD_LAUNCHES
+    with torch.no_grad():
+        assert float(tatt.flash_attention(q, q, q, None).min()) == 1.0
+    assert launched == [0.0]
+    assert cuda_attention_blockwise.FWD_LAUNCHES == before + 1
+
+    def broken(*args):
+        raise RuntimeError("ptxas: too much shared memory")
+
+    monkeypatch.setattr(cuda_attention_blockwise, "_launch_fwd", broken)
+    with pytest.raises(RuntimeError, match="shared memory"):
         tatt.flash_attention(q, q, q, None)
 
 

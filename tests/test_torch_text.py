@@ -169,3 +169,37 @@ def test_two_tower_matches_jax():
         _close(getattr(out, name), getattr(expect, name), FP32_TOL, name)
     _close(out.loss, expect.loss, 1e-5, "loss")
 
+
+
+def _lookup_against_torch(rows, id_dtype):
+    from item_alignment_torch.models.layers import ONE_HOT_ROWS, embedding_lookup
+
+    assert 7 <= ONE_HOT_ROWS < 3000
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, rows, (3, 50))).to(id_dtype)
+    ids[0] = 0  # one row hit by many tokens, as the pad token is
+    w = torch.from_numpy(rs.randn(3, 50, 8).astype(np.float32))
+    ours, theirs = torch.nn.Embedding(rows, 8), torch.nn.Embedding(rows, 8)
+    theirs.load_state_dict(ours.state_dict())
+    a, b = embedding_lookup(ours, ids), theirs(ids)
+    assert torch.equal(a, b)
+    (a * w).sum().backward()
+    (b * w).sum().backward()
+    np.testing.assert_allclose(ours.weight.grad.numpy(),
+                               theirs.weight.grad.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("rows", [7, 3000])
+def test_embedding_lookup_matches_torch_embedding(rows):
+    """The port's lookup reads the rows ``F.embedding`` reads and gives the
+    gradient it gives (summed in a fixed order), duplicates included, for a
+    small table (one-hot product) and a large one (sorted segment sums)."""
+    _lookup_against_torch(rows, torch.int64)
+
+
+@pytest.mark.parametrize("rows", [7, 3000])
+def test_embedding_lookup_takes_int32_ids(rows):
+    """int32 ids, which ``table[ids]`` accepts, get the same rows and the
+    same gradient."""
+    _lookup_against_torch(rows, torch.int32)

@@ -232,7 +232,7 @@ def test_dropout_training_is_reproducible():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh=TMesh(data=2)), "Queue 1 #17"),
-    (dict(checkpoint_dir="ckpt"), "Queue 1 #18"),
+    (dict(mesh=TMesh(fsdp=2)), "Queue 1 #17"),
 ])
 def test_trainer_raises_on_what_is_not_ported(kw, match):
     model = ttext.RobertaOneTower(TModel(**TINY), device="cpu", seed=0)
