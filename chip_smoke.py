@@ -8,7 +8,8 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
-   nvcc each, all at once; print each kernel's ptxas registers and spills.
+   nvcc each, all at once; print each kernel's ptxas registers and spills,
+   and the dynamic shared memory of the bf16 #5 and #6 blocks.
 3. kernel: the serving kernel against its plain PyTorch version on the card at the
    serving shapes (B=64, S=510 and S=255, N=16, H=64, bf16) and small fp32
    and other-head-dim cases, with ragged masks, a fully masked row and a
@@ -59,10 +60,12 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
    against the plain hash; at S=510 they agree with #2/#3 on the same
    inputs and seed.  Times of each kernel alone at B=16, S=1024 (the long
    train shape) and at B=4, S=2048, where the plain versions' outputs are
-   held against the kernels' as well, beside the plain versions, ``scaled_dot_product_attention`` with
-   dropout 0.1 (its forward beside #4; its whole backward, which gives dq,
-   dk and dv together, beside #5 and #6; a yardstick only) and the least
-   time the card could take.
+   held against the kernels' as well, beside the plain versions,
+   ``scaled_dot_product_attention`` with dropout 0.1 (its forward beside
+   #4; its whole backward, which gives dq, dk and dv together, beside #5
+   and #6, and its ratio to delta + #5 + #6; a yardstick only) and the
+   least time the card could take.  At #3's shape (B=40, S=510) the
+   blockwise backward is held against #3 and timed beside it, in turns.
 12. long cross-encoder: ``RobertaOneTower`` at pair length S=1024
    (``max_seq_len=100, max_seq_len_pv=412``) with a 1032-row position table,
    full depth, bf16, batches of 4 pairs; probs against plain attention.
@@ -192,10 +195,10 @@ def _ptxas_summary(log: str) -> str:
         if m:
             k = re.search(r"(attn_[a-z0-9_]+?|flash_(?:fwd|dq|dkv)_(?:bf16|f32))"
                           r"I(f|13__nv_bfloat16)?"
-                          r"((?:Li\d+E)+)E", m.group(1))
+                          r"((?:L[ib]\d+E)+)E", m.group(1))
             dtype = {"f": "_f32", "13__nv_bfloat16": "_bf16"}.get(
                 k.group(2), "") if k else ""
-            ints = ",".join(re.findall(r"Li(\d+)E", k.group(3))) if k else ""
+            ints = ",".join(re.findall(r"L[ib](\d+)E", k.group(3))) if k else ""
             name = f"{k.group(1)}{dtype}<{ints}>" if k else m.group(1)
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -218,6 +221,10 @@ def phase_build() -> None:
         print(f"  {name}.cu: {info['seconds']:.3f} s "
               f"({Path(info['path']).name}); ptxas: "
               f"{_ptxas_summary(info['log'])}", flush=True)
+    smem = cab.bwd_smem_bytes()
+    print("  flash_blockwise_bwd.cu bf16 dynamic shared memory a block: "
+          + ", ".join(f"{name}<{h}> {n} B" for (name, h), n in smem.items()),
+          flush=True)
 
 
 def phase_kernel(gen: torch.Generator) -> dict:
@@ -664,15 +671,56 @@ def time_blockwise_kernels(gen: torch.Generator, B: int, S: int) -> dict:
                           **_bound(nbytes, flops, dt))
         print(f"phase 11 blockwise kernels timing #{4 + i} {name} (B={B} S={S} "
               f"N={N} H={H} bf16, rate {rate}): kernel "
-              f"{rows[name]['ms']:.4f} ms, plain {plain[i]:.4f} ms, sdpa "
+              f"{rows[name]['ms']:.4f} ms ({flops / ms[i] / 1e9:.1f} "
+              f"TFLOP/s), plain {plain[i]:.4f} ms, sdpa "
               + ("forward" if i == 0 else "whole backward") + f" {lib:.4f} ms, "
               f"bound {rows[name]['bound_ms']:.4f} ms "
               f"({rows[name]['bound_by']}; {flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.1f} MB)", flush=True)
+    backward = ms[1] + ms[2] + delta_ms
     print(f"phase 11 blockwise kernels timing B={B} S={S}: delta "
-          f"{delta_ms:.4f} ms (its own CUDA kernel, outside #5 and #6)",
-          flush=True)
+          f"{delta_ms:.4f} ms (its own CUDA kernel, outside #5 and #6); "
+          f"#5 + #6 + delta {backward:.4f} ms = {backward / sdpa_bwd:.3f} x "
+          f"sdpa's whole backward", flush=True)
     return dict(rows, fwd_err=e_out, bwd_err=e_grads)
+
+
+def time_blockwise_at_train_shape(gen: torch.Generator) -> None:
+    """The blockwise backward (delta, #5, #6) at #3's shape (B=40, S=510,
+    N=16, H=64, bf16, rate 0.1) on #2's out and lse: its dq, dk and dv held
+    against #3's within ``GRAD_TOL`` per slice, and both timed in turns
+    (#3, blockwise, blockwise, #3) beside SDPA's whole backward.  No route
+    changes: the S <= 512 path runs #3."""
+    B, S, N, H, dt, rate, seed = 40, 510, 16, 64, torch.bfloat16, 0.1, 7
+    q, k, v, g, bias = _train_inputs(B, S, N, H, dt, gen)
+    out, lse = cat.fused_attention_dropout_fwd(rate, seed, q, k, v, bias)
+    args = (rate, seed, q, k, v, bias, g, out, lse)
+    full = cat.fused_attention_dropout_bwd(*args)
+    block = _blockwise_bwd(*args)
+    torch.cuda.synchronize()
+    err, at = max(_slice_rel(x, y, BIG_ROW % B) for x, y in zip(block, full))
+    check(err <= GRAD_TOL[dt], f"blockwise backward vs #3 at B={B} S={S}: "
+          f"worst slice diff {err} > {GRAD_TOL[dt]} at (b, n) = {at}")
+    del full, block
+    turns = [cuda_ms(lambda: fn(*args), 20) for fn in (
+        cat.fused_attention_dropout_bwd, _blockwise_bwd, _blockwise_bwd,
+        cat.fused_attention_dropout_bwd)]
+    delta = cab.flash_delta(g, out)
+    parts = (cuda_ms(lambda: cab.flash_dq(*args[:7], lse, delta), 20),
+             cuda_ms(lambda: cab.flash_dkv(*args[:7], lse, delta), 20),
+             cuda_ms(lambda: cab.flash_delta(g, out), 20))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias.to(dt),
+                                       dropout_p=rate)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), g.transpose(1, 2), retain_graph=True), 20)
+    print(f"phase 11 blockwise backward at #3's shape (B={B} S={S} N={N} "
+          f"H={H} bf16, rate {rate}): dq/dk/dv worst slice diff from #3 "
+          f"{err:.3e} (tol {GRAD_TOL[dt]:g}); in turns #3 {turns[0]:.4f} / "
+          f"{turns[3]:.4f} ms, delta + #5 + #6 {turns[1]:.4f} / "
+          f"{turns[2]:.4f} ms (#5 {parts[0]:.4f}, #6 {parts[1]:.4f}, delta "
+          f"{parts[2]:.4f}); sdpa whole backward {sdpa_bwd:.4f} ms (delta + "
+          f"#5 + #6 = {min(turns[1:3]) / sdpa_bwd:.3f} x)", flush=True)
 
 
 def time_train_kernels(gen: torch.Generator) -> dict:
@@ -1325,6 +1373,7 @@ def run(args) -> None:
     phase_blockwise_vs_full_tile(gen)
     timed = time_blockwise_kernels(gen, 16, 1024)  # the kernels line's rows
     runs = (block, timed, time_blockwise_kernels(gen, 4, 2048))
+    time_blockwise_at_train_shape(gen)
     block = dict(timed, fwd_err=max(r["fwd_err"] for r in runs),
                  bwd_err=[max(e) for e in zip(*(r["bwd_err"] for r in runs))])
     phase_grad_check(cfg, args.seed, gen)

@@ -25,29 +25,6 @@
 // kernel of attention_common.cuh.  The TPU kernels assert S % block == 0;
 // these mask a ragged last tile and take any S.  Offsets are held in 64 bits.
 //
-// Design.  Three entry points, so each kernel is launched, counted and timed
-// alone.  No atomics: a dQ block owns its query rows and a dK/dV block its
-// key rows, as the TPU split does, so results repeat run to run.
-//   - dQ: one block per (64-query tile, head, batch row), 4 warps of 16
-//     queries each, looping over 64-key tiles.
-//   - dK/dV: one block per (64-key tile, head, batch row), 4 warps of 16
-//     keys each, looping over 64-query tiles.  Scores are computed
-//     transposed (keys as rows), so keep * p_r and ds are the A operands of
-//     dv and dk straight from the accumulators.  It holds two accumulators
-//     (dk and dv) besides the two score tiles: registers are its scarce
-//     resource.
-// The looped tiles come through a two-stage cp.async pipeline; the products
-// run on the tensor cores in bf16 (mma.sync m16n8k16, fp32 accumulate; A
-// fragments and the B fragments of two products each come through one
-// ldmatrix.x4).  fp32 is a scalar-FMA correctness path on 32 x 32 tiles.
-// At S >= 1024 a 64-row tile re-reads the looped operands (K and V, or Q and
-// g) of its head 16 times or more from L2, and a 128-row tile on 8 warps
-// would halve that.  It was built and measured on an H100 at B=16, S=1024
-// and lost for both kernels (dQ 1.62 against 1.10 ms, dK/dV 1.81 against
-// 1.72 ms; PERF.md has the run): at 164-180 registers a thread an SM holds
-// more warps in 4-warp blocks than in one 8-warp block.  So the owned tile
-// is fixed at 64 rows.
-//
 // Bound on this card (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s), counting
 // the products in each body (the TPU CostEstimate attaches 12*B*N*S^2*H to
 // both calls): dQ has three (q k^T, g v^T, ds k), 6*B*N*S^2*H FLOP, and
@@ -55,22 +32,73 @@
 // ds^T q), 8*B*N*S^2*H FLOP, and reads the same four and writes dk and dv.
 // At B=16, S=1024, N=16, H=64 in bf16: dQ 103.1 GFLOP -> 0.104 ms against
 // 172 MB -> 0.051 ms; dK/dV 137.4 GFLOP -> 0.139 ms against 206 MB -> 0.061
-// ms.  Both are bound by operations.  mma.sync instead of wgmma, B fragments
-// read from shared memory per warp and the mask hash keep these versions
-// above it.
+// ms.  Both are bound by operations.  Beside the products every score
+// costs an exp2, the float-float lse, a select for the ragged tail and, with
+// dropout, its keep bit: one hash (two multiplies, six shifts and xors) per
+// two scores in dQ and per score in dK/dV.  On this card those issue slots,
+// not the tensor cores, set the pace, so the design keeps them few and
+// interleaved.
+//
+// Design (bf16).  Three entry points, so each kernel is launched, counted
+// and timed alone.  No atomics and no cross-block reduction: a dQ block owns
+// its query rows and a dK/dV block its key rows, so results repeat bit for
+// bit from run to run.  A block is two consumer warpgroups and a producer
+// warpgroup, one warp of which loads (hopper_common.cuh has the pieces):
+//   - each consumer warpgroup owns 64 rows (queries in dQ, keys in dK/dV),
+//     so a block owns 128 and both warpgroups share every looped tile;
+//   - the producer warp loads the block's own tiles once and the looped
+//     tiles (k, v in dQ; q, g in dK/dV) into a three-stage ring by TMA,
+//     with their per-row statistics (the key bias; lse hi/lo, delta *
+//     keep_p and the row's hash key) written beside them; `mbarrier`s
+//     track each stage full (TMA bytes and the warp's 32 arrivals) and
+//     empty (one arrival per consumer warp); `setmaxnreg` moves its
+//     warpgroup's registers to the consumers (24 against 240 a thread);
+//   - every product is a `wgmma` (m64nNk16, fp32 accumulate): the scores
+//     and g v^T read both operands from shared memory, K-major; ds and
+//     keep * p_r go from the accumulators straight into register A
+//     operands, and their products read q, k or g through `wgmma`'s
+//     transpose, so no tile is stored twice;
+//   - the per-score work has no branch: every score is computed and the
+//     ragged tail and dropped scores selected away, so a thread's 32 scores
+//     interleave (branches around each score had kept them in sequence and
+//     cost 3x), exp2 is the special-function unit's alone (exp2_ftz), and
+//     a kernel without dropout is built without the hash;
+//   - a warpgroup waits for each batch of products before it goes on; the
+//     two warpgroups interleave, so one's elementwise work runs under the
+//     other's products.  (Starting the next tile's scores before waiting
+//     for the last products made ptxas serialise the wgmmas and lost.)
+// dK/dV scores keys as rows (transposed), so keep * p_r and ds are the A
+// operands of dv and dk as they stand; it holds dk, dv and the two score
+// tiles (4 x 32 fp32 registers a thread at H = 64), and at H = 128 loops
+// over 32-query tiles to stay in registers.  fp32 is a scalar-FMA
+// correctness path on 32 x 32 tiles.
 
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace ia;
 
-constexpr int BOWN = 64;   // rows a block owns (bf16): queries in dQ, keys in dK/dV
-constexpr int BLOOP = 64;  // rows of a looped tile (bf16)
-constexpr int ROWS_PER_WARP = 16;
+constexpr int WG_ROWS = 64;                 // rows a consumer warpgroup owns (bf16)
+constexpr int CONSUMERS = 2;                // consumer warpgroups a block
+constexpr int BOWN = CONSUMERS * WG_ROWS;   // rows a bf16 block owns
+constexpr int WS_THREADS = (CONSUMERS + 1) * 128;  // and a producer warpgroup
+constexpr int PRODUCER = CONSUMERS * 4;     // the warp of the producer warpgroup that loads
+constexpr int STAGES = 3;                   // the looped tiles' ring
+// ptxas gives each thread 65536 / WS_THREADS = 168 registers at entry; the
+// producer warpgroup hands 144 of its 168 to the consumers (128 x 24 +
+// 256 x 240 = 384 x 168)
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 constexpr int FBLOCK = 32;  // fp32 tiles
+
+// rows of a looped tile: keys in dQ; queries in dK/dV, fewer at H = 128
+constexpr int DQ_LOOP = 64;
+template <int HD>
+constexpr int DKV_LOOP = HD == 128 ? 32 : 64;
 
 struct Params {
   const void* q;
@@ -95,310 +123,404 @@ struct Params {
   float keep_p;
 };
 
-// the block's own pair of tiles (BOWN rows each), then two stages of the
-// looped pair (BLOOP rows each), then two stages of per-row statistics (4
-// floats or words a looped row)
-template <int HD>
-struct Bf16Layout {
-  static constexpr int LD = HD + 8;
-  static constexpr int OWN_TILE = BOWN * LD;
-  static constexpr int LOOP_TILE = BLOOP * LD;
-  static constexpr int STAT_OFF = (2 * OWN_TILE + 4 * LOOP_TILE) * 2;
-  static constexpr int STAT = 4 * BLOOP;  // 4-byte words per stage
-  static constexpr int BYTES = STAT_OFF + 2 * STAT * 4;
+// TMA maps of the four inputs: the block's own pair and the looped pair
+// (dQ: q, g, then k, v; dK/dV: k, v, then q, g)
+struct TmaMaps {
+  CUtensorMap own0, own1, loop0, loop1;
+};
+
+// Shared memory of a bf16 block, from a 1024-byte boundary: the own pair
+// (own0 of both warpgroups, then own1), the ring (loop0 and loop1 of each
+// stage), STAT_WORDS 4-byte words of statistics per looped row and stage,
+// then the barriers (full and empty per stage, and one for the own tiles).
+template <int HD, int BLOOP, int STAT_WORDS>
+struct Ring {
+  static constexpr int OWN_TILE = WG_ROWS * HD;  // elements
+  static constexpr int LOOP_TILE = BLOOP * HD;
+  static constexpr uint32_t OWN_TX = 2 * CONSUMERS * OWN_TILE * 2;  // bytes
+  static constexpr uint32_t LOOP_TX = 2 * LOOP_TILE * 2;
+  static constexpr int STAT = STAT_WORDS * BLOOP;
+  static constexpr int STAT_OFF = OWN_TX + STAGES * LOOP_TX;
+  static constexpr int BAR_OFF = STAT_OFF + STAGES * STAT * 4;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment
+
+  bf16* own;
+  bf16* loop;
+  uint32_t* stat;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* own_full;
+
+  __device__ explicit Ring(unsigned char* raw) {
+    unsigned char* sm = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+    own = reinterpret_cast<bf16*>(sm);
+    loop = reinterpret_cast<bf16*>(sm + OWN_TX);
+    stat = reinterpret_cast<uint32_t*>(sm + STAT_OFF);
+    full = reinterpret_cast<uint64_t*>(sm + BAR_OFF);
+    empty = full + STAGES;
+    own_full = empty + STAGES;
+  }
+  __device__ bf16* own0(int wg) const { return own + wg * OWN_TILE; }
+  __device__ bf16* own1(int wg) const { return own + (CONSUMERS + wg) * OWN_TILE; }
+  __device__ bf16* loop0(int s) const { return loop + 2 * s * LOOP_TILE; }
+  __device__ bf16* loop1(int s) const { return loop + (2 * s + 1) * LOOP_TILE; }
+  __device__ uint32_t* stats(int s) const { return stat + s * STAT; }
+
+  // thread 0 sets up the barriers; every thread of the block calls this
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&full[s], 32);            // the producer warp's lanes
+        mbar_init(&empty[s], CONSUMERS * 4);  // one per consumer warp
+      }
+      mbar_init(own_full, 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+
+  // The producer warp: the own tiles of rows row0.. once, then each looped
+  // tile into the ring once the consumers have released its stage, with
+  // `stats(words, first row)` written by the warp's lanes beside it.
+  template <typename Stats>
+  __device__ void produce(const TmaMaps& maps, int row0, int h, int b, int n_tiles,
+                          Stats write_stats) const {
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(own_full, OWN_TX);
+      for (int c = 0; c < CONSUMERS; ++c) {
+        tma_load_tile<WG_ROWS, HD>(own0(c), &maps.own0, own_full, row0 + c * WG_ROWS, h, b);
+        tma_load_tile<WG_ROWS, HD>(own1(c), &maps.own1, own_full, row0 + c * WG_ROWS, h, b);
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) + 1) & 1);
+      write_stats(stats(s), it * BLOOP);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], LOOP_TX);
+        tma_load_tile<BLOOP, HD>(loop0(s), &maps.loop0, &full[s], it * BLOOP, h, b);
+        tma_load_tile<BLOOP, HD>(loop1(s), &maps.loop1, &full[s], it * BLOOP, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  }
+
+  // a consumer warp is done with stage s (its products have completed)
+  __device__ void release(int s) const {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[s]);
+  }
 };
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS) flash_dq_bf16(Params p) {
-  using L = Bf16Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + L::OWN_TILE;
-  bf16* KVs = Gs + L::OWN_TILE;  // stage sg: K at 2 sg, V at 2 sg + 1
-  float* bias_s = reinterpret_cast<float*>(smem + L::STAT_OFF);  // BLOOP per stage
+using DqRing = Ring<HD, DQ_LOOP, 1>;  // the key bias
+template <int HD>
+using DkvRing = Ring<HD, DKV_LOOP<HD>, 4>;  // lse hi, lse lo, delta * keep_p, row key
+
+// DROP: dropout on (threshold > 0); without it no keep bit is hashed
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dq_bf16(const Params p, const __grid_constant__ TmaMaps maps) {
+  constexpr int BLOOP = DQ_LOOP;
+  using R = DqRing<HD>;
+  using OwnT = TileDesc<WG_ROWS, HD>;
+  using LoopT = TileDesc<BLOOP, HD>;
+  extern __shared__ unsigned char smem[];
+  const R ring(smem);
+  ring.init();
 
   const int S = p.S;
   const int m0 = blockIdx.x * BOWN;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int w0 = (tid / 32) * ROWS_PER_WARP;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const bf16* q = slice<bf16>(p.q, b, h, p.q_sb, p.q_sn);
-  const bf16* k = slice<bf16>(p.k, b, h, p.k_sb, p.k_sn);
-  const bf16* v = slice<bf16>(p.v, b, h, p.v_sb, p.v_sn);
-  const bf16* gr = slice<bf16>(p.g, b, h, p.g_sb, p.g_sn);
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-  const double* lse = p.lse + ((long long)b * p.N + h) * S;
-  const float* delta = p.delta + ((long long)b * p.N + h) * S;
-  const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
-  const double log_keep = log(double(p.keep_p));
-
-  // stage `sg` <- key tile starting at k0 (tiles async, bias by hand)
-  auto load_stage = [&](int sg, int k0) {
-    load_tile_bf16<BLOOP, HD, L::LD>(KVs + 2 * sg * L::LOOP_TILE, k, p.k_ss, k0, S);
-    load_tile_bf16<BLOOP, HD, L::LD>(KVs + (2 * sg + 1) * L::LOOP_TILE, v, p.v_ss, k0, S);
-    cp_async_commit();
-    if (tid < BLOOP) bias_s[sg * BLOOP + tid] = (bias && k0 + tid < S) ? bias[k0 + tid] : 0.f;
-  };
-
-  load_tile_bf16<BOWN, HD, L::LD>(Qs, q, p.q_ss, m0, S);
-  load_tile_bf16<BOWN, HD, L::LD>(Gs, gr, p.g_ss, m0, S);
-  load_stage(0, 0);
-  float lse_hi[2], lse_lo[2], dkp[2];
-  uint32_t rk[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = m0 + w0 + g + 8 * r;
-    const bool ok = i < S;
-    split_lse(ok ? lse[i] + log_keep : 0.0, lse_hi[r], lse_lo[r]);
-    dkp[r] = ok ? delta[i] * p.keep_p : 0.f;
-    rk[r] = row_key(hk, uint32_t(i));
-  }
-
-  float dq[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
-
   const int n_tiles = (S + BLOOP - 1) / BLOOP;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * BLOOP;
-    if (it + 1 < n_tiles) {  // prefetch the next key tile
-      load_stage((it + 1) & 1, k0 + BLOOP);
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    const bf16* Kt = KVs + 2 * (it & 1) * L::LOOP_TILE;
-    const bf16* Vt = Kt + L::LOOP_TILE;
-    const float* bt = bias_s + (it & 1) * BLOOP;
+  const int warp = threadIdx.x / 32;
 
-    // s = Q K^T and dp = G V^T for this warp's 16 queries x 64 keys
-    float s[BLOOP / 8][4], dp[BLOOP / 8][4];
+  if (warp >= PRODUCER) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > PRODUCER) return;
+    const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+    const int lane = threadIdx.x % 32;
+    ring.produce(maps, m0, h, b, n_tiles, [&](uint32_t* words, int k0) {
+      float* bs = reinterpret_cast<float*>(words);
+      for (int r = lane; r < BLOOP; r += 32) bs[r] = (bias && k0 + r < S) ? bias[k0 + r] : 0.f;
+    });
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4;
+    const int lane = threadIdx.x % 32;
+    const int w0 = wg * WG_ROWS + (warp % 4) * 16;  // the warp's first row in the block
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const double* lse = p.lse + ((long long)b * p.N + h) * S;
+    const float* delta = p.delta + ((long long)b * p.N + h) * S;
+    const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+    const double log_keep = log(double(p.keep_p));
+    float lse_hi[2], lse_lo[2], dkp[2];
+    uint32_t rk[2];
 #pragma unroll
-    for (int jk = 0; jk < BLOOP / 8; ++jk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[jk][e] = dp[jk][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ag[4];
-      load_a_frag_x4(aq, Qs + w0 * L::LD + kk * 16, L::LD, lane);
-      load_a_frag_x4(ag, Gs + w0 * L::LD + kk * 16, L::LD, lane);
-#pragma unroll
-      for (int jk = 0; jk < BLOOP / 8; jk += 2) {
-        uint32_t bk0[2], bk1[2], bv0[2], bv1[2];  // keys jk*8.. and (jk+1)*8..
-        load_b_frag_nk_x2(bk0, bk1, Kt + jk * 8 * L::LD + kk * 16, L::LD, lane);
-        load_b_frag_nk_x2(bv0, bv1, Vt + jk * 8 * L::LD + kk * 16, L::LD, lane);
-        mma_bf16(s[jk], aq, bk0);
-        mma_bf16(s[jk + 1], aq, bk1);
-        mma_bf16(dp[jk], ag, bv0);
-        mma_bf16(dp[jk + 1], ag, bv1);
-      }
+    for (int r = 0; r < 2; ++r) {
+      const int i = m0 + w0 + g + 8 * r;
+      const bool ok = i < S;
+      split_lse(ok ? lse[i] + log_keep : 0.0, lse_hi[r], lse_lo[r]);
+      dkp[r] = ok ? delta[i] * p.keep_p : 0.f;
+      rk[r] = row_key(hk, uint32_t(i));
     }
+    const uint32_t rk_mine = t & 1 ? rk[1] : rk[0];
 
-    // s <- ds; cols 2t, 2t+1 of each 8-key group share one hashed word
+    float dq[HD / 2];
 #pragma unroll
-    for (int jk = 0; jk < BLOOP / 8; ++jk) {
-      const int cj = jk * 8 + 2 * t;
-      const uint32_t col = k0 + cj;
+    for (int e = 0; e < HD / 2; ++e) dq[e] = 0.f;
+    const bf16* Qs = ring.own0(wg);
+    const bf16* Gs = ring.own1(wg);
+    mbar_wait(ring.own_full, 0);
+
+    float s[BLOOP / 2], dp[BLOOP / 2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint32_t word = p.threshold ? key_word(rk[r], col) : 0u;
+    for (int e = 0; e < BLOOP / 2; ++e) s[e] = dp[e] = 0.f;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      const int k0 = it * BLOOP;
+      const bf16* Kt = ring.loop0(st);
+      const bf16* Vt = ring.loop1(st);
+      const float* bt = reinterpret_cast<const float*>(ring.stats(st));
+      mbar_wait(&ring.full[st], (it / STAGES) & 1);
+
+      // s = Q K^T and dp = G V^T: 64 queries of this warpgroup x 64 keys
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 2 * r + c;
-          float pr = 0.f;
-          if (int(col) + c < S) {
-            const float x = fmaf(s[jk][e], p.scale, bt[cj + c]);
-            pr = exp2f(((x - lse_hi[r]) - lse_lo[r]) * LOG2E);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        Wgmma<BLOOP>::ss(s, OwnT::k_major(Qs, kk), LoopT::k_major(Kt, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        Wgmma<BLOOP>::ss(dp, OwnT::k_major(Gs, kk), LoopT::k_major(Vt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // s <- ds, branch-free so that the 32 scores of a thread interleave;
+      // cols 2t, 2t+1 of each 8-key group share one hashed word per row,
+      // and lanes t, t ^ 1 the same two words: each hashes its row t & 1
+      // and fetches the other.  Keys past S read zero rows and a zero bias:
+      // finite or inf, then selected away.
+#pragma unroll
+      for (int jk = 0; jk < BLOOP / 8; ++jk) {
+        const int cj = jk * 8 + 2 * t;
+        const uint32_t col = k0 + cj;
+        uint32_t words[2] = {0u, 0u};
+        if constexpr (DROP) {
+          const uint32_t mine = key_word(rk_mine, col);
+          const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
+          words[0] = t & 1 ? other : mine;
+          words[1] = t & 1 ? mine : other;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t word = words[r];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * jk + 2 * r + c;
+            const float x = fmaf(s[e], p.scale, bt[cj + c]);
+            const float pe = exp2_ftz(((x - lse_hi[r]) - lse_lo[r]) * LOG2E);
+            const float pr = int(col) + c < S ? pe : 0.f;
+            const bool kp = !DROP || keep_bit(word, col + c, p.threshold);
+            s[e] = pr * ((kp ? dp[e] : 0.f) - dkp[r]);
           }
-          const bool kp = !p.threshold || keep_bit(word, col + c, p.threshold);
-          s[jk][e] = pr * ((kp ? dp[jk][e] : 0.f) - dkp[r]);
         }
       }
+
+      // dq += ds K over this tile's keys
+      uint32_t da[BLOOP / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BLOOP / 16; ++kk) acc_to_a(da[kk], s + 8 * kk, s + 8 * kk + 4);
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BLOOP / 16; ++kk) Wgmma<HD>::rs(dq, da[kk], LoopT::mn_major(Kt, kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+      ring.release(st);
     }
 
-    // dq += ds K over this tile's 64 keys
+    bf16* dqp = static_cast<bf16*>(p.dq) + b * p.o_sb + h * p.o_sn;
 #pragma unroll
-    for (int kk = 0; kk < BLOOP / 16; ++kk) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * kk], s[2 * kk + 1]);
+    for (int r = 0; r < 2; ++r) {
+      const int i = m0 + w0 + g + 8 * r;
+      if (i >= S) continue;
+      const long long off = (long long)i * p.o_ss + 2 * t;
 #pragma unroll
       for (int jd = 0; jd < HD / 8; ++jd) {
-        uint32_t bk[2];
-        load_b_frag_kn(bk, Kt + kk * 16 * L::LD + jd * 8, L::LD, lane);
-        mma_bf16(dq[jd], da, bk);
+        *reinterpret_cast<__nv_bfloat162*>(dqp + off + jd * 8) = __floats2bfloat162_rn(
+            dq[4 * jd + 2 * r] * p.scale, dq[4 * jd + 2 * r + 1] * p.scale);
       }
-    }
-    __syncthreads();  // this stage is free for the prefetch two tiles on
-  }
-
-  bf16* dqp = static_cast<bf16*>(p.dq) + b * p.o_sb + h * p.o_sn;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = m0 + w0 + g + 8 * r;
-    if (i >= S) continue;
-    const long long off = (long long)i * p.o_ss + 2 * t;
-#pragma unroll
-    for (int jd = 0; jd < HD / 8; ++jd) {
-      *reinterpret_cast<__nv_bfloat162*>(dqp + off + jd * 8) = __floats2bfloat162_rn(
-          dq[jd][2 * r] * p.scale, dq[jd][2 * r + 1] * p.scale);
     }
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS) flash_dkv_bf16(Params p) {
-  using L = Bf16Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + L::OWN_TILE;
-  bf16* QGs = Vs + L::OWN_TILE;  // stage sg: Q at 2 sg, g at 2 sg + 1
-  // per stage: lse hi, lse lo, delta * keep_p, row key
-  float* st = reinterpret_cast<float*>(smem + L::STAT_OFF);
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dkv_bf16(const Params p, const __grid_constant__ TmaMaps maps) {
+  constexpr int BLOOP = DKV_LOOP<HD>;
+  using R = DkvRing<HD>;
+  using OwnT = TileDesc<WG_ROWS, HD>;
+  using LoopT = TileDesc<BLOOP, HD>;
+  extern __shared__ unsigned char smem[];
+  const R ring(smem);
+  ring.init();
 
   const int S = p.S;
   const int n0 = blockIdx.x * BOWN;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int w0 = (tid / 32) * ROWS_PER_WARP;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const bf16* q = slice<bf16>(p.q, b, h, p.q_sb, p.q_sn);
-  const bf16* k = slice<bf16>(p.k, b, h, p.k_sb, p.k_sn);
-  const bf16* v = slice<bf16>(p.v, b, h, p.v_sb, p.v_sn);
-  const bf16* gr = slice<bf16>(p.g, b, h, p.g_sb, p.g_sn);
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-  const double* lse = p.lse + ((long long)b * p.N + h) * S;
-  const float* delta = p.delta + ((long long)b * p.N + h) * S;
-  const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
-  const double log_keep = log(double(p.keep_p));
-
-  // stage `sg` <- query tile starting at q0 (tiles async, stats by hand)
-  auto load_stage = [&](int sg, int q0) {
-    load_tile_bf16<BLOOP, HD, L::LD>(QGs + 2 * sg * L::LOOP_TILE, q, p.q_ss, q0, S);
-    load_tile_bf16<BLOOP, HD, L::LD>(QGs + (2 * sg + 1) * L::LOOP_TILE, gr, p.g_ss, q0, S);
-    cp_async_commit();
-    if (tid < BLOOP) {
-      float* s4 = st + sg * L::STAT;
-      const int i = q0 + tid;
-      const bool ok = i < S;
-      split_lse(ok ? lse[i] + log_keep : 0.0, s4[tid], s4[BLOOP + tid]);
-      s4[2 * BLOOP + tid] = ok ? delta[i] * p.keep_p : 0.f;
-      reinterpret_cast<uint32_t*>(s4)[3 * BLOOP + tid] = row_key(hk, uint32_t(i));
-    }
-  };
-
-  load_tile_bf16<BOWN, HD, L::LD>(Ks, k, p.k_ss, n0, S);
-  load_tile_bf16<BOWN, HD, L::LD>(Vs, v, p.v_ss, n0, S);
-  load_stage(0, 0);
-  float kb[2];  // key bias of this thread's two key rows
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = n0 + w0 + g + 8 * r;
-    kb[r] = (bias && j < S) ? bias[j] : 0.f;
-  }
-
-  float dk[HD / 8][4], dv[HD / 8][4];
-#pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
-
   const int n_tiles = (S + BLOOP - 1) / BLOOP;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = it * BLOOP;
-    if (it + 1 < n_tiles) {  // prefetch the next query tile
-      load_stage((it + 1) & 1, q0 + BLOOP);
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
-    const bf16* Qt = QGs + 2 * (it & 1) * L::LOOP_TILE;
-    const bf16* Gt = Qt + L::LOOP_TILE;
-    const float* s4 = st + (it & 1) * L::STAT;
-    const uint32_t* rk_s = reinterpret_cast<const uint32_t*>(s4) + 3 * BLOOP;
+  const int warp = threadIdx.x / 32;
 
-    // s = K Q^T and dp = V G^T for this warp's 16 keys x 64 queries
-    float s[BLOOP / 8][4], dp[BLOOP / 8][4];
-#pragma unroll
-    for (int jq = 0; jq < BLOOP / 8; ++jq)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[jq][e] = dp[jq][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      load_a_frag_x4(ak, Ks + w0 * L::LD + kk * 16, L::LD, lane);
-      load_a_frag_x4(av, Vs + w0 * L::LD + kk * 16, L::LD, lane);
-#pragma unroll
-      for (int jq = 0; jq < BLOOP / 8; jq += 2) {
-        uint32_t bq0[2], bq1[2], bg0[2], bg1[2];  // queries jq*8.. and (jq+1)*8..
-        load_b_frag_nk_x2(bq0, bq1, Qt + jq * 8 * L::LD + kk * 16, L::LD, lane);
-        load_b_frag_nk_x2(bg0, bg1, Gt + jq * 8 * L::LD + kk * 16, L::LD, lane);
-        mma_bf16(s[jq], ak, bq0);
-        mma_bf16(s[jq + 1], ak, bq1);
-        mma_bf16(dp[jq], av, bg0);
-        mma_bf16(dp[jq + 1], av, bg1);
+  if (warp >= PRODUCER) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > PRODUCER) return;
+    const int lane = threadIdx.x % 32;
+    const double* lse = p.lse + ((long long)b * p.N + h) * S;
+    const float* delta = p.delta + ((long long)b * p.N + h) * S;
+    const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+    const double log_keep = log(double(p.keep_p));
+    ring.produce(maps, n0, h, b, n_tiles, [&](uint32_t* words, int q0) {
+      float* st = reinterpret_cast<float*>(words);
+      for (int r = lane; r < BLOOP; r += 32) {
+        const int i = q0 + r;
+        const bool ok = i < S;
+        split_lse(ok ? lse[i] + log_keep : 0.0, st[r], st[BLOOP + r]);
+        st[2 * BLOOP + r] = ok ? delta[i] * p.keep_p : 0.f;
+        words[3 * BLOOP + r] = row_key(hk, uint32_t(i));
       }
+    });
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4;
+    const int lane = threadIdx.x % 32;
+    const int w0 = wg * WG_ROWS + (warp % 4) * 16;  // the warp's first row in the block
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+    float kb[2];  // key bias of this thread's two key rows
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = n0 + w0 + g + 8 * r;
+      kb[r] = (bias && j < S) ? bias[j] : 0.f;
     }
 
-    // s <- keep * p_r, dp <- ds
+    float dk[HD / 2], dv[HD / 2];
 #pragma unroll
-    for (int jq = 0; jq < BLOOP / 8; ++jq) {
+    for (int e = 0; e < HD / 2; ++e) dk[e] = dv[e] = 0.f;
+    const bf16* Ks = ring.own0(wg);
+    const bf16* Vs = ring.own1(wg);
+    mbar_wait(ring.own_full, 0);
+
+    float s[BLOOP / 2], dp[BLOOP / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ci = jq * 8 + 2 * t + (e & 1);
-        const uint32_t j = n0 + w0 + g + 8 * (e >> 1);
-        float pr = 0.f;
-        if (q0 + ci < S) {
-          const float x = fmaf(s[jq][e], p.scale, kb[e >> 1]);
-          pr = exp2f(((x - s4[ci]) - s4[BLOOP + ci]) * LOG2E);
+    for (int e = 0; e < BLOOP / 2; ++e) s[e] = dp[e] = 0.f;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES;
+      const int q0 = it * BLOOP;
+      const bf16* Qt = ring.loop0(st);
+      const bf16* Gt = ring.loop1(st);
+      const float* s4 = reinterpret_cast<const float*>(ring.stats(st));
+      const uint32_t* rk_s = ring.stats(st) + 3 * BLOOP;
+      mbar_wait(&ring.full[st], (it / STAGES) & 1);
+
+      // s = K Q^T and dp = V G^T: 64 keys of this warpgroup x BLOOP queries
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        Wgmma<BLOOP>::ss(s, OwnT::k_major(Ks, kk), LoopT::k_major(Qt, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        Wgmma<BLOOP>::ss(dp, OwnT::k_major(Vs, kk), LoopT::k_major(Gt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // The hashed words: lanes 4g + t with one g >> 2 and one t hold the
+      // same queries and the same four keys' word (each its own byte), so
+      // lane g & 3 hashes the words of query groups jq = g & 3 + 4u and
+      // the four lanes share them by shuffle.
+      uint32_t mine[DROP ? BLOOP / 32 : 1][4];
+      if constexpr (DROP) {
+#pragma unroll
+        for (int u = 0; u < BLOOP / 32; ++u)
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4)
+            mine[u][e4] = key_word(rk_s[8 * ((g & 3) + 4 * u) + 2 * t + (e4 & 1)],
+                                   n0 + w0 + g + 8 * (e4 >> 1));
+      }
+
+      // s <- keep * p_r, dp <- ds, branch-free as in dQ (queries past S
+      // read zero rows and zero statistics)
+#pragma unroll
+      for (int jq = 0; jq < BLOOP / 8; ++jq) {
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int e = 4 * jq + e4;
+          const int ci = jq * 8 + 2 * t + (e4 & 1);
+          const uint32_t j = n0 + w0 + g + 8 * (e4 >> 1);
+          const float x = fmaf(s[e], p.scale, kb[e4 >> 1]);
+          const float pe = exp2_ftz(((x - s4[ci]) - s4[BLOOP + ci]) * LOG2E);
+          const float pr = q0 + ci < S ? pe : 0.f;
+          bool kp = true;
+          if constexpr (DROP) {
+            const int owner = (lane & ~12) | ((jq & 3) << 2);
+            kp = keep_bit(__shfl_sync(0xffffffffu, mine[jq / 4][e4], owner), j, p.threshold);
+          }
+          dp[e] = pr * ((kp ? dp[e] : 0.f) - s4[2 * BLOOP + ci]);
+          s[e] = kp ? pr : 0.f;
         }
-        const bool kp = !p.threshold || keep_bit(key_word(rk_s[ci], j), j, p.threshold);
-        dp[jq][e] = pr * ((kp ? dp[jq][e] : 0.f) - s4[2 * BLOOP + ci]);
-        s[jq][e] = kp ? pr : 0.f;
       }
+
+      // dv += (keep * p_r) G, dk += ds Q over this tile's queries
+      uint32_t pa[BLOOP / 16][4], da[BLOOP / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BLOOP / 16; ++kk) {
+        acc_to_a(pa[kk], s + 8 * kk, s + 8 * kk + 4);
+        acc_to_a(da[kk], dp + 8 * kk, dp + 8 * kk + 4);
+      }
+      fence_regs(dk);
+      fence_regs(dv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BLOOP / 16; ++kk) {
+        Wgmma<HD>::rs(dv, pa[kk], LoopT::mn_major(Gt, kk), 1);
+        Wgmma<HD>::rs(dk, da[kk], LoopT::mn_major(Qt, kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dk);
+      fence_regs(dv);
+      ring.release(st);
     }
 
-    // dv += (keep * p_r) G, dk += ds Q over this tile's 64 queries
+    bf16* dkp = static_cast<bf16*>(p.dk) + b * p.o_sb + h * p.o_sn;
+    bf16* dvp = static_cast<bf16*>(p.dv) + b * p.o_sb + h * p.o_sn;
 #pragma unroll
-    for (int kk = 0; kk < BLOOP / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+    for (int r = 0; r < 2; ++r) {
+      const int j = n0 + w0 + g + 8 * r;
+      if (j >= S) continue;
+      const long long off = (long long)j * p.o_ss + 2 * t;
 #pragma unroll
       for (int jd = 0; jd < HD / 8; ++jd) {
-        uint32_t bg[2], bq[2];
-        load_b_frag_kn(bg, Gt + kk * 16 * L::LD + jd * 8, L::LD, lane);
-        load_b_frag_kn(bq, Qt + kk * 16 * L::LD + jd * 8, L::LD, lane);
-        mma_bf16(dv[jd], pa, bg);
-        mma_bf16(dk[jd], da, bq);
+        const int e = 4 * jd + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(dkp + off + jd * 8) =
+            __floats2bfloat162_rn(dk[e] * p.scale, dk[e + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvp + off + jd * 8) =
+            __floats2bfloat162_rn(dv[e], dv[e + 1]);
       }
-    }
-    __syncthreads();  // this stage is free for the prefetch two tiles on
-  }
-
-  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.o_sb + h * p.o_sn;
-  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.o_sb + h * p.o_sn;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = n0 + w0 + g + 8 * r;
-    if (j >= S) continue;
-    const long long off = (long long)j * p.o_ss + 2 * t;
-#pragma unroll
-    for (int jd = 0; jd < HD / 8; ++jd) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + off + jd * 8) = __floats2bfloat162_rn(
-          dk[jd][2 * r] * p.scale, dk[jd][2 * r + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + off + jd * 8) =
-          __floats2bfloat162_rn(dv[jd][2 * r], dv[jd][2 * r + 1]);
     }
   }
 }
@@ -598,15 +720,47 @@ cudaError_t launch(Kernel kernel, int smem, int block, const Params& p, int B, c
   return cudaGetLastError();
 }
 
+// the tensor maps of (own0, own1, loop0, loop1) with their tiles' rows, and
+// a launch of one bf16 kernel over blocks of BOWN rows
+template <int HD, typename Kernel>
+cudaError_t launch_ws(Kernel kernel, int smem, int loop_rows, const void* const (&src)[4],
+                      const long long (&strides)[4][3], const Params& p, int B,
+                      cudaStream_t st) {
+  TmaMaps maps;
+  CUtensorMap* map[4] = {&maps.own0, &maps.own1, &maps.loop0, &maps.loop1};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = make_tile_map(map[i], src[i], B, p.S, p.N, HD, i < 2 ? WG_ROWS : loop_rows,
+                                          strides[i][0], strides[i][1], strides[i][2]);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.S + BOWN - 1) / BOWN, p.N, B);
+  kernel<<<grid, WS_THREADS, smem, st>>>(p, maps);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_dq(int dtype, const Params& p, int B, cudaStream_t st) {
-  if (dtype == 1) return launch(flash_dq_bf16<HD>, Bf16Layout<HD>::BYTES, BOWN, p, B, st);
+  if (dtype == 1) {
+    const void* const src[4] = {p.q, p.g, p.k, p.v};
+    const long long strides[4][3] = {{p.q_sb, p.q_ss, p.q_sn}, {p.g_sb, p.g_ss, p.g_sn},
+                                     {p.k_sb, p.k_ss, p.k_sn}, {p.v_sb, p.v_ss, p.v_sn}};
+    return launch_ws<HD>(p.threshold ? flash_dq_bf16<HD, true> : flash_dq_bf16<HD, false>,
+                         DqRing<HD>::BYTES, DQ_LOOP, src, strides, p, B, st);
+  }
   return launch(flash_dq_f32<HD>, F32Layout<HD>::BYTES, FBLOCK, p, B, st);
 }
 
 template <int HD>
 cudaError_t launch_dkv(int dtype, const Params& p, int B, cudaStream_t st) {
-  if (dtype == 1) return launch(flash_dkv_bf16<HD>, Bf16Layout<HD>::BYTES, BOWN, p, B, st);
+  if (dtype == 1) {
+    const void* const src[4] = {p.k, p.v, p.q, p.g};
+    const long long strides[4][3] = {{p.k_sb, p.k_ss, p.k_sn}, {p.v_sb, p.v_ss, p.v_sn},
+                                     {p.q_sb, p.q_ss, p.q_sn}, {p.g_sb, p.g_ss, p.g_sn}};
+    return launch_ws<HD>(p.threshold ? flash_dkv_bf16<HD, true> : flash_dkv_bf16<HD, false>,
+                         DkvRing<HD>::BYTES, DKV_LOOP<HD>, src, strides, p, B, st);
+  }
   return launch(flash_dkv_f32<HD>, F32Layout<HD>::BYTES, FBLOCK, p, B, st);
 }
 
@@ -623,9 +777,11 @@ bool bad_args(int dtype, int B, int S, int N, unsigned int threshold) {
 }  // namespace
 
 // The argument list of ia_flash_dq and ia_flash_dkv up to the outputs.
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64 or 128.  q, k, v, g (the gradient of out) and the outputs are [B, S, N, H] with strides
-// in elements and a contiguous head dimension (bfloat16: 16-byte aligned,
-// other strides multiples of 8); the outputs share one layout (o_*).  `bias`
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64 or 128.  q, k, v, g
+// (the gradient of out) and the outputs are [B, S, N, H] with strides in
+// elements and a contiguous head dimension (bfloat16: 16-byte aligned, other
+// strides multiples of 8, and positive where the size is above 1, as TMA
+// wants them); the outputs share one layout (o_*).  `bias`
 // may be null; `lse` (float64, from the forward) and `delta` (float32, from
 // ia_flash_delta) are contiguous [B, N, S].  threshold and keep_p as for
 // ia_flash_fwd.  Any S >= 1.  Each returns the cudaError_t of its launch.
@@ -679,6 +835,16 @@ int ia_flash_delta(int dtype, int head_dim, const void* g, const void* out, void
   if (head_dim == 64) return launch_delta_hd<64>(dtype, p, B, st);
   if (head_dim == 128) return launch_delta_hd<128>(dtype, p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bytes of dynamic shared memory a block of the bf16 dQ (kernel 0) or dK/dV
+// (kernel 1) kernel takes at this head dim; -1 for another kernel or head dim
+int ia_flash_bwd_smem_bytes(int kernel, int head_dim) {
+  const int dq[3] = {DqRing<32>::BYTES, DqRing<64>::BYTES, DqRing<128>::BYTES};
+  const int dkv[3] = {DkvRing<32>::BYTES, DkvRing<64>::BYTES, DkvRing<128>::BYTES};
+  const int i = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2 : -1;
+  if (i < 0 || (kernel != 0 && kernel != 1)) return -1;
+  return kernel == 0 ? dq[i] : dkv[i];
 }
 
 const char* ia_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

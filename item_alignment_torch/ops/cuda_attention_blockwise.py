@@ -12,7 +12,9 @@ backward).
   JAX package leaves to XLA (the delta CUDA kernel of
   ``csrc/attention_common.cuh``; it counts as no kernel of its own).
 - ``flash_dq`` (kernel #5) and ``flash_dkv`` (kernel #6) launch the two
-  entry points of ``csrc/flash_blockwise_bwd.cu``.
+  entry points of ``csrc/flash_blockwise_bwd.cu``: in bf16 Hopper kernels
+  (``wgmma`` products, a TMA ring fed by a producer warp), whose inputs
+  ``check_tma`` holds to what TMA takes.
 - ``fused_attention_blockwise_dropout`` is the ``autograd.Function``: it
   saves the seed, q, k, v, the bias, out and lse, and the backward
   regenerates the mask from the seed.  ``fused_attention_blockwise`` is its
@@ -27,8 +29,9 @@ Two deliberate differences from the TPU kernels.  Their ``block_q`` and
 ``block_kv`` arguments are VMEM tile sizes, and they assert S % block == 0
 (the JAX dispatcher then falls back to XLA, e.g. at S = 1020).  Here the
 kernels mask a ragged last tile, so any S is taken and the public functions
-have no block arguments (a CUDA block owns 64 rows, fixed in the sources; a
-128-row tile was measured and lost, PERF.md).  And the keep bit of score (b, n, i, j) is the
+have no block arguments (the tiles are fixed in the sources: a forward
+block owns 64 queries, a bf16 backward block 128 rows; PERF.md has the
+measurements behind them).  And the keep bit of score (b, n, i, j) is the
 package's one hash of (seed, b, n, i, j) (``keep_mask_reference``), not a
 per-tile reseed of a hardware generator: the three kernels tile differently
 and draw the same bits, which at S <= 512 are the bits of kernels #2/#3.
@@ -156,8 +159,23 @@ def _launch_delta(g, out):
     return delta
 
 
+def check_tma(*tensors: torch.Tensor) -> None:
+    """What TMA, which loads the bf16 tiles of #5 and #6, needs beyond
+    ``check_launchable``: a positive stride (below 2^40 bytes) in each of
+    the first three dimensions whose size is above 1."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    for t in tensors:
+        for size, st in zip(t.shape[:3], t.stride()[:3]):
+            if size > 1 and not 0 < st * t.element_size() < 2 ** 40:
+                raise ValueError(f"bfloat16 q/k/v/g of the blockwise backward "
+                                 f"need positive strides below 2^40 bytes "
+                                 f"(TMA), got {tuple(t.stride())}")
+
+
 def _launch_bwd(fn_name, n_out, rate, seed, q, k, v, bias, g, lse, delta):
     check_launchable(q, k, v, g)
+    check_tma(q, k, v, g)
     lib, fn = _entry("flash_blockwise_bwd", fn_name,
                      "ii" + "p" * (7 + n_out) + "iii" + "l" * 16 + "fuufp")
     B, S, N, H = q.shape
@@ -176,6 +194,17 @@ def _launch_bwd(fn_name, n_out, rate, seed, q, k, v, bias, g, lse, delta):
                  int(seed) & M32, t, keep_p, cuda_stream(q))
     _build.check(lib, err, f"blockwise attention backward ({fn_name})")
     return outs
+
+
+def bwd_smem_bytes() -> dict:
+    """Dynamic shared memory a block of the bf16 #5 ("dq") and #6 ("dkv")
+    kernels takes, by (kernel, head dim); builds the library."""
+    import ctypes
+    fn = _build.load("flash_blockwise_bwd").ia_flash_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {(name, h): fn(i, h) for i, name in enumerate(("dq", "dkv"))
+            for h in train.HEAD_DIMS}
 
 
 def _launch_dq(rate, seed, q, k, v, bias, g, lse, delta):

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from item_alignment_torch.ops import _build
 from item_alignment_torch.ops import attention as tatt
 from item_alignment_torch.ops import cuda_attention
 from item_alignment_torch.ops import cuda_attention_blockwise as cab
@@ -328,3 +329,24 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         cab.flash_dq(0.0, 0, q, q, q, None, q, lse.float(), lse.float())
     with pytest.raises(ValueError, match="delta"):
         cab.flash_dkv(0.0, 0, q, q, q, None, q, lse, lse[:, :1].float())
+
+
+def test_tma_strides_are_checked_before_any_build(monkeypatch):
+    """The bf16 kernels #5 and #6 load their tiles by TMA, which needs a
+    positive stride in each dimension of size above 1: a broadcast input
+    (stride 0 over the batch) raises before anything is built.  A dimension
+    of size 1 may have any stride, and fp32 (no TMA) is not held to it."""
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("built"))
+    q = torch.zeros(2, 520, 2, 32, dtype=torch.bfloat16)
+    k = q[:1].expand(2, 520, 2, 32)
+    lse = torch.zeros(2, 2, 520, dtype=torch.float64)
+    _pretend_cuda(monkeypatch)
+    for fn in (cab.flash_dq, cab.flash_dkv):
+        with pytest.raises(ValueError, match="TMA"):
+            fn(0.0, 0, q, k, q, None, q, lse, lse.float())
+    one = torch.zeros(520 * 2 * 32, dtype=torch.bfloat16).as_strided(
+        (1, 520, 2, 32), (0, 64, 32, 1))
+    cab.check_tma(one, one, one, one)
+    wide = q[:1].float().expand(2, 520, 2, 32)
+    assert wide.stride(0) == 0
+    cab.check_tma(wide, wide)

@@ -54,7 +54,8 @@ def test_kernel_source_ships_with_the_package():
 
     for source in ("fused_attention.cu", "attention_dropout_fwd.cu",
                    "attention_dropout_bwd.cu", "flash_blockwise_fwd.cu",
-                   "flash_blockwise_bwd.cu", "attention_common.cuh"):
+                   "flash_blockwise_bwd.cu", "attention_common.cuh",
+                   "hopper_common.cuh"):
         assert (ROOT / "item_alignment_torch" / "csrc" / source).is_file()
     # ops/_build.py names every source, and no other
     assert {f"{name}.cu" for name in _build.SOURCES} == {
