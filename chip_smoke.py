@@ -9,30 +9,37 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
    nvcc each, all at once; print each kernel's ptxas registers and spills,
-   and the dynamic shared memory of the bf16 #5 and #6 blocks.
-3. kernel: the serving kernel against its plain PyTorch version on the card at the
-   serving shapes (B=64, S=510 and S=255, N=16, H=64, bf16) and small fp32
+   and the dynamic shared memory of the bf16 #1, #5 and #6 blocks; from
+   ``cuobjdump -sass``, the branches in each stretch of #1's bf16 kernels
+   between two batches of products that holds exponentials (the per-score
+   work): there must be none.
+3. kernel: the serving kernel (#1) against its plain PyTorch version on the
+   card at the serving shapes (B=64, S=510 and S=255, N=16, H=64, bf16), at
+   S=510 on the split views of a fused QKV projection, and at small fp32
    and other-head-dim cases, with ragged masks, a fully masked row and a
-   large-norm row; times of the kernel, the plain version and
+   large-norm row.  Times of the kernel (with achieved TFLOP/s), the plain
+   version and
    ``scaled_dot_product_attention`` (a yardstick only: the port never calls
-   it) beside the least time the card could take.
+   it), their ratio, beside the least time the card could take.
 4. cross-encoder: RoBERTa-large ``RobertaOneTower`` (24 layers, hidden 1024,
    S=510, bf16, random weights from --seed) answers batches of 8 pair
    requests; probs checked against the same weights on the plain attention.
 5. mining: ``RobertaTwoTower`` at 255 tokens under ``TwoTowerInference``
    encodes 512 items once in batches of 64 and scores 100 pairs per item;
    cached probs checked against a direct two-tower forward.
-6. training kernels: the attention-dropout forward (#2) and backward (#3)
-   against their plain versions at B=4, S=510, N=16, H=64 in bf16 and at
-   small fp32 and H=32/128 shapes, at rate 0 and 0.1, with ragged masks, a
-   fully masked row and a large-norm row (dq/dk/dv held per batch row and
-   head against that slice's max|ref|, the large-norm row as a whole
-   against its own); the keep bits read back from all
-   three CUDA kernels (forward, dK/dV, dQ) equal the plain hash bit for bit,
-   and the dropped fraction is near 26/256.  Times at the train shape
-   B=40, S=510 beside the plain versions, ``scaled_dot_product_attention``
-   with dropout 0.1 (forward, and its backward alone; a yardstick only) and
-   the least time the card could take.
+6. training kernels: the attention-dropout forward (#2) and #3's contract,
+   the backward (run by the delta kernel, #5 and #6), against their
+   plain versions at B=4, S=510, N=16, H=64 in bf16 and at small fp32 and
+   H=32/128 shapes, at rate 0 and 0.1, with ragged masks, a fully masked
+   row and a large-norm row (dq/dk/dv held per batch row and head against
+   that slice's max|ref|, the large-norm row as a whole against its own);
+   the keep bits read back from the three CUDA kernels (#2, #6, #5) equal
+   the plain hash bit for bit, and the dropped fraction is near 26/256.
+   Times at the train shape B=40, S=510 beside the plain versions,
+   ``scaled_dot_product_attention`` with dropout 0.1 (forward, and its
+   backward alone; a yardstick only) and the least time the card could
+   take for the function (and, for the backward, for the route's own
+   products); the backward's parts (#5, #6, delta) and its ratio to SDPA.
 7. gradient check: RoBERTa-large at batch 4, dropout 0 and
    ``deterministic=False``, in fp32 and bf16: one backward through the
    kernels against the same weights with ``use_flash_attention=False`` and
@@ -57,15 +64,14 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
    kernels against their plain versions at B=2, S=1024 and S=2048, N=16,
    H=64 in bf16, at S=1020 (a ragged last tile), and at small fp32 and
    H=32/128 shapes, held as in phase 6; keep bits of all three kernels
-   against the plain hash; at S=510 they agree with #2/#3 on the same
-   inputs and seed.  Times of each kernel alone at B=16, S=1024 (the long
+   against the plain hash; at S=510 #4's out and lse agree with #2's on
+   the same inputs and seed.  Times of each kernel alone at B=16, S=1024 (the long
    train shape) and at B=4, S=2048, where the plain versions' outputs are
    held against the kernels' as well, beside the plain versions,
    ``scaled_dot_product_attention`` with dropout 0.1 (its forward beside
    #4; its whole backward, which gives dq, dk and dv together, beside #5
    and #6, and its ratio to delta + #5 + #6; a yardstick only) and the
-   least time the card could take.  At #3's shape (B=40, S=510) the
-   blockwise backward is held against #3 and timed beside it, in turns.
+   least time the card could take.
 12. long cross-encoder: ``RobertaOneTower`` at pair length S=1024
    (``max_seq_len=100, max_seq_len_pv=412``) with a 1032-row position table,
    full depth, bf16, batches of 4 pairs; probs against plain attention.
@@ -86,7 +92,8 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
-phase 8 (training: 24 launches of #2 and of #3 per step), phase 12 (long
+phase 8 (training: 24 launches of #2 and 24 calls of #3's contract per
+step, none counted as #5 or #6), phase 12 (long
 serving: 24 launches of #4 per forward, no other kernel) and phase 14 (long
 training: 24 launches each of #4, #5 and #6 per step, no other kernel).  The
 line before the last is one JSON object with the six kernels' numbers; the
@@ -99,7 +106,9 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -120,7 +129,7 @@ from item_alignment_torch.engine.inference import (
 from item_alignment_torch.engine.train import Trainer
 from item_alignment_torch.models import encoder
 from item_alignment_torch.models.text import RobertaOneTower, RobertaTwoTower
-from item_alignment_torch.ops import _build, cuda_attention
+from item_alignment_torch.ops import _build, _launch, cuda_attention
 from item_alignment_torch.ops import cuda_attention_blockwise as cab
 from item_alignment_torch.ops import cuda_attention_train as cat
 from item_alignment_torch.ops.attention import make_attention_bias
@@ -130,13 +139,15 @@ ROOT = Path(__file__).resolve().parent
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-KERNEL_CASES = [  # (label, B, S, N, H, dtype); the first is the main shape
-    ("bf16 S=510", 64, 510, 16, 64, torch.bfloat16),
-    ("bf16 S=255", 64, 255, 16, 64, torch.bfloat16),
-    ("bf16 H=32", 4, 130, 4, 32, torch.bfloat16),
-    ("bf16 H=128", 4, 130, 4, 128, torch.bfloat16),
-    ("fp32 H=64", 4, 130, 4, 64, torch.float32),
-    ("fp32 H=128", 4, 130, 4, 128, torch.float32),
+KERNEL_CASES = [  # (label, B, S, N, H, dtype, q/k/v split from one fused
+    # QKV projection); the first is the main shape
+    ("bf16 S=510", 64, 510, 16, 64, torch.bfloat16, False),
+    ("bf16 S=255", 64, 255, 16, 64, torch.bfloat16, False),
+    ("bf16 S=510 fuse_qkv", 64, 510, 16, 64, torch.bfloat16, True),
+    ("bf16 H=32", 4, 130, 4, 32, torch.bfloat16, False),
+    ("bf16 H=128", 4, 130, 4, 128, torch.bfloat16, False),
+    ("fp32 H=64", 4, 130, 4, 64, torch.float32, False),
+    ("fp32 H=128", 4, 130, 4, 128, torch.float32, False),
 ]
 LAYERS = 24
 
@@ -221,33 +232,93 @@ def phase_build() -> None:
         print(f"  {name}.cu: {info['seconds']:.3f} s "
               f"({Path(info['path']).name}); ptxas: "
               f"{_ptxas_summary(info['log'])}", flush=True)
-    smem = cab.bwd_smem_bytes()
+    smem = cuda_attention.smem_bytes()  # one entry per bf16 kernel of #1
+    print("  fused_attention.cu bf16 dynamic shared memory a block: "
+          + ", ".join(f"<{h}> {b} B" for h, b in smem.items()), flush=True)
+    bwd_smem = cab.bwd_smem_bytes()
     print("  flash_blockwise_bwd.cu bf16 dynamic shared memory a block: "
-          + ", ".join(f"{name}<{h}> {n} B" for (name, h), n in smem.items()),
+          + ", ".join(f"{name}<{h}> {n} B" for (name, h), n in bwd_smem.items()),
           flush=True)
+    branches = score_branches(_build.BUILD_INFO["fused_attention"]["path"])
+    for name, stretches in branches.items():
+        print(f"  {name} sass: " + ", ".join(
+            f"{ex2} exponentials, {br} branches" for ex2, br in stretches)
+            + " (stretches between batches of products)", flush=True)
+    check(len(branches) == len(smem) and all(
+        len(st) == 2 and all(ex2 >= 32 and br == 0 for ex2, br in st)
+        for st in branches.values()),
+        f"#1's bf16 kernels: branches around the per-score work {branches}")
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+               / "cuobjdump")
+
+
+def score_branches(lib: str) -> dict:
+    """For each bf16 kernel of #1 in the library ``lib``: its SASS cut at
+    every wgmma (HGMMA) into stretches, and for each stretch that holds
+    exponentials (MUFU.EX2: the per-score work of one tile step) the
+    number of exponentials and of branch instructions (BRA, BSSY) in it."""
+    sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, name, stretch = {}, None, [0, 0]
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            k = re.search(r"attn_fwd_bf16I((?:Li\d+E)+)E", m.group(1))
+            name = (f"attn_fwd_bf16<{','.join(re.findall(r'Li(\d+)E', k.group(1)))}>"
+                    if k else None)
+            if name:
+                out[name] = []
+            stretch = [0, 0]
+            continue
+        if name is None:
+            continue
+        if "HGMMA" in ln:
+            if stretch[0]:
+                out[name].append(tuple(stretch))
+            stretch = [0, 0]
+        elif "MUFU.EX2" in ln:
+            stretch[0] += 1
+        elif re.search(r"\b(BRA|BSSY)\b", ln):
+            stretch[1] += 1
+    return out
+
+
+def _kernel_inputs(B, S, N, H, dt, fused, gen):
+    """q, k, v (split views of one [B, S, 3 N H] projection when ``fused``,
+    as ``models/encoder.py`` makes them) and the key bias of a ragged mask
+    with a fully masked row (batch row 1) and a large-norm row (2)."""
+    qkv = torch.randn(B, S, 3, N, H, device="cuda", generator=gen)
+    qkv[2, :, :2] *= 30.0  # a large-norm row: q and k
+    if dt == torch.float32:
+        # a 1/8 grid makes every q.k exact in fp32, so the comparison does
+        # not hinge on the summation order of x30 scores
+        qkv = torch.round(qkv * 8) / 8
+    qkv = qkv.to(dt)
+    if fused:
+        q, k, v = (t.reshape(B, S, N, H) for t in
+                   qkv.reshape(B, S, 3 * N * H).split(N * H, dim=-1))
+    else:
+        q, k, v = (qkv[:, :, i].contiguous() for i in range(3))
+    mask = ragged_mask(B, S, gen)
+    mask[1] = 0  # a fully masked row, as mine's padded tail batch
+    return q, k, v, make_attention_bias(mask)
 
 
 def phase_kernel(gen: torch.Generator) -> dict:
     main = None
     worst = 0.0
-    for label, B, S, N, H, dt in KERNEL_CASES:
-        q, k, v = (torch.randn(B, S, N, H, device="cuda", generator=gen)
-                   for _ in range(3))
-        q[2] *= 30.0  # a large-norm row
-        k[2] *= 30.0
-        if dt == torch.float32:
-            # a 1/8 grid makes every q.k exact in fp32, so the comparison
-            # does not hinge on the summation order of x30 scores
-            q, k = torch.round(q * 8) / 8, torch.round(k * 8) / 8
-        mask = ragged_mask(B, S, gen)
-        mask[1] = 0  # a fully masked row, as mine's padded tail batch
-        bias = make_attention_bias(mask)
-        q, k, v = q.to(dt), k.to(dt), v.to(dt)
-
-        out = cuda_attention.fused_attention(q, k, v, bias)
-        torch.cuda.synchronize()
+    for label, B, S, N, H, dt, fused in KERNEL_CASES:
+        q, k, v, bias = _kernel_inputs(B, S, N, H, dt, fused, gen)
         ref = cuda_attention.fused_attention_reference(
             q.float(), k.float(), v.float(), bias)
+        out = cuda_attention.fused_attention(q, k, v, bias)
+        torch.cuda.synchronize()
         err = (out.float() - ref).abs().max().item()
         uniform = (out[1].float() - v[1].float().mean(0, keepdim=True)
                    ).abs().max().item()
@@ -256,6 +327,7 @@ def phase_kernel(gen: torch.Generator) -> dict:
         check(uniform <= TOL[dt],
               f"kernel {label}: masked row off the mean of v by {uniform}")
         worst = max(worst, err)
+        del out
 
         iters = 20 if B * S > 10_000 else 50
         ms = cuda_ms(lambda: cuda_attention.fused_attention(q, k, v, bias),
@@ -272,15 +344,15 @@ def phase_kernel(gen: torch.Generator) -> dict:
         row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    **_bound(nbytes, flops, dt))
         bound_ms, bound_by = row["bound_ms"], row["bound_by"]
-        print(f"phase 3 kernel {label} (B={B} S={S} N={N} H={H}): "
-              f"max_abs_err {err:.3e} (tol {TOL[dt]:g}), masked-row err "
-              f"{uniform:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)",
-              flush=True)
+        print(f"phase 3 kernel {label} (B={B} S={S} N={N} H={H}): max_abs_err "
+              f"{err:.3e} (masked row {uniform:.3e}; tol {TOL[dt]:g}); kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+              f"sdpa {library_ms:.4f} ms (kernel/sdpa {ms / library_ms:.3f}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)", flush=True)
         if main is None:
             main = row
-        del q, k, v, out, ref
+        del q, k, v, ref
     main["max_abs_err"] = worst
     return main
 
@@ -429,7 +501,8 @@ def _blockwise_bwd_reference(*args):
 # seed, q, k, v, bias); (dq, dk, dv) = bwd(rate, seed, q, k, v, bias, g, out,
 # lse); the plain bwd takes (..., g, lse, delta)
 TRAIN_FAMILY = SimpleNamespace(
-    name="phase 6 train kernels", kernels=("forward", "dK/dV", "dQ"),
+    name="phase 6 train kernels",
+    kernels=("#2", "#6 (in #3's route)", "#5 (in #3's route)"),
     fwd=cat.fused_attention_dropout_fwd, bwd=cat.fused_attention_dropout_bwd,
     fwd_ref=cat.fused_attention_dropout_reference,
     bwd_ref=cat.fused_attention_dropout_bwd_reference)
@@ -587,27 +660,25 @@ def phase_train_kernels(gen: torch.Generator, cases=TRAIN_CASES,
 
 
 def phase_blockwise_vs_full_tile(gen: torch.Generator) -> None:
-    """At S=510 kernels #4, #5 and #6 agree with #2 and #3 on the same
-    inputs and seed, within the kernels' own tolerance (the counterpart of
-    the JAX package's blockwise-vs-full-tile test on the TPU)."""
+    """At S=510 the long forward #4 agrees with #2 on the same inputs and
+    seed, out and lse, within the kernels' own tolerance (the counterpart of
+    the JAX package's blockwise-vs-full-tile test on the TPU).  The backward
+    is not compared here: #3's contract runs on #5 and #6 themselves, so it
+    is held only against its plain version (phase 6)."""
     B, S, N, H, dt = TRAIN_CASES[0][1:]
-    q, k, v, g, bias = _train_inputs(B, S, N, H, dt, gen)
+    q, k, v, _, bias = _train_inputs(B, S, N, H, dt, gen)
     for rate in (0.0, 0.1):
         a, a_lse = cat.fused_attention_dropout_fwd(rate, 77, q, k, v, bias)
         b, b_lse = cab.flash_fwd(rate, 77, q, k, v, bias)
-        ga = cat.fused_attention_dropout_bwd(rate, 77, q, k, v, bias, g, a, a_lse)
-        gb = _blockwise_bwd(rate, 77, q, k, v, bias, g, b, b_lse)
         torch.cuda.synchronize()
         e_out = (a.float() - b.float()).abs().max().item()
         e_lse = (a_lse - b_lse).abs().max().item()
-        e_grad = max(_slice_rel(x, y, BIG_ROW % B)[0] for x, y in zip(gb, ga))
-        check(e_out <= TOL[dt] and e_lse <= 1e-5 and e_grad <= GRAD_TOL[dt],
+        check(e_out <= TOL[dt] and e_lse <= 1e-5,
               f"blockwise vs full-tile at S={S} rate {rate}: out {e_out}, "
-              f"lse {e_lse}, grads {e_grad}")
-        print(f"phase 11 blockwise kernels vs #2/#3 at B={B} S={S} rate "
-              f"{rate}: out diff {e_out:.3e} (tol {TOL[dt]:g}), lse diff "
-              f"{e_lse:.3e}, dq/dk/dv worst slice diff {e_grad:.3e} (tol "
-              f"{GRAD_TOL[dt]:g})", flush=True)
+              f"lse {e_lse}")
+        print(f"phase 11 long forward #4 vs #2 at B={B} S={S} rate {rate}: "
+              f"out diff {e_out:.3e} (tol {TOL[dt]:g}), lse diff "
+              f"{e_lse:.3e}", flush=True)
 
 
 def _bound(nbytes: int, flops: int, dt) -> dict:
@@ -685,47 +756,13 @@ def time_blockwise_kernels(gen: torch.Generator, B: int, S: int) -> dict:
     return dict(rows, fwd_err=e_out, bwd_err=e_grads)
 
 
-def time_blockwise_at_train_shape(gen: torch.Generator) -> None:
-    """The blockwise backward (delta, #5, #6) at #3's shape (B=40, S=510,
-    N=16, H=64, bf16, rate 0.1) on #2's out and lse: its dq, dk and dv held
-    against #3's within ``GRAD_TOL`` per slice, and both timed in turns
-    (#3, blockwise, blockwise, #3) beside SDPA's whole backward.  No route
-    changes: the S <= 512 path runs #3."""
-    B, S, N, H, dt, rate, seed = 40, 510, 16, 64, torch.bfloat16, 0.1, 7
-    q, k, v, g, bias = _train_inputs(B, S, N, H, dt, gen)
-    out, lse = cat.fused_attention_dropout_fwd(rate, seed, q, k, v, bias)
-    args = (rate, seed, q, k, v, bias, g, out, lse)
-    full = cat.fused_attention_dropout_bwd(*args)
-    block = _blockwise_bwd(*args)
-    torch.cuda.synchronize()
-    err, at = max(_slice_rel(x, y, BIG_ROW % B) for x, y in zip(block, full))
-    check(err <= GRAD_TOL[dt], f"blockwise backward vs #3 at B={B} S={S}: "
-          f"worst slice diff {err} > {GRAD_TOL[dt]} at (b, n) = {at}")
-    del full, block
-    turns = [cuda_ms(lambda: fn(*args), 20) for fn in (
-        cat.fused_attention_dropout_bwd, _blockwise_bwd, _blockwise_bwd,
-        cat.fused_attention_dropout_bwd)]
-    delta = cab.flash_delta(g, out)
-    parts = (cuda_ms(lambda: cab.flash_dq(*args[:7], lse, delta), 20),
-             cuda_ms(lambda: cab.flash_dkv(*args[:7], lse, delta), 20),
-             cuda_ms(lambda: cab.flash_delta(g, out), 20))
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias.to(dt),
-                                       dropout_p=rate)
-    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
-        o, (qt, kt, vt), g.transpose(1, 2), retain_graph=True), 20)
-    print(f"phase 11 blockwise backward at #3's shape (B={B} S={S} N={N} "
-          f"H={H} bf16, rate {rate}): dq/dk/dv worst slice diff from #3 "
-          f"{err:.3e} (tol {GRAD_TOL[dt]:g}); in turns #3 {turns[0]:.4f} / "
-          f"{turns[3]:.4f} ms, delta + #5 + #6 {turns[1]:.4f} / "
-          f"{turns[2]:.4f} ms (#5 {parts[0]:.4f}, #6 {parts[1]:.4f}, delta "
-          f"{parts[2]:.4f}); sdpa whole backward {sdpa_bwd:.4f} ms (delta + "
-          f"#5 + #6 = {min(turns[1:3]) / sdpa_bwd:.3f} x)", flush=True)
-
-
 def time_train_kernels(gen: torch.Generator) -> dict:
-    """#2 and #3 at the train shape against their plain versions, SDPA with
-    dropout 0.1 and the bound."""
+    """#2 and #3's contract at the train shape against their plain
+    versions, SDPA with dropout 0.1 and the bound of the function: for #3
+    10*B*N*S^2*H FLOP (its five products) whatever runs it, beside the
+    route's own count (delta, then #5's three products and #6's four:
+    14*B*N*S^2*H), so that a route that repeats products reads further from
+    the bound.  The route's parts are timed alone too."""
     B, S, N, H, dt, rate, seed = 40, 510, 16, 64, torch.bfloat16, 0.1, 7
     q, k, v, g, bias = _train_inputs(B, S, N, H, dt, gen)
     out, lse = cat.fused_attention_dropout_fwd(rate, seed, q, k, v, bias)
@@ -733,6 +770,11 @@ def time_train_kernels(gen: torch.Generator) -> dict:
         rate, seed, q, k, v, bias), 20)
     bwd_ms = cuda_ms(lambda: cat.fused_attention_dropout_bwd(
         rate, seed, q, k, v, bias, g, out, lse), 20)
+    delta = _launch.launch_delta(g, out)
+    args = (rate, seed, q, k, v, bias, g, lse, delta)
+    parts = (cuda_ms(lambda: _launch.launch_dq(*args), 20),
+             cuda_ms(lambda: _launch.launch_dkv(*args), 20),
+             cuda_ms(lambda: _launch.launch_delta(g, out), 20))
     fwd_plain = cuda_ms(lambda: cat.fused_attention_dropout_reference(
         rate, seed, q, k, v, bias), 3, warmup=1)
     bwd_plain = cuda_ms(lambda: cat.fused_attention_dropout_bwd_reference(
@@ -760,9 +802,21 @@ def time_train_kernels(gen: torch.Generator) -> dict:
                           **_bound(nbytes, flops, dt))
         print(f"phase 6 train kernels timing {name} (B={B} S={S} N={N} H={H} "
               f"bf16, rate {rate}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"sdpa {lib:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms "
-              f"({rows[name]['bound_by']}; {flops / 1e9:.1f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB)", flush=True)
+              f"sdpa {lib:.4f} ms (kernel/sdpa {ms / lib:.3f}), bound "
+              f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}; "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+    # the route: delta reads g, out and writes delta; #5 and #6 each read
+    # q, k, v, g, lse, delta and the bias; #5 writes dq, #6 dk and dv
+    tensor = B * S * N * H * el
+    route = _bound(13 * tensor + 2 * stats + 3 * 4 * B * N * S,
+                   14 * B * N * S * S * H, dt)
+    print(f"phase 6 train kernels timing bwd: #3's route #5 {parts[0]:.4f} ms, "
+          f"#6 {parts[1]:.4f} ms, delta {parts[2]:.4f} ms; the route's own "
+          f"products {14 * B * N * S * S * H / 1e9:.1f} GFLOP "
+          f"({14 * B * N * S * S * H / bwd_ms / 1e9:.1f} TFLOP/s at "
+          f"{bwd_ms:.4f} ms), its bound {route['bound_ms']:.4f} ms "
+          f"({route['bound_by']}) against the function's "
+          f"{rows['bwd']['bound_ms']:.4f} ms", flush=True)
     return rows
 
 
@@ -1267,7 +1321,9 @@ def phase_resume(cfg: ModelConfig, seed: int, gen: torch.Generator,
 # wrong backward kernels: (what, the kernel, the index of the output among
 # its launcher's, factor, spare the x30 row, the one launch of each rerun
 # made wrong (None: all), the phases that must fail).  The last two zero a
-# gradient in one layer of 24, which no median over the layers sees.
+# gradient in one layer of 24, which no median over the layers sees.  "#3"
+# is #3's route (delta, #5, #6 as ``cat._launch_bwd`` runs them, S <= 512);
+# "#5" and "#6" are the blockwise wrappers' launchers (S > 512).
 MUTATIONS = (
     ("#3 dv x1.03 off the x30 row", "#3", 2, 1.03, True, None, ("6",)),
     ("#3 dq zeroed", "#3", 0, 0.0, False, None, ("6", "7")),
@@ -1373,7 +1429,6 @@ def run(args) -> None:
     phase_blockwise_vs_full_tile(gen)
     timed = time_blockwise_kernels(gen, 16, 1024)  # the kernels line's rows
     runs = (block, timed, time_blockwise_kernels(gen, 4, 2048))
-    time_blockwise_at_train_shape(gen)
     block = dict(timed, fwd_err=max(r["fwd_err"] for r in runs),
                  bwd_err=[max(e) for e in zip(*(r["bwd_err"] for r in runs))])
     phase_grad_check(cfg, args.seed, gen)
@@ -1405,7 +1460,7 @@ def run(args) -> None:
              source=src + "attention_dropout_fwd.cu", replaces=tpu + "203",
              launches=trained[1], max_abs_err=train["fwd_err"], **train["fwd"]),
         dict(name="fused_attention_dropout_bwd",
-             source=src + "attention_dropout_bwd.cu", replaces=tpu + "241",
+             source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",
              launches=trained[2], max_abs_err=max(train["bwd_err"]),
              **train["bwd"]),
         dict(name="flash_blockwise_fwd", source=src + "flash_blockwise_fwd.cu",

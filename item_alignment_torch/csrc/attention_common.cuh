@@ -1,9 +1,9 @@
-// Pieces shared by the attention kernels with row statistics
-// (attention_dropout_fwd.cu, attention_dropout_bwd.cu for S <= 512;
-// flash_blockwise_fwd.cu, flash_blockwise_bwd.cu for longer sequences): the
-// dropout mask's integer hash, the mma.sync and cp.async helpers, the tile
-// loaders, the float-float split of lse and the delta kernel of the
-// backward passes.
+// Pieces shared by the attention kernels: the dropout mask's integer hash,
+// the mma.sync and cp.async helpers and tile loaders of the forward kernels
+// #2 and #4 (attention_dropout_fwd.cu, flash_blockwise_fwd.cu), the fp32
+// tile loader, the float-float split of lse and the delta kernel of the
+// backward (flash_blockwise_bwd.cu, which serves #3's contract, #5 and #6),
+// and the constants of the serving kernel #1 (fused_attention.cu).
 //
 // The dropout mask.  The TPU kernels draw their keep bits from the TPU's
 // hardware PRNG, which nothing else reproduces.  Here the keep bit of score

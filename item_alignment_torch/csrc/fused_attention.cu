@@ -1,64 +1,85 @@
-// Fused multi-head attention forward for Hopper (sm_90a).
+// Fused multi-head attention forward for Hopper (sm_90a): kernel #1, the
+// serving kernel.
 //
-// Replaces the TPU kernel `_attn_kernel` in
-// item_alignment_tpu/ops/pallas_attention.py (launched by
-// `_fused_attention_impl`, public function `fused_attention`):
+// Replaces the TPU kernel `_attn_kernel` (item_alignment_tpu/ops/
+// pallas_attention.py:63-84, launched by `_fused_attention_impl`, public
+// function `fused_attention`):
 //
 //   out = softmax(Q K^T / sqrt(H) + key_bias) V
 //
 // with fp32 scores and softmax statistics, the unnormalised probabilities
 // rounded to V's dtype before the P.V product, and a final divide by
 // max(rowsum, 1e-37).  Q, K, V and the output use the JAX layout
-// [B, S, N, H] and are addressed through strides, so no transpose is needed.
+// [B, S, N, H] and are addressed through strides (the fused-QKV split views
+// included), S <= 512, H in {32, 64, 128}.
 //
-// Design.  The TPU kernel holds a whole [S, S] fp32 score tile per head in
-// VMEM.  At S = 512 that tile is 1 MiB, far beyond the 227 KB of shared
-// memory an H100 block can use, so this kernel is blocked instead: one block
-// of 4 warps per (64-query tile, head, batch row), each warp owning 16 query
-// rows, and a loop over 64-key tiles with an online softmax whose running
-// max is the exact row max seen so far (never an upper bound: see the note
-// on large-norm rows in pallas_attention.py).  The running max starts at the
-// finite -1e30, not -inf, so a row whose keys all carry the -1e9 mask bias
-// gives the uniform mean of V as the TPU path does instead of NaN.  Keys
-// past S are left out of the max and the sum entirely (p = 0), not treated
-// as masked keys.
+// The TPU kernel holds a whole [S, S] fp32 score tile per head in VMEM; at
+// S = 512 that is 1 MiB, far beyond the 227 KB of shared memory of an H100
+// block, so this kernel is blocked: a loop over 64-key tiles with an online
+// softmax whose running max is the exact row max seen so far (never an
+// upper bound: see the note on large-norm rows in pallas_attention.py),
+// starting at the finite -1e30, so a row whose keys all carry the -1e9 mask
+// bias gives the uniform mean of V instead of NaN.  Keys past S are left out
+// of the max and the sum (p = 0), not treated as masked keys.
 //
-// bf16 (the serving dtype) runs on the tensor cores with mma.sync
-// m16n8k16 (fp32 accumulate).  Q, the score tile, P and the output
-// accumulator stay in registers: the score accumulator fragment is exactly
-// the A fragment of the P.V product, V's B fragments come from ldmatrix.trans
-// and K's from 32-bit shared loads.  K/V tiles arrive through a two-stage
-// cp.async pipeline of 16-byte copies, the key bias through a register
-// prefetch into shared memory, and the exponentials are exp2f of scores
-// scaled by log2(e).  fp32 keeps full fp32 products with
-// scalar FMAs from shared memory (a correctness path; serving uses bf16).
+// Bound on this card (H100 SXM datasheet: 989 TFLOP/s dense bf16, 3.35
+// TB/s; NVIDIA H100 80GB HBM3 at 700 W in our runs).  The call reads Q, K,
+// V and the key bias once and writes O: 4*B*S*N*H*2 bytes + 4*B*S; it does
+// 4*B*N*S^2*H FLOP.  At B=64, S=510, N=16, H=64: 267.5 MB -> 0.0799 ms
+// against 68.2 GFLOP -> 0.0690 ms, so it is bound by bytes at 0.0799 ms.
+// A co-limit is the exponentials: the special-function unit issues 16 ex2
+// a clock an SM, and the 266M scores at that shape take about 0.07 ms at
+// 1.75 GHz; beside each one go an FMA (scale and bias), a max, a subtract
+// and an add.
 //
-// Bound on this card (H100 SXM datasheet: 989 TFLOP/s dense bf16, 67 TFLOP/s
-// fp32 without tensor cores, 3.35 TB/s HBM).  Work is 4*B*N*S^2*H FLOP and
-// about 4*B*S*N*H*itemsize bytes (Q, K, V read once, O written once).  At
-// B=64, S=510, N=16, H=64 in bf16: 68.2 GFLOP -> 0.069 ms and 267 MB ->
-// 0.080 ms, so the call is bound by bytes at about 0.08 ms.  This version
-// re-reads K and V once per 64-query tile (from L2 for the most part) and
-// uses mma.sync rather than wgmma/TMA, so it sits above that bound.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design (bf16).  A block is one consumer warpgroup of 64 queries and a
+// producer warpgroup (hopper_common.cuh has the pieces):
+//   - every product is a `wgmma` (m64nNk16, fp32 accumulate).  S = Q K^T
+//     reads both operands from shared memory, K-major; P is packed to bf16
+//     in registers as the register A operand of O += P V, which reads V
+//     MN-major through wgmma's transpose, so no tile is stored twice;
+//   - one warp of the producer warpgroup loads the block's Q once and keeps
+//     a two-stage ring of K and V tiles full by TMA,
+//     tracked by `mbarrier`s (full: the TMA bytes and the warp's 32
+//     arrivals; empty: one arrival per consumer warp).  Its lanes write each
+//     stage's key bias, premultiplied by log2(e), by plain loads: the
+//     [B, S] fp32 rows are 2040 or 1020 bytes apart at S = 510 or 255, not
+//     the multiple of 16 that TMA's strides need.  TMA zero-fills rows past
+//     S, and the epilogue stores no query row past S;
+//   - the producer warpgroup gives its registers to the consumers
+//     (`setmaxnreg`); a launch checks that the block's register pool holds
+//     what the consumers ask for, so the raise can never wait forever;
+//   - the per-score work has no branch: a score is one FMA of the raw
+//     product with scale * log2(e) and the premultiplied bias, its
+//     exponential `ex2.approx.ftz` (the special-function unit alone).  Only
+//     the last, ragged tile (510 = 7 * 64 + 62, 255 = 3 * 64 + 63) selects
+//     its columns past S to -inf: it is a separate instantiation of the
+//     tile step, peeled from the loop.  The row sums stay per thread until
+//     the end (one shuffle reduction a row, not one a tile);
+//   - the consumer warpgroup waits for its products before it goes on; the
+//     other blocks on the SM run their softmax under its products.  So a
+//     block holds one consumer warpgroup, and as many blocks share an SM as
+//     fit: four at H <= 64 (42,536 bytes of shared memory a block, the
+//     consumers at 104 registers), two at H = 128 (the consumers at 232).
+//     Blocks an SM set the pace: timed in turns at both serving lengths,
+//     S = 510 and 255, each added block ran ahead of fewer, and 128
+//     queries a block (two consumer warpgroups, one block an SM) ran behind
+//     64 at H = 64 and at H = 128 (PERF.md).
+// fp32 keeps full fp32 products with scalar FMAs from shared memory: a
+// correctness path.
 
 #include <cmath>
-#include <cstdint>
+
+#include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace ia;
 
-constexpr int BLOCK_M = 64;  // query rows per block
-constexpr int BLOCK_N = 64;  // keys per KV tile
-constexpr int WARPS = 4;
-constexpr int ROWS_PER_WARP = BLOCK_M / WARPS;  // 16
-constexpr int THREADS = WARPS * 32;
-constexpr float INIT_MAX = -1e30f;
-constexpr float MIN_DENOM = 1e-37f;
-constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BLOCK_N = 64;  // keys per KV tile (both paths)
+constexpr int WG_ROWS = 64;  // queries of a consumer warpgroup (bf16)
+constexpr int PRODUCER_REGS = 24;
 
 struct Params {
   const void* q;
@@ -75,252 +96,196 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, registers
+// bf16: wgmma, a TMA ring and a producer warpgroup
 // ---------------------------------------------------------------------------
 
-template <int HD>
-struct Bf16Layout {
-  static constexpr int LD = HD + 8;  // row pitch in bf16: 16-byte rows, no bank conflicts
-  static constexpr int TILE = BLOCK_N * LD;
-  static constexpr int BIAS_OFF = 5 * TILE * 2;  // after Q and two stages of K and V
-  static constexpr int BYTES = BIAS_OFF + 2 * BLOCK_N * 4;  // + two stages of key bias
+struct TmaMaps {
+  CUtensorMap q, k, v;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; with `valid` false the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [row0, row0 + 64) of one (batch, head) slice -> shared, zero past S
+// A bf16 block: a consumer warpgroup (warps 0-3) and a producer warpgroup
+// (4-7), MIN_BLOCKS blocks an SM.  Shared memory from a 1024-byte boundary:
+// the Q tile, the ring (K then V of each stage), the key bias of each
+// stage, the barriers.
 template <int HD>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, long long s_stride,
-                                                int row0, int S) {
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BLOCK_N * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i - r * CHUNKS) * 8;
-    const int row = row0 + r;
-    const bool valid = row < S;
-    cp_async16(dst + r * Bf16Layout<HD>::LD + c, valid ? src + (long long)row * s_stride + c : src,
-               valid);
-  }
-}
+struct Fwd {
+  static constexpr int THREADS = 256;
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 4 : 2;  // as many as fit an SM
+  static constexpr int PRODUCER = 4;  // the warp that loads
+  static constexpr int STAGES = 2;
+  // registers a thread at entry under __launch_bounds__(THREADS,
+  // MIN_BLOCKS), and what the consumers raise theirs to once the producer
+  // warpgroup has lowered its own to PRODUCER_REGS
+  static constexpr int ENTRY_REGS = 65536 / (THREADS * MIN_BLOCKS) / 8 * 8;
+  static constexpr int RAISED = (THREADS * ENTRY_REGS - 128 * PRODUCER_REGS) / 128 / 8 * 8;
+  static constexpr int CONSUMER_REGS = RAISED < 240 ? RAISED : 240;
+  static constexpr int POOL = 128 * PRODUCER_REGS + 128 * CONSUMER_REGS;
 
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+  static constexpr int TILE = WG_ROWS * HD;  // elements of a 64-row tile
+  static constexpr uint32_t TILE_BYTES = TILE * 2;
+  static constexpr int KV_OFF = TILE_BYTES;
+  static constexpr int BIAS_OFF = KV_OFF + STAGES * 2 * TILE_BYTES;
+  static constexpr int BAR_OFF = BIAS_OFF + STAGES * BLOCK_N * 4;
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment
+  static_assert(CONSUMER_REGS >= 96, "too few registers for the consumers");
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// B fragment (16 keys x 8 dims) of a row-major [key][dim] V tile
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t b[2], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(smem_addr(p)));
-}
-
-// Fragment ownership (m16n8k16): lane = 4*g + t.  An accumulator holds
-// (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in c[2..3].
 template <int HD>
-__global__ void __launch_bounds__(THREADS) attn_fwd_bf16(Params p) {
-  using L = Bf16Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + L::TILE;      // stages at Ks, Ks + TILE
-  bf16* Vs = Ks + 2 * L::TILE;  // stages at Vs, Vs + TILE
-  float* Bs = reinterpret_cast<float*>(smem + L::BIAS_OFF);  // stages at Bs, Bs + BLOCK_N
+__global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
+    attn_fwd_bf16(const Params p, const __grid_constant__ TmaMaps maps) {
+  using F = Fwd<HD>;
+  using T = TileDesc<WG_ROWS, HD>;  // Q, K and V tiles alike: 64 rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(sm);
+  bf16* kv = reinterpret_cast<bf16*>(sm + F::KV_OFF);  // stage s: K, then V
+  float* bs = reinterpret_cast<float*>(sm + F::BIAS_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + F::BAR_OFF);
+  uint64_t* empty = full + F::STAGES;
+  uint64_t* q_full = empty + F::STAGES;
 
   const int S = p.S;
-  const int m0 = blockIdx.x * BLOCK_M;
-  const long long h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int r0 = (tid / 32) * ROWS_PER_WARP;
+  const int m0 = blockIdx.x * WG_ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_tiles = (S + BLOCK_N - 1) / BLOCK_N;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(&full[s], 32);              // the producer warp's lanes
+      mbar_init(&empty[s], 4);  // one per consumer warp
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= F::PRODUCER) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp > F::PRODUCER) return;
+    if (lane == 0) {  // the block's Q tile
+      mbar_arrive_expect_tx(q_full, F::TILE_BYTES);
+      tma_load_tile<WG_ROWS, HD>(qs, &maps.q, q_full, m0, h, b);
+    }
+    const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % F::STAGES;
+      const int k0 = it * BLOCK_N;
+      if (it >= F::STAGES) mbar_wait(&empty[s], ((it / F::STAGES) + 1) & 1);
+      for (int r = lane; r < BLOCK_N; r += 32)
+        bs[s * BLOCK_N + r] = (bias && k0 + r < S) ? bias[k0 + r] * LOG2E : 0.f;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * F::TILE_BYTES);
+        tma_load_tile<BLOCK_N, HD>(kv + 2 * s * F::TILE, &maps.k, &full[s], k0, h, b);
+        tma_load_tile<BLOCK_N, HD>(kv + (2 * s + 1) * F::TILE, &maps.v, &full[s], k0, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<F::CONSUMER_REGS>();
   const int g = lane >> 2;
   const int t = lane & 3;
-  // scores go to the log2 domain so that exp2f does the exponentials
-  const float scale_log2 = p.scale * LOG2E;
+  const float scale_log2 = p.scale * LOG2E;  // scores in the log2 domain
 
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sn;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sn;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sn;
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-
-  load_tile_async<HD>(Qs, q, p.q_ss, m0, S);
-  load_tile_async<HD>(Ks, k, p.k_ss, 0, S);
-  load_tile_async<HD>(Vs, v, p.v_ss, 0, S);
-  cp_async_commit();
-  // key bias rows are not 16-byte aligned (S = 510), so they go through
-  // registers: 64 threads load one key each
-  if (tid < BLOCK_N) Bs[tid] = (bias && tid < S) ? bias[tid] : 0.f;
-
-  uint32_t qf[HD / 16][4];
-  float o_acc[HD / 8][4];
+  // accumulators (the wgmma layout): rows 16 * (warp % 4) + g and that + 8
+  // of the warpgroup's 64, in d[4j + 0, 1] and d[4j + 2, 3] of each
+  // 8-column group j, columns 8j + 2t and 8j + 2t + 1
+  float o[HD / 2], s[BLOCK_N / 2];
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
-  float m_row[2] = {INIT_MAX, INIT_MAX};
-  float l_row[2] = {0.f, 0.f};
-
-  const int n_tiles = (S + BLOCK_N - 1) / BLOCK_N;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int kv0 = it * BLOCK_N;
-    const bf16* Kt = Ks + (it & 1) * L::TILE;
-    const bf16* Vt = Vs + (it & 1) * L::TILE;
-    const float* Bt = Bs + (it & 1) * BLOCK_N;
-    const bool full = kv0 + BLOCK_N <= S;  // only the last tile has a ragged tail
-    float bias_next = 0.f;  // stored to shared at the end of this tile
-    if (bias && tid < BLOCK_N && kv0 + BLOCK_N + tid < S) bias_next = bias[kv0 + BLOCK_N + tid];
-    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      load_tile_async<HD>(Ks + ((it + 1) & 1) * L::TILE, k, p.k_ss, kv0 + BLOCK_N, S);
-      load_tile_async<HD>(Vs + ((it + 1) & 1) * L::TILE, v, p.v_ss, kv0 + BLOCK_N, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (it == 0) {
+  for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const bf16* base = Qs + (r0 + g) * L::LD + kk * 16 + 2 * t;
-        qf[kk][0] = ld_u32(base);
-        qf[kk][1] = ld_u32(base + 8 * L::LD);
-        qf[kk][2] = ld_u32(base + 8);
-        qf[kk][3] = ld_u32(base + 8 * L::LD + 8);
-      }
-    }
+  for (int e = 0; e < BLOCK_N / 2; ++e) s[e] = 0.f;
+  float m[2] = {INIT_MAX, INIT_MAX};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  mbar_wait(q_full, 0);
 
-    // scores for this warp's 16 rows x 64 keys, as 8 accumulators of 16x8
-    float s[BLOCK_N / 8][4];
+  // one KV tile; RAGGED (the last tile, S % 64 != 0) selects its columns
+  // past S away, every other tile runs no test on any score
+  auto step = [&](int it, auto ragged) {
+    constexpr bool RAGGED = decltype(ragged)::value;
+    const int st = it % F::STAGES;
+    const bf16* Kt = kv + 2 * st * F::TILE;
+    const bf16* Vt = Kt + F::TILE;
+    const float* bt = bs + st * BLOCK_N;
+    mbar_wait(&full[st], (it / F::STAGES) & 1);
+
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      Wgmma<BLOCK_N>::ss(s, T::k_major(qs, kk), T::k_major(Kt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < BLOCK_N / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * j + 2 * t);
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const bf16* kp = Kt + (j * 8 + g) * L::LD + kk * 16 + 2 * t;
-        const uint32_t kb[2] = {ld_u32(kp), ld_u32(kp + 8)};
-        mma_bf16(s[j], qf[kk], kb);
-      }
-    }
-
-    // scale + bias (log2 domain); keys past S become -inf, so they drop
-    // out of the max and give p = exp2(-inf) = 0; exact running row max
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BLOCK_N / 8; ++j) {
-      const float2 bb = *reinterpret_cast<const float2*>(Bt + j * 8 + 2 * t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + j * 8 + 2 * t + (e & 1);
-        const float x = (full || col < S)
-                            ? fmaf(s[j][e], scale_log2, ((e & 1) ? bb.y : bb.x) * LOG2E)
-                            : -INFINITY;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-        s[j][e] = x;
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int e = 4 * j + e4;
+        float x = fmaf(s[e], scale_log2, e4 & 1 ? bb.y : bb.x);
+        if constexpr (RAGGED) x = it * BLOCK_N + 8 * j + 2 * t + (e4 & 1) < S ? x : -INFINITY;
+        s[e] = x;
+        mx[e4 >> 1] = fmaxf(mx[e4 >> 1], x);
       }
     }
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      float mx = tile_max[r];
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_row[r], mx);
-      alpha[r] = exp2f(m_row[r] - m_new);
-      m_row[r] = m_new;
-    }
-    float psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < BLOCK_N / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f(s[j][e] - m_row[e >> 1]);
-        psum[e >> 1] += pv;
-        s[j][e] = pv;
-      }
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2_ftz(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float sum = psum[r];
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_row[r] = l_row[r] * alpha[r] + sum;
+    for (int e = 0; e < BLOCK_N / 2; ++e) {
+      const float pe = exp2_ftz(s[e] - m[(e >> 1) & 1]);
+      l[(e >> 1) & 1] += pe;
+      s[e] = pe;
     }
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      o_acc[j][0] *= alpha[0];
-      o_acc[j][1] *= alpha[0];
-      o_acc[j][2] *= alpha[1];
-      o_acc[j][3] *= alpha[1];
-    }
+    for (int e = 0; e < HD / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
 
-    // O += P V, with P rounded to bf16: two score accumulators (16 keys)
-    // form one A fragment
+    // O += P V, P rounded to bf16 (two 8-key groups of s make one A operand)
+    uint32_t pa[BLOCK_N / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BLOCK_N / 16; ++kk) {
-      const uint32_t pf[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int kk = 0; kk < BLOCK_N / 16; ++kk) acc_to_a(pa[kk], s + 8 * kk, s + 8 * kk + 4);
+    fence_regs(o);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        uint32_t vb[2];
-        ldmatrix_x2_trans(vb, Vt + (kk * 16 + (lane & 15)) * L::LD + j * 8);
-        mma_bf16(o_acc[j], pf, vb);
-      }
-    }
-    if (tid < BLOCK_N) Bs[((it + 1) & 1) * BLOCK_N + tid] = bias_next;
-    __syncthreads();  // this stage is free for the prefetch two tiles on
-  }
+    for (int kk = 0; kk < BLOCK_N / 16; ++kk) Wgmma<HD>::rs(o, pa[kk], T::mn_major(Vt, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  };
 
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sn;
+  const int n_full = S / BLOCK_N;
+#pragma unroll 1
+  for (int it = 0; it < n_full; ++it) step(it, std::false_type{});
+  if (n_full < n_tiles) step(n_full, std::true_type{});
+
+  float denom[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) denom[r] = fmaxf(quad_sum(l[r]), MIN_DENOM);
+  bf16* op = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sn;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + r0 + g + 8 * r;
-    if (row >= S) continue;
-    const float denom = fmaxf(l_row[r], MIN_DENOM);
-    bf16* orow = o + (long long)row * p.o_ss + 2 * t;
+    const int i = m0 + warp * 16 + g + 8 * r;
+    if (i >= S) continue;
+    bf16* orow = op + (long long)i * p.o_ss + 2 * t;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o_acc[j][2 * r] / denom, o_acc[j][2 * r + 1] / denom);
+    for (int jd = 0; jd < HD / 8; ++jd) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = __floats2bfloat162_rn(
+          o[4 * jd + 2 * r] / denom[r], o[4 * jd + 2 * r + 1] / denom[r]);
     }
   }
 }
@@ -329,30 +294,22 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_bf16(Params p) {
 // fp32: scalar FMAs, shared memory
 // ---------------------------------------------------------------------------
 
+constexpr int F32_BLOCK_M = 64;  // query rows of an fp32 block (THREADS threads)
+constexpr int ROWS_PER_WARP = F32_BLOCK_M / (THREADS / 32);  // 16
+
 template <int HD>
 struct F32Layout {
   static constexpr int LDT = HD + 1;       // Q/K/V rows: odd pitch, no bank conflicts
   static constexpr int LDP = BLOCK_N + 1;  // P rows
   static constexpr int LDO = HD;           // O accumulator rows
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + BLOCK_M * LDT;
+  static constexpr int K_OFF = Q_OFF + F32_BLOCK_M * LDT;
   static constexpr int V_OFF = K_OFF + BLOCK_N * LDT;
   static constexpr int P_OFF = V_OFF + BLOCK_N * LDT;
-  static constexpr int O_OFF = P_OFF + BLOCK_M * LDP;
-  static constexpr int STAT_OFF = O_OFF + BLOCK_M * LDO;
-  static constexpr int BYTES = (STAT_OFF + 3 * BLOCK_M) * 4;  // + m, l, alpha
+  static constexpr int O_OFF = P_OFF + F32_BLOCK_M * LDP;
+  static constexpr int STAT_OFF = O_OFF + F32_BLOCK_M * LDO;
+  static constexpr int BYTES = (STAT_OFF + 3 * F32_BLOCK_M) * 4;  // + m, l, alpha
 };
-
-template <int HD>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long s_stride,
-                                              int row0, int S) {
-  for (int i = threadIdx.x; i < BLOCK_N * HD; i += THREADS) {
-    const int r = i / HD;
-    const int d = i - r * HD;
-    const int row = row0 + r;
-    dst[r * F32Layout<HD>::LDT + d] = row < S ? src[(long long)row * s_stride + d] : 0.f;
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS) attn_fwd_f32(Params p) {
@@ -365,32 +322,32 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_f32(Params p) {
   float* Ps = sm + L::P_OFF;
   float* Os = sm + L::O_OFF;
   float* m_s = sm + L::STAT_OFF;
-  float* l_s = m_s + BLOCK_M;
-  float* a_s = l_s + BLOCK_M;
+  float* l_s = m_s + F32_BLOCK_M;
+  float* a_s = l_s + F32_BLOCK_M;
 
   const int S = p.S;
-  const int m0 = blockIdx.x * BLOCK_M;
-  const long long h = blockIdx.y;
-  const long long b = blockIdx.z;
+  const int m0 = blockIdx.x * F32_BLOCK_M;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int lane = threadIdx.x % 32;
   const int r0 = (threadIdx.x / 32) * ROWS_PER_WARP;
 
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sn;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sn;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sn;
+  const float* q = slice<float>(p.q, b, h, p.q_sb, p.q_sn);
+  const float* k = slice<float>(p.k, b, h, p.k_sb, p.k_sn);
+  const float* v = slice<float>(p.v, b, h, p.v_sb, p.v_sn);
   const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
 
-  load_tile_f32<HD>(Qs, q, p.q_ss, m0, S);
-  for (int i = threadIdx.x; i < BLOCK_M * L::LDO; i += THREADS) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < BLOCK_M; i += THREADS) {
+  load_tile_f32<F32_BLOCK_M, HD, L::LDT>(Qs, q, p.q_ss, m0, S);
+  for (int i = threadIdx.x; i < F32_BLOCK_M * L::LDO; i += THREADS) Os[i] = 0.f;
+  for (int i = threadIdx.x; i < F32_BLOCK_M; i += THREADS) {
     m_s[i] = INIT_MAX;
     l_s[i] = 0.f;
   }
 
   for (int kv0 = 0; kv0 < S; kv0 += BLOCK_N) {
     __syncthreads();  // Q/O initialised, or the previous K/V tile consumed
-    load_tile_f32<HD>(Ks, k, p.k_ss, kv0, S);
-    load_tile_f32<HD>(Vs, v, p.v_ss, kv0, S);
+    load_tile_f32<BLOCK_N, HD, L::LDT>(Ks, k, p.k_ss, kv0, S);
+    load_tile_f32<BLOCK_N, HD, L::LDT>(Vs, v, p.v_ss, kv0, S);
     __syncthreads();
 
     for (int r = 0; r < ROWS_PER_WARP; ++r) {
@@ -460,24 +417,46 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_f32(Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const Params& p, int B, int N, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
+template <int HD>
+cudaError_t launch_bf16(const Params& p, int B, int N, cudaStream_t st) {
+  using F = Fwd<HD>;
+  const auto kernel = attn_fwd_bf16<HD>;
+  // setmaxnreg.inc waits until the block's pool has the registers: refuse
+  // a build whose entry count would leave the consumers waiting forever
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BLOCK_M - 1) / BLOCK_M, N, B);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  if (attr.numRegs * F::THREADS < F::POOL) return cudaErrorInvalidConfiguration;
+  TmaMaps maps;
+  const void* src[3] = {p.q, p.k, p.v};
+  const long long strides[3][3] = {{p.q_sb, p.q_ss, p.q_sn}, {p.k_sb, p.k_ss, p.k_sn},
+                                   {p.v_sb, p.v_ss, p.v_sn}};
+  CUtensorMap* map[3] = {&maps.q, &maps.k, &maps.v};
+  for (int i = 0; i < 3; ++i) {
+    err = make_tile_map(map[i], src[i], B, p.S, N, HD, WG_ROWS, strides[i][0], strides[i][1],
+                        strides[i][2]);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.S + WG_ROWS - 1) / WG_ROWS, N, B);
+  kernel<<<grid, F::THREADS, F::SMEM, st>>>(p, maps);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_bf16(const Params& p, int B, int N, cudaStream_t st) {
-  return launch(attn_fwd_bf16<HD>, Bf16Layout<HD>::BYTES, p, B, N, st);
-}
-
-template <int HD>
 cudaError_t launch_f32(const Params& p, int B, int N, cudaStream_t st) {
-  return launch(attn_fwd_f32<HD>, F32Layout<HD>::BYTES, p, B, N, st);
+  const auto kernel = attn_fwd_f32<HD>;
+  const int smem = F32Layout<HD>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.S + F32_BLOCK_M - 1) / F32_BLOCK_M, N, B);
+  kernel<<<grid, THREADS, smem, st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -486,14 +465,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64 or 128.  Strides are
 // in elements; the head dimension must be contiguous, and for bfloat16 the
-// pointers must be 16-byte aligned and the other strides multiples of 8.
-// `bias` may be null.  Returns the cudaError_t of the launch (0 on success).
+// pointers must be 16-byte aligned and the other strides multiples of 8 and,
+// where the size is above 1, positive (TMA).  `bias` may be null.  Returns
+// the cudaError_t of the launch (0 on success).
 int ia_fused_attention_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
-                           const void* bias, void* o, int B, int S, int N, long long q_sb,
-                           long long q_ss, long long q_sn, long long k_sb, long long k_ss,
-                           long long k_sn, long long v_sb, long long v_ss, long long v_sn,
-                           long long o_sb, long long o_ss, long long o_sn, long long bias_sb,
-                           float scale, void* stream) {
+                           const void* bias, void* o, int B, int S, int N, long long q_sb, long long q_ss, long long q_sn, long long k_sb,
+                           long long k_ss, long long k_sn, long long v_sb, long long v_ss,
+                           long long v_sn, long long o_sb, long long o_ss, long long o_sn,
+                           long long bias_sb, float scale, void* stream) {
   const Params p{q,    k,    v,    static_cast<const float*>(bias),
                  o,    S,    q_sb, q_ss,
                  q_sn, k_sb, k_ss, k_sn,
@@ -511,6 +490,15 @@ int ia_fused_attention_fwd(int dtype, int head_dim, const void* q, const void* k
     if (head_dim == 128) return launch_f32<128>(p, B, N, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bytes of dynamic shared memory a bf16 block at this head dim takes; -1
+// for a head dim the kernel does not have
+int ia_fused_attention_smem_bytes(int head_dim) {
+  if (head_dim == 32) return Fwd<32>::SMEM;
+  if (head_dim == 64) return Fwd<64>::SMEM;
+  if (head_dim == 128) return Fwd<128>::SMEM;
+  return -1;
 }
 
 const char* ia_cuda_error_string(int err) {

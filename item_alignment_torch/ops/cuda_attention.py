@@ -3,12 +3,14 @@
 Port of ``item_alignment_tpu/ops/pallas_attention.py:fused_attention``.
 Without gradients (``torch.no_grad`` / ``inference_mode``, or inputs that
 need none) ``fused_attention`` launches the ``_attn_kernel`` port in
-``csrc/fused_attention.cu`` for CUDA tensors.  When a gradient is wanted it
-takes the route of the JAX custom VJP (``_fused_attention_fwd`` /
-``_fused_attention_bwd``): the forward runs the attention-dropout kernel at
-rate 0, which also emits lse, and the backward runs its backward kernel at
-rate 0 (``ops/cuda_attention_train.py``).  CPU tensors run
-``fused_attention_reference``, which autograd differentiates; any other
+``csrc/fused_attention.cu`` (kernel #1) for CUDA tensors.  In bf16 that is a
+Hopper kernel whose tiles TMA loads, so q, k and v are held to
+``check_tma`` too: a view TMA cannot take raises, it does not fall back.
+When a gradient is wanted it takes the route of the JAX custom VJP
+(``_fused_attention_fwd`` / ``_fused_attention_bwd``): the forward runs the
+attention-dropout kernel at rate 0, which also emits lse, and the backward
+runs #3's contract at rate 0 (``ops/cuda_attention_train.py``).  CPU tensors
+run ``fused_attention_reference``, which autograd differentiates; any other
 device raises.
 """
 
@@ -21,13 +23,17 @@ import torch
 
 from item_alignment_torch.ops import _build
 from item_alignment_torch.ops import cuda_attention_train as train
-from item_alignment_torch.ops.cuda_attention_train import (
+from item_alignment_torch.ops._launch import (
     DTYPE_CODE,
+    HEAD_DIMS,
     bias_rows,
-    cuda_stream,
-    check_inputs,
     check_launchable,
+    check_tma,
+    cuda_stream,
+    entry,
+    ptr,
 )
+from item_alignment_torch.ops.cuda_attention_train import check_inputs
 
 # launches of the CUDA kernel (never counts the CPU plain version)
 LAUNCHES = 0
@@ -49,28 +55,33 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel #1 on CUDA tensors."""
     check_launchable(q, k, v)
-    lib = _build.load("fused_attention")
-    fn = lib.ia_fused_attention_fwd
-    if fn.argtypes is None:
-        import ctypes
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32]
-                       + [i64] * 13 + [ctypes.c_float, ptr])
-        fn.restype = i32
+    check_tma(q, k, v)
+    lib, fn = entry("fused_attention", "ia_fused_attention_fwd",
+                    "ii" + "p" * 5 + "iii" + "l" * 13 + "fp")
     B, S, N, H = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     rows = bias_rows(bias, B, S)
     with torch.cuda.device(q.device):
         err = fn(
             DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if rows is None else rows.data_ptr(),
-            out.data_ptr(), B, S, N,
+            ptr(rows), out.data_ptr(), B, S, N,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], 0 if rows is None else rows.stride(0),
             1.0 / math.sqrt(H), cuda_stream(q))
     _build.check(lib, err, "fused attention")
     return out
+
+
+def smem_bytes() -> dict:
+    """Dynamic shared memory a bf16 block of the kernel takes, by head
+    dim; builds the library."""
+    import ctypes
+    fn = _build.load("fused_attention").ia_fused_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {h: fn(h) for h in HEAD_DIMS}
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

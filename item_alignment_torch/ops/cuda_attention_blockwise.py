@@ -14,7 +14,11 @@ backward).
 - ``flash_dq`` (kernel #5) and ``flash_dkv`` (kernel #6) launch the two
   entry points of ``csrc/flash_blockwise_bwd.cu``: in bf16 Hopper kernels
   (``wgmma`` products, a TMA ring fed by a producer warp), whose inputs
-  ``check_tma`` holds to what TMA takes.
+  ``check_tma`` holds to what TMA takes.  The launchers live in
+  ``ops/_launch.py``, because #3's contract
+  (``cuda_attention_train.fused_attention_dropout_bwd``) runs on the same
+  kernels; this module imports ``cuda_attention_train``, not the reverse,
+  and its counters count only the calls made here.
 - ``fused_attention_blockwise_dropout`` is the ``autograd.Function``: it
   saves the seed, q, k, v, the bias, out and lse, and the backward
   regenerates the mask from the seed.  ``fused_attention_blockwise`` is its
@@ -46,14 +50,22 @@ import torch
 
 from item_alignment_torch.ops import _build
 from item_alignment_torch.ops import cuda_attention_train as train
-from item_alignment_torch.ops.cuda_attention_train import (
+from item_alignment_torch.ops._launch import (
     DTYPE_CODE,
-    _device_kind,
-    attention_delta,
+    HEAD_DIMS,
     bias_rows,
-    check_inputs,
     check_launchable,
     cuda_stream,
+    entry,
+    ptr,
+)
+from item_alignment_torch.ops._launch import launch_delta as _launch_delta
+from item_alignment_torch.ops._launch import launch_dkv as _launch_dkv
+from item_alignment_torch.ops._launch import launch_dq as _launch_dq
+from item_alignment_torch.ops.cuda_attention_train import (
+    _device_kind,
+    attention_delta,
+    check_inputs,
 )
 from item_alignment_torch.ops.dropout import M32, dropout_consts
 
@@ -110,26 +122,10 @@ def flash_dkv_reference(
 # kernels
 # ---------------------------------------------------------------------------
 
-def _entry(name: str, fn: str, argtypes):
-    import ctypes
-    lib = _build.load(name)
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        kinds = {"i": ctypes.c_int, "p": ctypes.c_void_p, "l": ctypes.c_longlong,
-                 "f": ctypes.c_float, "u": ctypes.c_uint}
-        f.argtypes = [kinds[c] for c in argtypes]
-        f.restype = ctypes.c_int
-    return lib, f
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
 def _launch_fwd(rate, seed, q, k, v, bias):
     check_launchable(q, k, v)
-    lib, fn = _entry("flash_blockwise_fwd", "ia_flash_fwd",
-                     "ii" + "p" * 6 + "iii" + "l" * 13 + "fuufp")
+    lib, fn = entry("flash_blockwise_fwd", "ia_flash_fwd",
+                    "ii" + "p" * 6 + "iii" + "l" * 13 + "fuufp")
     B, S, N, H = q.shape
     t, keep_p = dropout_consts(rate)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -137,63 +133,12 @@ def _launch_fwd(rate, seed, q, k, v, bias):
     rows = bias_rows(bias, B, S)
     with torch.cuda.device(q.device):
         err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), _ptr(rows), out.data_ptr(), lse.data_ptr(),
+                 v.data_ptr(), ptr(rows), out.data_ptr(), lse.data_ptr(),
                  B, S, N, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], 0 if rows is None else rows.stride(0),
                  1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, cuda_stream(q))
     _build.check(lib, err, "blockwise attention forward")
     return out, lse
-
-
-def _launch_delta(g, out):
-    check_launchable(g, out)
-    lib, fn = _entry("flash_blockwise_bwd", "ia_flash_delta",
-                     "ii" + "ppp" + "iii" + "l" * 6 + "p")
-    B, S, N, H = g.shape
-    delta = torch.empty((B, N, S), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        err = fn(DTYPE_CODE[g.dtype], H, g.data_ptr(), out.data_ptr(),
-                 delta.data_ptr(), B, S, N, *g.stride()[:3], *out.stride()[:3],
-                 cuda_stream(g))
-    _build.check(lib, err, "blockwise attention delta")
-    return delta
-
-
-def check_tma(*tensors: torch.Tensor) -> None:
-    """What TMA, which loads the bf16 tiles of #5 and #6, needs beyond
-    ``check_launchable``: a positive stride (below 2^40 bytes) in each of
-    the first three dimensions whose size is above 1."""
-    if tensors[0].dtype != torch.bfloat16:
-        return
-    for t in tensors:
-        for size, st in zip(t.shape[:3], t.stride()[:3]):
-            if size > 1 and not 0 < st * t.element_size() < 2 ** 40:
-                raise ValueError(f"bfloat16 q/k/v/g of the blockwise backward "
-                                 f"need positive strides below 2^40 bytes "
-                                 f"(TMA), got {tuple(t.stride())}")
-
-
-def _launch_bwd(fn_name, n_out, rate, seed, q, k, v, bias, g, lse, delta):
-    check_launchable(q, k, v, g)
-    check_tma(q, k, v, g)
-    lib, fn = _entry("flash_blockwise_bwd", fn_name,
-                     "ii" + "p" * (7 + n_out) + "iii" + "l" * 16 + "fuufp")
-    B, S, N, H = q.shape
-    t, keep_p = dropout_consts(rate)
-    outs = tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
-                 for _ in range(n_out))
-    rows = bias_rows(bias, B, S)
-    lse, delta = lse.contiguous(), delta.contiguous()
-    with torch.cuda.device(q.device):
-        err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), g.data_ptr(), _ptr(rows), lse.data_ptr(),
-                 delta.data_ptr(), *(o.data_ptr() for o in outs), B, S, N,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *g.stride()[:3], *outs[0].stride()[:3],
-                 0 if rows is None else rows.stride(0), 1.0 / math.sqrt(H),
-                 int(seed) & M32, t, keep_p, cuda_stream(q))
-    _build.check(lib, err, f"blockwise attention backward ({fn_name})")
-    return outs
 
 
 def bwd_smem_bytes() -> dict:
@@ -204,17 +149,7 @@ def bwd_smem_bytes() -> dict:
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return {(name, h): fn(i, h) for i, name in enumerate(("dq", "dkv"))
-            for h in train.HEAD_DIMS}
-
-
-def _launch_dq(rate, seed, q, k, v, bias, g, lse, delta):
-    return _launch_bwd("ia_flash_dq", 1, rate, seed, q, k, v, bias, g, lse,
-                       delta)[0]
-
-
-def _launch_dkv(rate, seed, q, k, v, bias, g, lse, delta):
-    return _launch_bwd("ia_flash_dkv", 2, rate, seed, q, k, v, bias, g, lse,
-                       delta)
+            for h in HEAD_DIMS}
 
 
 def _check_bwd(q, k, v, bias, g, lse, delta):

@@ -7,14 +7,17 @@ Port of ``item_alignment_tpu/ops/pallas_attention.py:fused_attention_dropout``
 - ``fused_attention_dropout_fwd`` launches ``csrc/attention_dropout_fwd.cu``
   (kernel #2): out ``[B, S, N, H]`` and the float64 row statistics lse
   ``[B, N, S]``.
-- ``fused_attention_dropout_bwd`` launches ``csrc/attention_dropout_bwd.cu``
-  (kernel #3: a delta = rowsum(g * out), a dK/dV and a dQ CUDA kernel in one
-  call): dq, dk, dv.
+- ``fused_attention_dropout_bwd`` (kernel #3's contract: dq, dk, dv) runs on
+  the Hopper backward family of ``csrc/flash_blockwise_bwd.cu``: the delta
+  kernel, then the dQ and dK/dV kernels that also serve #5 and #6 at any S
+  (launched through ``ops/_launch.py``, which this module and
+  ``cuda_attention_blockwise`` both import).  One call counts once in
+  ``BWD_LAUNCHES`` and never in the blockwise module's counters.
 - ``fused_attention_dropout`` is the ``autograd.Function``: it saves the
   seed, q, k, v, the bias, out and lse, and the backward regenerates the
   mask from the seed.
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain version
+Each wrapper launches its kernels for CUDA tensors and runs its plain version
 (``*_reference``) for CPU tensors; any other device raises.  The keep bit of
 score (b, n, i, j) is a hash of (seed, b, n, i, j) alone
 (``keep_mask_reference``; ``csrc/attention_common.cuh`` gives the formula),
@@ -29,19 +32,25 @@ from typing import Optional, Tuple
 import torch
 
 from item_alignment_torch.ops import _build
+from item_alignment_torch.ops import _launch
+from item_alignment_torch.ops._launch import (
+    DTYPE_CODE,
+    bias_rows,
+    check_launchable,
+    cuda_stream,
+    ptr,
+)
 from item_alignment_torch.ops.dropout import M32, dropout_consts, mix32
 
 # launches of the CUDA kernels (never counts the CPU plain versions); one
-# backward call launches its three CUDA kernels (delta, dK/dV, dQ) and
+# backward call launches its three CUDA kernels (delta, dQ, dK/dV) and
 # counts once
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 BLOCK_N = 64  # keys per tile in the forward kernel
-HEAD_DIMS = (32, 64, 128)
 INIT_MAX = -1e30
 MIN_DENOM = 1e-37
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the plain versions also take float64 (and then compute in it)
 _PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
@@ -83,33 +92,11 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"bias is on {bias.device}, q on {q.device}")
 
 
-def check_launchable(*tensors: torch.Tensor) -> None:
-    """What the CUDA kernels need beyond ``check_inputs``."""
-    if tensors[0].dtype not in DTYPE_CODE:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got "
-                        f"{tensors[0].dtype}")
-    H = tensors[0].shape[-1]
-    if H not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernels take head dims {HEAD_DIMS}, got {H}")
-    if tensors[0].dtype == torch.bfloat16:  # the kernels copy 16-byte chunks
-        for t in tensors:
-            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
-                raise ValueError("bfloat16 q/k/v/g must be 16-byte aligned "
-                                 "with strides in multiples of 8 elements")
-
-
 def _device_kind(q: torch.Tensor, what: str) -> str:
     kind = q.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
     return kind
-
-
-def bias_rows(bias: Optional[torch.Tensor], B: int, S: int):
-    """The [B, 1, 1, S] key bias as contiguous fp32 [B, S] rows."""
-    if bias is None:
-        return None
-    return bias.reshape(B, S).to(torch.float32).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -248,26 +235,10 @@ def fused_attention_dropout_bwd_reference(
 # kernels
 # ---------------------------------------------------------------------------
 
-def _load(name: str, fn: str, n_ptr: int, n_dims: int):
-    lib = _build.load(name)
-    f = getattr(lib, fn)
-    if f.argtypes is None:
-        import ctypes
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        f.argtypes = ([i32, i32] + [ptr] * n_ptr + [i32] * 3 + [i64] * n_dims
-                      + [ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                         ctypes.c_float, ptr])
-        f.restype = i32
-    return lib, f
-
-
-def cuda_stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _launch_fwd(rate, seed, q, k, v, bias):
     check_launchable(q, k, v)
-    lib, fn = _load("attention_dropout_fwd", "ia_attention_dropout_fwd", 6, 13)
+    lib, fn = _launch.entry("attention_dropout_fwd", "ia_attention_dropout_fwd",
+                            "ii" + "p" * 6 + "iii" + "l" * 13 + "fuufp")
     B, S, N, H = q.shape
     t, keep_p = dropout_consts(rate)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -275,9 +246,8 @@ def _launch_fwd(rate, seed, q, k, v, bias):
     rows = bias_rows(bias, B, S)
     with torch.cuda.device(q.device):
         err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), None if rows is None else rows.data_ptr(),
-                 out.data_ptr(), lse.data_ptr(), B, S, N,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 v.data_ptr(), ptr(rows), out.data_ptr(), lse.data_ptr(),
+                 B, S, N, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], 0 if rows is None else rows.stride(0),
                  1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, cuda_stream(q))
     _build.check(lib, err, "attention dropout forward")
@@ -285,26 +255,11 @@ def _launch_fwd(rate, seed, q, k, v, bias):
 
 
 def _launch_bwd(rate, seed, q, k, v, bias, g, out, lse):
-    check_launchable(q, k, v, g, out)
-    lib, fn = _load("attention_dropout_bwd", "ia_attention_dropout_bwd", 11, 19)
-    B, S, N, H = q.shape
-    t, keep_p = dropout_consts(rate)
-    dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
-                  for _ in range(3))
-    rows = bias_rows(bias, B, S)
-    lse = lse.contiguous()
-    delta = torch.empty((B, N, S), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), g.data_ptr(), out.data_ptr(),
-                 None if rows is None else rows.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B, S, N, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *g.stride()[:3], *out.stride()[:3], *dq.stride()[:3],
-                 0 if rows is None else rows.stride(0), 1.0 / math.sqrt(H),
-                 int(seed) & M32, t, keep_p, cuda_stream(q))
-    _build.check(lib, err, "attention dropout backward")
-    return dq, dk, dv
+    """Kernel #3's contract on the Hopper backward family: delta =
+    rowsum(g * out), then the dQ and dK/dV kernels; (dq, dk, dv)."""
+    delta = _launch.launch_delta(g, out)
+    args = (rate, seed, q, k, v, bias, g, lse, delta)
+    return (_launch.launch_dq(*args), *_launch.launch_dkv(*args))
 
 
 def fused_attention_dropout_fwd(
@@ -329,8 +284,10 @@ def fused_attention_dropout_bwd(
     bias: Optional[torch.Tensor], g: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel #3: (dq, dk, dv) from the forward's out and lse and the output
-    gradient ``g``."""
+    """Kernel #3's contract: (dq, dk, dv) from the forward's out and lse
+    (float64 ``[B, N, S]``) and the output gradient ``g``.  On CUDA it
+    launches the delta, dQ and dK/dV kernels (``_launch_bwd``) and counts
+    once in ``BWD_LAUNCHES``."""
     global BWD_LAUNCHES
     check_inputs(q, k, v, bias)
     for name, t in (("g", g), ("out", out)):
@@ -347,8 +304,8 @@ def fused_attention_dropout_bwd(
 
 
 class _FusedAttentionDropout(torch.autograd.Function):
-    """Forward kernel #2, backward kernel #3; the mask is regenerated from
-    the seed.  The bias is a mask and gets no gradient."""
+    """Forward kernel #2, backward #3's contract; the mask is regenerated
+    from the seed.  The bias is a mask and gets no gradient."""
 
     @staticmethod
     def forward(ctx, rate, seed, q, k, v, bias):

@@ -7,6 +7,8 @@ port's ``fused_attention_reference`` follows its CUDA kernel step by step
 it without launching anything.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -189,3 +191,62 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_attention.fused_attention(q, q, q[:, :4])
     with pytest.raises(ValueError):
         cuda_attention.fused_attention(q, q, q, torch.zeros(1, 1, 1, 9))
+
+
+class _FakeLib:
+    """A stand-in for the built fused-attention library whose entry point
+    records the arguments of each launch and reports success."""
+
+    def __init__(self):
+        self.calls = []
+        self.ia_fused_attention_fwd = self
+        self.argtypes = None
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def test_launch_takes_fused_qkv_views(monkeypatch):
+    """Kernel #1's launcher takes q, k and v as the split views of one fused
+    QKV projection (``models/encoder.py``: strides 3*N*H between positions,
+    no copy) and passes their own strides and pointers to the kernel."""
+    lib = _FakeLib()
+    monkeypatch.setattr(cuda_attention._build, "load", lambda name: lib)
+    monkeypatch.setattr(cuda_attention, "cuda_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    B, S, N, H = 2, 130, 4, 32
+    qkv = torch.zeros(B, S, 3 * N * H, dtype=torch.bfloat16)
+    q, k, v = (t.reshape(B, S, N, H) for t in qkv.split(N * H, dim=-1))
+    assert q.stride() == (S * 3 * N * H, 3 * N * H, H, 1)
+    out = cuda_attention._launch(q, k, v, None)
+    assert out.shape == q.shape and out.is_contiguous()
+    (args,) = lib.calls
+    dtype, head_dim, qp, kp, vp, bias = args[:6]
+    assert (dtype, head_dim, bias) == (1, H, None)
+    assert (qp, kp, vp) == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert kp - qp == N * H * 2
+    assert args[10:19] == (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+
+
+@pytest.mark.parametrize("view", ["broadcast batch", "unaligned", "odd stride"])
+def test_launch_rejects_views_tma_cannot_take(view, monkeypatch):
+    """What TMA cannot load raises a ValueError before anything is built
+    (no fallback): a k broadcast over the batch (stride 0), a pointer off
+    16 bytes, a position stride that is no multiple of 16 bytes."""
+    monkeypatch.setattr(cuda_attention._build, "load",
+                        lambda name: pytest.fail("built"))
+    B, S, N, H = 2, 64, 2, 32
+    q = torch.zeros(B, S, N, H, dtype=torch.bfloat16)
+    if view == "broadcast batch":
+        k = q[:1].expand(B, S, N, H)
+    elif view == "unaligned":
+        k = torch.zeros(B * S * N * H + 1, dtype=torch.bfloat16)[1:].view(
+            B, S, N, H)
+    else:
+        k = torch.zeros(B, S, N * H + 4, dtype=torch.bfloat16)[..., :N * H]
+        k = k.unflatten(-1, (N, H))
+        assert k.stride(1) == N * H + 4
+    with pytest.raises(ValueError):
+        cuda_attention._launch(q, k, q, None)

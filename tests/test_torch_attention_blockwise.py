@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from item_alignment_torch.ops import _build
+from item_alignment_torch.ops import _build, _launch
 from item_alignment_torch.ops import attention as tatt
 from item_alignment_torch.ops import cuda_attention
 from item_alignment_torch.ops import cuda_attention_blockwise as cab
@@ -346,7 +346,7 @@ def test_tma_strides_are_checked_before_any_build(monkeypatch):
             fn(0.0, 0, q, k, q, None, q, lse, lse.float())
     one = torch.zeros(520 * 2 * 32, dtype=torch.bfloat16).as_strided(
         (1, 520, 2, 32), (0, 64, 32, 1))
-    cab.check_tma(one, one, one, one)
+    _launch.check_tma(one, one, one, one)
     wide = q[:1].float().expand(2, 520, 2, 32)
     assert wide.stride(0) == 0
-    cab.check_tma(wide, wide)
+    _launch.check_tma(wide, wide)

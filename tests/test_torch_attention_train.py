@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from item_alignment_torch.ops import _launch
 from item_alignment_torch.ops import attention as tatt
 from item_alignment_torch.ops import cuda_attention
+from item_alignment_torch.ops import cuda_attention_blockwise as cab
 from item_alignment_torch.ops import cuda_attention_train as cat
 
 jax = pytest.importorskip("jax")
@@ -214,12 +216,30 @@ def test_gradcheck_float64_with_dropout():
         (q, k, v), eps=1e-6, atol=1e-6)
 
 
+def _stub_backward_launchers(monkeypatch, launched=None):
+    """The delta, dQ and dK/dV launchers of ops/_launch.py replaced by their
+    plain versions, each appending its name to ``launched``."""
+    def stub(name, fn):
+        def run(*args):
+            if launched is not None:
+                launched.append(name)
+            return fn(*args)
+        return run
+
+    monkeypatch.setattr(_launch, "launch_delta",
+                        stub("delta", cat.attention_delta))
+    monkeypatch.setattr(_launch, "launch_dq", stub("dq", cab.flash_dq_reference))
+    monkeypatch.setattr(_launch, "launch_dkv",
+                        stub("dkv", cab.flash_dkv_reference))
+
+
 def test_cuda_attention_gradients_reach_qkv(monkeypatch):
     """The fault of slice 1: on CUDA, fused_attention returned the kernel's
     buffer with no autograd node, so q, k and v got no gradient.  Under
     pretend-CUDA with the launchers routed to their plain versions, a
-    forward with grad goes through kernels #2/#3 at rate 0 and its
-    gradients equal the plain path's; without grad it launches #1."""
+    forward with grad goes through kernel #2 and #3's contract (the delta,
+    dQ and dK/dV launchers) at rate 0 and its gradients equal the plain
+    path's; without grad it launches #1."""
     q, k, v, mask = _inputs(37, "float32")
     w = torch.from_numpy(np.random.RandomState(4).randn(*q.shape)
                          .astype(np.float32))
@@ -233,11 +253,7 @@ def test_cuda_attention_gradients_reach_qkv(monkeypatch):
     expect = grads(cuda_attention.fused_attention_reference)
     kernel1 = []
     monkeypatch.setattr(cat, "_launch_fwd", cat.fused_attention_dropout_reference)
-    monkeypatch.setattr(
-        cat, "_launch_bwd",
-        lambda rate, seed, q, k, v, bias, g, out, lse:
-        cat.fused_attention_dropout_bwd_reference(
-            rate, seed, q, k, v, bias, g, lse, cat.attention_delta(g, out)))
+    _stub_backward_launchers(monkeypatch)
     monkeypatch.setattr(cuda_attention, "_launch",
                         lambda *a: kernel1.append(1) or
                         cuda_attention.fused_attention_reference(*a))
@@ -269,3 +285,45 @@ def test_flash_attention_cpu_dropout_uses_the_training_kernels():
     ref = cat.fused_attention_dropout_reference(0.1, 11, tq, tk, tv, bias)[0]
     assert torch.equal(out, ref)
     assert (cat.FWD_LAUNCHES, cat.BWD_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("S,N", CASES)
+def test_cuda_backward_route_matches_the_jax_kernel(S, N, monkeypatch):
+    """Kernel #3's contract on "CUDA" (pretend-CUDA tensors) goes through
+    the delta, dQ and dK/dV launchers of ops/_launch.py (stubbed with their
+    plain versions), counts once in BWD_LAUNCHES and never in the blockwise
+    wrappers' DQ_LAUNCHES/DKV_LAUNCHES, and at rate 0 gives the dq, dk and
+    dv of the JAX package's ``_fused_attention_dropout_bwd`` (its Pallas
+    kernel in interpret mode) on the same out and lse, within 1e-4 of
+    max|ref| in fp32."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    from item_alignment_tpu.ops import pallas_attention as jpa
+
+    q, k, v, mask = _inputs(S, "float32", N=N)
+    g = np.random.RandomState(S + 1).randn(*q.shape).astype(np.float32)
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    jb = jatt.make_attention_bias(jnp.asarray(mask))
+    out, lse = jpa._fused_attention_dropout_impl(0.0, 0, jq, jk, jv, jb)
+    expect = jpa._fused_attention_dropout_bwd(0.0, (0, jq, jk, jv, jb, lse, out),
+                                              jg)[1:4]
+
+    launched = []
+    _stub_backward_launchers(monkeypatch, launched)
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    tout = torch.from_numpy(np.asarray(out))
+    tlse = torch.from_numpy(np.asarray(lse)).double()
+    before = (cat.BWD_LAUNCHES, cab.DQ_LAUNCHES, cab.DKV_LAUNCHES)
+    _pretend_cuda(monkeypatch)
+    got = cat.fused_attention_dropout_bwd(0.0, 0, tq, tk, tv, _bias(mask), tg,
+                                          tout, tlse)
+    after = (cat.BWD_LAUNCHES, cab.DQ_LAUNCHES, cab.DKV_LAUNCHES)
+    assert launched == ["delta", "dq", "dkv"]
+    assert [a - b for a, b in zip(after, before)] == [1, 0, 0]
+    for name, a, b in zip("qkv", got, expect):
+        assert a.dtype == torch.float32
+        assert _rel_err(a.numpy(), np.asarray(b)) < 1e-4, name

@@ -53,10 +53,13 @@ def test_kernel_source_ships_with_the_package():
     from item_alignment_torch.ops import _build
 
     for source in ("fused_attention.cu", "attention_dropout_fwd.cu",
-                   "attention_dropout_bwd.cu", "flash_blockwise_fwd.cu",
-                   "flash_blockwise_bwd.cu", "attention_common.cuh",
-                   "hopper_common.cuh"):
+                   "flash_blockwise_fwd.cu", "flash_blockwise_bwd.cu",
+                   "attention_common.cuh", "hopper_common.cuh"):
         assert (ROOT / "item_alignment_torch" / "csrc" / source).is_file()
+    # kernel #3's contract runs on the dQ and dK/dV kernels of
+    # flash_blockwise_bwd.cu; its own source is gone
+    assert not (ROOT / "item_alignment_torch" / "csrc"
+                / "attention_dropout_bwd.cu").exists()
     # ops/_build.py names every source, and no other
     assert {f"{name}.cu" for name in _build.SOURCES} == {
         p.name for p in _build.CSRC.glob("*.cu")}
