@@ -9,10 +9,11 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
    nvcc each, all at once; print each kernel's ptxas registers and spills,
-   and the dynamic shared memory of the bf16 #1, #5 and #6 blocks; from
-   ``cuobjdump -sass``, the branches in each stretch of #1's bf16 kernels
-   between two batches of products that holds exponentials (the per-score
-   work): there must be none.
+   and the dynamic shared memory of the bf16 #1, #4, #5 and #6 blocks; from
+   ``cuobjdump -sass``, the branches in each stretch between two batches of
+   products that holds exponentials (the per-score work) of #1's bf16
+   kernels and of #4's (with and without dropout, every head dim): there
+   must be none, and #4's bf16 kernels must spill no register.
 3. kernel: the serving kernel (#1) against its plain PyTorch version on the
    card at the serving shapes (B=64, S=510 and S=255, N=16, H=64, bf16), at
    S=510 on the split views of a fused QKV projection, and at small fp32
@@ -27,14 +28,17 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
 5. mining: ``RobertaTwoTower`` at 255 tokens under ``TwoTowerInference``
    encodes 512 items once in batches of 64 and scores 100 pairs per item;
    cached probs checked against a direct two-tower forward.
-6. training kernels: the attention-dropout forward (#2) and #3's contract,
-   the backward (run by the delta kernel, #5 and #6), against their
-   plain versions at B=4, S=510, N=16, H=64 in bf16 and at small fp32 and
-   H=32/128 shapes, at rate 0 and 0.1, with ragged masks, a fully masked
-   row and a large-norm row (dq/dk/dv held per batch row and head against
-   that slice's max|ref|, the large-norm row as a whole against its own);
-   the keep bits read back from the three CUDA kernels (#2, #6, #5) equal
-   the plain hash bit for bit, and the dropped fraction is near 26/256.
+6. training kernels: #2's contract, the attention-dropout forward (run by
+   kernel #4), and #3's contract, the backward (run by the delta kernel,
+   #5 and #6), against their plain versions at B=4, S=510, N=16, H=64 in
+   bf16 and at small fp32 and H=32/128 shapes, at rate 0 and 0.1, with
+   ragged masks, a fully masked row and a large-norm row (lse held within
+   1e-5 on the ordinary rows, as lse + 1e9 within 1e-4 on the fully masked
+   row and within 1e-5 of |lse| + 1 on the large-norm row; dq/dk/dv held
+   per batch row and head against that slice's max|ref|, the large-norm
+   row as a whole against its own); the keep bits read back from the three
+   CUDA kernels (#4, #6, #5) equal the plain hash bit for bit, and the
+   dropped fraction is near 26/256.
    Times at the train shape B=40, S=510 beside the plain versions,
    ``scaled_dot_product_attention`` with dropout 0.1 (forward, and its
    backward alone; a yardstick only) and the least time the card could
@@ -64,8 +68,11 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
    kernels against their plain versions at B=2, S=1024 and S=2048, N=16,
    H=64 in bf16, at S=1020 (a ragged last tile), and at small fp32 and
    H=32/128 shapes, held as in phase 6; keep bits of all three kernels
-   against the plain hash; at S=510 #4's out and lse agree with #2's on
-   the same inputs and seed.  Times of each kernel alone at B=16, S=1024 (the long
+   against the plain hash; at B=4, S=510, rate 0 and 0.1, #4's out and lse
+   against a full-tile softmax in float64 computed on the card
+   (``torch.logsumexp`` of the scores, the keep bits of
+   ``keep_mask_reference``), which shares no code with the kernel or its
+   plain version.  Times of each kernel alone at B=16, S=1024 (the long
    train shape) and at B=4, S=2048, where the plain versions' outputs are
    held against the kernels' as well, beside the plain versions,
    ``scaled_dot_product_attention`` with dropout 0.1 (its forward beside
@@ -92,8 +99,8 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
-phase 8 (training: 24 launches of #2 and 24 calls of #3's contract per
-step, none counted as #5 or #6), phase 12 (long
+phase 8 (training: 24 calls of #2's contract and 24 of #3's per step,
+none counted as #4, #5 or #6), phase 12 (long
 serving: 24 launches of #4 per forward, no other kernel) and phase 14 (long
 training: 24 launches each of #4, #5 and #6 per step, no other kernel).  The
 line before the last is one JSON object with the six kernels' numbers; the
@@ -235,19 +242,26 @@ def phase_build() -> None:
     smem = cuda_attention.smem_bytes()  # one entry per bf16 kernel of #1
     print("  fused_attention.cu bf16 dynamic shared memory a block: "
           + ", ".join(f"<{h}> {b} B" for h, b in smem.items()), flush=True)
-    bwd_smem = cab.bwd_smem_bytes()
-    print("  flash_blockwise_bwd.cu bf16 dynamic shared memory a block: "
-          + ", ".join(f"{name}<{h}> {n} B" for (name, h), n in bwd_smem.items()),
-          flush=True)
-    branches = score_branches(_build.BUILD_INFO["fused_attention"]["path"])
-    for name, stretches in branches.items():
-        print(f"  {name} sass: " + ", ".join(
-            f"{ex2} exponentials, {br} branches" for ex2, br in stretches)
-            + " (stretches between batches of products)", flush=True)
-    check(len(branches) == len(smem) and all(
-        len(st) == 2 and all(ex2 >= 32 and br == 0 for ex2, br in st)
-        for st in branches.values()),
-        f"#1's bf16 kernels: branches around the per-score work {branches}")
+    print("  flash_blockwise_{fwd,bwd}.cu bf16 dynamic shared memory a "
+          "block: " + ", ".join(f"{name}<{h}> {n} B" for (name, h), n
+                                in cab.smem_bytes().items()), flush=True)
+    # the bf16 kernels of #1 (one per head dim) and of #4 (one per head dim
+    # and dropout on or off)
+    for source, kernel, count in (("fused_attention", "attn_fwd_bf16", 3),
+                                  ("flash_blockwise_fwd", "flash_fwd_bf16", 6)):
+        branches = score_branches(_build.BUILD_INFO[source]["path"], kernel)
+        for name, stretches in branches.items():
+            print(f"  {name} sass: " + ", ".join(
+                f"{ex2} exponentials, {br} branches" for ex2, br in stretches)
+                + " (stretches between batches of products)", flush=True)
+        check(len(branches) == count and all(
+            len(st) == 2 and all(ex2 >= 32 and br == 0 for ex2, br in st)
+            for st in branches.values()),
+            f"{kernel}: branches around the per-score work {branches}")
+    spills = [k for k in _ptxas_summary(
+        _build.BUILD_INFO["flash_blockwise_fwd"]["log"]).split("; ")
+        if k.startswith("flash_fwd_bf16") and "spill" in k]
+    check(not spills, f"#4's bf16 kernels spill registers: {spills}")
 
 
 def _cuobjdump() -> str:
@@ -258,19 +272,20 @@ def _cuobjdump() -> str:
                / "cuobjdump")
 
 
-def score_branches(lib: str) -> dict:
-    """For each bf16 kernel of #1 in the library ``lib``: its SASS cut at
-    every wgmma (HGMMA) into stretches, and for each stretch that holds
-    exponentials (MUFU.EX2: the per-score work of one tile step) the
-    number of exponentials and of branch instructions (BRA, BSSY) in it."""
+def score_branches(lib: str, kernel: str) -> dict:
+    """For each instantiation of the template ``kernel`` in the library
+    ``lib``: its SASS cut at every wgmma (HGMMA) into stretches, and for
+    each stretch that holds exponentials (MUFU.EX2: the per-score work of
+    one tile step) the number of exponentials and of branch instructions
+    (BRA, BSSY) in it."""
     sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
     out, name, stretch = {}, None, [0, 0]
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            k = re.search(r"attn_fwd_bf16I((?:Li\d+E)+)E", m.group(1))
-            name = (f"attn_fwd_bf16<{','.join(re.findall(r'Li(\d+)E', k.group(1)))}>"
+            k = re.search(kernel + r"I((?:L[ib]\d+E)+)E", m.group(1))
+            name = (f"{kernel}<{','.join(re.findall(r'L[ib](\d+)E', k.group(1)))}>"
                     if k else None)
             if name:
                 out[name] = []
@@ -463,8 +478,9 @@ def phase_mining(cfg: ModelConfig, seed: int, gen: torch.Generator) -> int:
 
 
 # ---------------------------------------------------------------------------
-# kernels with row statistics and dropout: #2 forward and #3 backward (S <=
-# 512), #4 forward, #5 dQ and #6 dK/dV (any S)
+# kernels with row statistics and dropout: #4 forward, #5 dQ and #6 dK/dV
+# (any S), which also serve the contracts of #2 (forward) and #3 (backward)
+# at S <= 512
 # ---------------------------------------------------------------------------
 
 TRAIN_CASES = [  # (label, B, S, N, H, dtype); the first is the main shape
@@ -502,7 +518,8 @@ def _blockwise_bwd_reference(*args):
 # lse); the plain bwd takes (..., g, lse, delta)
 TRAIN_FAMILY = SimpleNamespace(
     name="phase 6 train kernels",
-    kernels=("#2", "#6 (in #3's route)", "#5 (in #3's route)"),
+    kernels=("#4 (in #2's route)", "#6 (in #3's route)",
+             "#5 (in #3's route)"),
     fwd=cat.fused_attention_dropout_fwd, bwd=cat.fused_attention_dropout_bwd,
     fwd_ref=cat.fused_attention_dropout_reference,
     bwd_ref=cat.fused_attention_dropout_bwd_reference)
@@ -584,27 +601,57 @@ def _train_inputs(B, S, N, H, dt, gen):
     return (q.to(dt), k.to(dt), v.to(dt), g.to(dt), make_attention_bias(mask))
 
 
+LSE_TOL = dict(abs=1e-5, masked=1e-4, rel=1e-5)
+MASKED_LSE = -1e8  # below this, a row whose keys all carry the -1e9 bias
+
+
+def hold_lse(tag: str, lse, ref_lse, big: int) -> str:
+    """lse against a reference, row by row as each row allows: an ordinary
+    row within ``LSE_TOL["abs"]``; a fully masked row (lse near -1e9 +
+    log S) as lse + 1e9 within ``LSE_TOL["masked"]``, which sees a shift
+    of the -1e9 row in its last places that a relative limit would let
+    through; the x30 row ``big``, whose fp32 scores run to the hundreds
+    and differ by their ulps, within ``LSE_TOL["rel"]`` of |lse| + 1.
+    Returns a text of the three errors."""
+    d = (lse - ref_lse).abs()
+    masked = ref_lse < MASKED_LSE
+    rows = torch.ones_like(masked)
+    rows[big] = False
+    ordinary = rows & ~masked
+    e_abs = d[ordinary].max().item() if ordinary.any() else 0.0
+    e_masked = ((lse[masked] + 1e9) - (ref_lse[masked] + 1e9)).abs().max(
+    ).item() if masked.any() else 0.0
+    e_rel = (d[big] / (ref_lse[big].abs() + 1.0)).max().item()
+    check(bool(masked[1 % len(masked)].all()), f"{tag}: no fully masked row")
+    check(e_abs <= LSE_TOL["abs"], f"{tag}: lse err {e_abs} > "
+          f"{LSE_TOL['abs']} on the ordinary rows")
+    check(e_masked <= LSE_TOL["masked"], f"{tag}: lse + 1e9 err {e_masked} "
+          f"> {LSE_TOL['masked']} on the fully masked row")
+    check(e_rel <= LSE_TOL["rel"], f"{tag}: lse err {e_rel} > "
+          f"{LSE_TOL['rel']} of |lse| + 1 on the x30 row")
+    return (f"lse err {e_abs:.3e} (ordinary rows), {e_masked:.3e} (masked "
+            f"row, lse + 1e9), {e_rel:.3e} of |lse| + 1 (x30 row)")
+
+
 def hold_against_plain(tag: str, dt, got, ref):
     """One family's (out, lse, dq, dk, dv) held against the plain versions'
-    on the same inputs: out within ``TOL``, lse within 1e-5 of |lse| + 1,
+    on the same inputs: out within ``TOL``, lse as ``hold_lse`` holds it,
     dq, dk and dv within ``GRAD_TOL`` of max|ref| in each (batch row, head)
     slice.  Returns a text of the errors and the absolute errors of out and
     of (dq, dk, dv)."""
     (out, lse, *grads), (ref, ref_lse, *ref_grads) = got, ref
     big = BIG_ROW % out.shape[0]
     e_out = (out.float() - ref.float()).abs().max().item()
-    e_lse = ((lse - ref_lse).abs() / (ref_lse.abs() + 1.0)).max().item()
     e_grad, at, what = max((*_slice_rel(a, b, big), name) for name, a, b in
                            zip(("dq", "dk", "dv"), grads, ref_grads))
     check(all(bool(torch.isfinite(x).all()) for x in got),
           f"{tag}: non-finite")
     check(e_out <= TOL[dt], f"{tag}: out err {e_out} > {TOL[dt]}")
-    check(e_lse <= 1e-5, f"{tag}: lse err {e_lse} > 1e-5 (relative to "
-          f"|lse| + 1)")
+    lse_text = hold_lse(tag, lse, ref_lse, big)
     check(e_grad <= GRAD_TOL[dt], f"{tag}: {what} err {e_grad} > "
           f"{GRAD_TOL[dt]} of max|ref| in the slice (b, n) = {at}")
-    text = (f"out err {e_out:.3e} (tol {TOL[dt]:g}), lse rel err "
-            f"{e_lse:.3e}, dq/dk/dv worst slice err {e_grad:.3e} of its "
+    text = (f"out err {e_out:.3e} (tol {TOL[dt]:g}), {lse_text}, "
+            f"dq/dk/dv worst slice err {e_grad:.3e} of its "
             f"max|ref| ({what} at (b, n) = {at}, x30 row b={big} as a whole; "
             f"tol {GRAD_TOL[dt]:g})")
     return text, e_out, [(a.float() - b.float()).abs().max().item()
@@ -659,26 +706,51 @@ def phase_train_kernels(gen: torch.Generator, cases=TRAIN_CASES,
     return dict(fwd_err=err["fwd"], bwd_err=err["bwd"])
 
 
+def full_tile_reference(rate: float, seed: int, q, k, v, bias):
+    """Attention with inverted dropout as one full-tile softmax in float64,
+    sharing no code with the kernels or their plain versions: the scores
+    [B, N, S, S] in fp32, as the contract has them (the -1e9 mask bias
+    swallows q.k there, so a fully masked row is uniform), then lse by
+    ``torch.logsumexp`` and the softmax in float64, and the keep bits of
+    ``keep_mask_reference``.  Returns out [B, S, N, H] and lse [B, N, S] in
+    float64."""
+    B, S, N, H = q.shape
+    t, keep_p = cat.dropout_consts(rate)
+    qf, kf = (x.float().permute(0, 2, 1, 3) for x in (q, k))
+    scores = qf @ kf.transpose(-1, -2) * (1.0 / math.sqrt(H))
+    if bias is not None:
+        scores = scores + bias.float().reshape(B, 1, 1, S)
+    scores = scores.double()
+    lse = torch.logsumexp(scores, dim=-1)
+    p = torch.exp(scores - lse[..., None])
+    if t:
+        p = torch.where(cat.keep_mask_reference(seed, B, N, S, t, q), p,
+                        torch.zeros_like(p)) / keep_p
+    return (p @ v.double().permute(0, 2, 1, 3)).permute(0, 2, 1, 3), lse
+
+
 def phase_blockwise_vs_full_tile(gen: torch.Generator) -> None:
-    """At S=510 the long forward #4 agrees with #2 on the same inputs and
-    seed, out and lse, within the kernels' own tolerance (the counterpart of
-    the JAX package's blockwise-vs-full-tile test on the TPU).  The backward
-    is not compared here: #3's contract runs on #5 and #6 themselves, so it
-    is held only against its plain version (phase 6)."""
+    """At B=4, S=510 (the contract of #2, which runs on #4) #4's out and lse
+    against ``full_tile_reference`` on the same inputs and seed, at rate 0
+    and 0.1, within phase 11's limits (out within ``TOL``, lse as
+    ``hold_lse`` holds it): the counterpart of the JAX package's blockwise-vs-
+    full-tile test on the TPU, and a check of #4 by other arithmetic than
+    its plain version's 64-key online softmax."""
     B, S, N, H, dt = TRAIN_CASES[0][1:]
     q, k, v, _, bias = _train_inputs(B, S, N, H, dt, gen)
     for rate in (0.0, 0.1):
-        a, a_lse = cat.fused_attention_dropout_fwd(rate, 77, q, k, v, bias)
-        b, b_lse = cab.flash_fwd(rate, 77, q, k, v, bias)
+        out, lse = cab.flash_fwd(rate, 77, q, k, v, bias)
+        ref, ref_lse = full_tile_reference(rate, 77, q, k, v, bias)
         torch.cuda.synchronize()
-        e_out = (a.float() - b.float()).abs().max().item()
-        e_lse = (a_lse - b_lse).abs().max().item()
-        check(e_out <= TOL[dt] and e_lse <= 1e-5,
-              f"blockwise vs full-tile at S={S} rate {rate}: out {e_out}, "
-              f"lse {e_lse}")
-        print(f"phase 11 long forward #4 vs #2 at B={B} S={S} rate {rate}: "
-              f"out diff {e_out:.3e} (tol {TOL[dt]:g}), lse diff "
-              f"{e_lse:.3e}", flush=True)
+        tag = f"#4 vs the full-tile float64 softmax at S={S} rate {rate}"
+        e_out = (out.double() - ref).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and e_out <= TOL[dt],
+              f"{tag}: out {e_out}")
+        lse_text = hold_lse(tag, lse, ref_lse, BIG_ROW % B)
+        print(f"phase 11 #4 vs a full-tile float64 softmax at B={B} S={S} "
+              f"rate {rate}: out err {e_out:.3e} (tol {TOL[dt]:g}), "
+              f"{lse_text}", flush=True)
+        del out, ref
 
 
 def _bound(nbytes: int, flops: int, dt) -> dict:
@@ -757,7 +829,7 @@ def time_blockwise_kernels(gen: torch.Generator, B: int, S: int) -> dict:
 
 
 def time_train_kernels(gen: torch.Generator) -> dict:
-    """#2 and #3's contract at the train shape against their plain
+    """#2's contract (on #4) and #3's at the train shape against their plain
     versions, SDPA with dropout 0.1 and the bound of the function: for #3
     10*B*N*S^2*H FLOP (its five products) whatever runs it, beside the
     route's own count (delta, then #5's three products and #6's four:
@@ -827,7 +899,8 @@ def zero_counters() -> None:
 
 
 def counters():
-    """Launches of kernels #1 to #6."""
+    """Launches of kernels #1 to #6 (for #2 and #3: calls of their
+    contracts, which run on #4 and on delta, #5 and #6)."""
     return (cuda_attention.LAUNCHES, cat.FWD_LAUNCHES, cat.BWD_LAUNCHES,
             cab.FWD_LAUNCHES, cab.DQ_LAUNCHES, cab.DKV_LAUNCHES)
 
@@ -1064,7 +1137,7 @@ def phase_remat_check(cfg: ModelConfig, seed: int, gen: torch.Generator) -> None
     full, dots and mlp equal those without remat within 1e-6 of max|ref|
     (the replay recomputes the same bf16 values with the same masks, since
     every mask is a function of the seed and the site), and the replay
-    launches #2 once more per layer."""
+    launches #2's contract once more per layer."""
     cfg = cfg.replace(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
     B, S = 4, cfg.pair_seq_len
     ids, mask = pair_batch(B, S, cfg.vocab_size, gen)
@@ -1457,7 +1530,7 @@ def run(args) -> None:
              replaces=tpu + "63", launches=launches,
              max_abs_err=kernel["max_abs_err"], **{k: kernel[k] for k in keys}),
         dict(name="fused_attention_dropout",
-             source=src + "attention_dropout_fwd.cu", replaces=tpu + "203",
+             source=src + "flash_blockwise_fwd.cu", replaces=tpu + "203",
              launches=trained[1], max_abs_err=train["fwd_err"], **train["fwd"]),
         dict(name="fused_attention_dropout_bwd",
              source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",

@@ -1,9 +1,10 @@
 // Pieces shared by the attention kernels: the dropout mask's integer hash,
-// the mma.sync and cp.async helpers and tile loaders of the forward kernels
-// #2 and #4 (attention_dropout_fwd.cu, flash_blockwise_fwd.cu), the fp32
-// tile loader, the float-float split of lse and the delta kernel of the
-// backward (flash_blockwise_bwd.cu, which serves #3's contract, #5 and #6),
-// and the constants of the serving kernel #1 (fused_attention.cu).
+// warp and quad reductions, the fp32 tile loader of the correctness paths,
+// the packing of fp32 accumulators into a bf16 A operand, the float-float
+// split of lse and the delta kernel of the backward (flash_blockwise_bwd.cu,
+// which serves #3's contract, #5 and #6), for the serving kernel #1
+// (fused_attention.cu), the forward #4 that also serves #2's contract
+// (flash_blockwise_fwd.cu) and the backward.
 //
 // The dropout mask.  The TPU kernels draw their keep bits from the TPU's
 // hardware PRNG, which nothing else reproduces.  Here the keep bit of score
@@ -89,31 +90,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; with `valid` false the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-// all but the most recently committed group have landed
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// rows [row0, row0 + ROWS) of one (batch, head) slice -> shared memory with
-// row pitch LD (in elements); rows past S are zero-filled
-template <int ROWS, int HD, int LD>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, long long s_stride,
-                                               int row0, int S) {
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
-    const int r = c / CHUNKS;
-    const int d = (c - r * CHUNKS) * 8;
-    const int row = row0 + r;
-    const bool valid = row < S;
-    cp_async16(dst + r * LD + d, valid ? src + (long long)row * s_stride + d : src, valid);
-  }
-}
-
 template <int ROWS, int HD, int LD>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, long long s_stride,
                                               int row0, int S) {
@@ -130,52 +106,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 inputs, fp32 accumulate.
-// Fragment ownership: lane = 4g + t.  An accumulator holds (row g, cols 2t,
-// 2t+1) in c[0..1] and (row g+8, the same cols) in c[2..3]; an A fragment
-// holds (row g, cols 2t..2t+1), (row g+8, ...), (row g, cols 2t+8..), (row
-// g+8, cols 2t+8..) in a[0..3].
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The B fragments of two adjacent 8-row groups (b0: rows 0..7, b1: rows
-// 8..15 of the row-major [n][k] tile at p, the k-dimension contiguous: K in
-// Q K^T) over one 16-deep k step, through one ldmatrix.x4: lane 4g + t gets
-// (row g, k 2t..2t+1) in b[0] and (row g, k 2t+8..2t+9) in b[1].  Rows must
-// be 16-byte aligned.
-__device__ __forceinline__ void load_b_frag_nk_x2(uint32_t b0[2], uint32_t b1[2], const bf16* p,
-                                                  int ld, int lane) {
-  const int m = lane >> 3;  // this lane addresses one row of matrix m
-  const bf16* row = p + ((m >> 1) * 8 + (lane & 7)) * ld + (m & 1) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b0[0]), "=r"(b0[1]), "=r"(b1[0]), "=r"(b1[1])
-               : "r"(smem_addr(row)));
-}
-
-// An A fragment (16 rows x 16 cols at p of a row-major shared tile) through
-// one ldmatrix.x4
-__device__ __forceinline__ void load_a_frag_x4(uint32_t a[4], const bf16* p, int ld, int lane) {
-  const int m = lane >> 3;
-  const bf16* row = p + ((m & 1) * 8 + (lane & 7)) * ld + (m >> 1) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_addr(row)));
-}
-
-// B fragment (16 k x 8 n) where the shared tile is row-major [k][n]: the
-// n-dimension is contiguous (V in P V), through ldmatrix.trans
-__device__ __forceinline__ void load_b_frag_kn(uint32_t b[2], const bf16* p, int ld, int lane) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(smem_addr(p + (lane & 15) * ld)));
-}
-
-// the accumulators s[2kk], s[2kk+1] (16 rows x 16 cols) as one A fragment
+// Two 8-column groups of an fp32 accumulator (16 rows x 16 cols; lane 4g + t
+// holds (row g, cols 2t, 2t+1) in lo[0..1] and (row g+8, ...) in lo[2..3],
+// the next group in hi) as one bf16 A operand of a 16-deep product: (row g,
+// cols 2t..2t+1), (row g+8, ...), (row g, cols 2t+8..), (row g+8, cols
+// 2t+8..) in a[0..3]
 __device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4], const float hi[4]) {
   a[0] = pack_bf16(lo[0], lo[1]);
   a[1] = pack_bf16(lo[2], lo[3]);

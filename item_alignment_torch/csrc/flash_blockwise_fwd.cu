@@ -1,11 +1,17 @@
-// Blockwise attention forward for long sequences (S > 512), with in-kernel
-// dropout and row statistics, for Hopper (sm_90a).
+// Blockwise attention forward with in-kernel dropout and float64 row
+// statistics, for Hopper (sm_90a): kernel #4, which also serves #2's
+// contract.
 //
-// Replaces the TPU kernel `_flash_kernel` in
-// item_alignment_tpu/ops/pallas_attention.py (launched by
-// `_flash_blockwise_impl`; public functions `fused_attention_blockwise_dropout`
-// and, at rate 0, `fused_attention_blockwise`).  Per query row, over key
-// tiles, the running triple (m, l, acc) from the finite start m = -1e30:
+// Replaces two TPU kernels of item_alignment_tpu/ops/pallas_attention.py:
+//   - `_flash_kernel` (:458-519, launched by `_flash_blockwise_impl` :663;
+//     public functions `fused_attention_blockwise_dropout` and, at rate 0,
+//     `fused_attention_blockwise`), the forward for S > 512;
+//   - `_attn_dropout_kernel` (:203-238, launched by
+//     `_fused_attention_dropout_impl` :359; public function
+//     `fused_attention_dropout` and, at rate 0, the forward of
+//     `fused_attention`'s VJP), the forward at S <= 512.
+// Both compute, per query row, over key tiles, the running triple (m, l,
+// acc) from the finite start m = -1e30:
 //
 //   x     = q.k / sqrt(H) + key_bias
 //   m'    = max(m, rowmax(x)),  alpha = exp(m - m')       (exact running max)
@@ -16,39 +22,84 @@
 //   lse   = m + log(max(l, 1e-37))                         ([B, N, S], float64)
 //
 // keep is the hashed keep bit of attention_common.cuh, a function of (seed,
-// b, n, i, j) alone: the TPU kernel reseeds its hardware generator per
-// (q tile, kv tile), which ties its mask to its tiling; here the forward, the
-// dQ and the dK/dV kernels (flash_blockwise_bwd.cu) tile differently and
-// still draw the same bits, and at S <= 512 they are the bits of
-// attention_dropout_fwd.cu.  lse is float64 for the fully masked row (see
-// attention_dropout_fwd.cu).  The TPU kernel asserts S % block == 0; this
-// one masks a ragged last tile and takes any S.  Q, K, V and out use the JAX
-// layout [B, S, N, H], addressed through strides held in 64 bits.
+// b, n, i, j) alone: the TPU kernels draw theirs from the hardware
+// generator, reseeded per tile; here the forward, the dQ and the dK/dV
+// kernels (flash_blockwise_bwd.cu) tile differently and still draw the same
+// bits.  lse is float64 for the fully masked row: its scores are exactly
+// -1e9 (the mask bias swallows q.k in fp32), so an fp32 lse, -1e9 + log(S),
+// would round back to -1e9 and the backward's exp(x - lse) give 1 instead
+// of 1/S.  The TPU kernels assert S % block == 0; this one masks a ragged
+// last tile and takes any S.  Q, K, V and out use the JAX layout
+// [B, S, N, H], addressed through strides held in 64 bits.
 //
-// Design.  One block of 4 warps takes 64 queries of one (batch row, head),
-// each warp 16 rows, as attention_dropout_fwd.cu does.  At S >= 1024 one
-// (batch row, head) has >= 16 such tiles, each of which reads that head's
-// whole K and V again from L2, and a 128-query tile on 8 warps would halve
-// that traffic.  It was built and measured on an H100 and lost (0.63 against
-// 0.54 ms at B=16, S=1024; PERF.md has the run): at about 164 registers a
-// thread an SM holds three 4-warp blocks but one 8-warp block, and the warps
-// in flight matter more than the L2 traffic.  So the tile is fixed at 64.
-// Keys come in 64-key tiles through a two-stage cp.async pipeline; Q
-// fragments, the score tile, P and the output accumulator stay in registers
-// (mma.sync m16n8k16, fp32 accumulate, the K fragments of two products per
-// ldmatrix.x4); each thread hashes one 32-bit word per two of its scores.
+// Bound on this card (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s).  The
+// call reads Q, K, V and the key bias once and writes out and lse:
+// 4*B*S*N*H*2 + 8*B*N*S + 4*B*S bytes; it does 4*B*N*S^2*H FLOP.  At the
+// long train shape B=16, S=1024, N=16, H=64: 68.7 GFLOP -> 0.0695 ms against
+// 136 MB -> 0.041 ms, bound by operations.  At #2's train shape B=40,
+// S=510: 42.6 GFLOP -> 0.043 ms against 170 MB -> 0.051 ms, bound by bytes.
+// A co-limit is the instruction rate of the per-score work (one
+// instruction a clock per warp scheduler): beside each score's exponential
+// (16 a clock an SM on the special-function unit) go an FMA for x, a max,
+// an FMA for the exponent, an add to l and, with dropout, an eighth of a
+// 32-bit hash and a quarter of a byte compare that is applied to the
+// packed bf16 p.
+//
+// Design (bf16).  As fused_attention.cu (kernel #1), from the pieces of
+// hopper_common.cuh: a block is one consumer warpgroup of 64 queries of one
+// (batch row, head) and a producer warpgroup (FwdRing, FwdRegs):
+//   - one warp of the producer warpgroup loads the block's Q once by TMA and
+//     keeps a two-stage ring of K and V tiles (64 keys each) full, tracked
+//     by `mbarrier`s; its lanes write each stage's key bias, which TMA
+//     cannot load (the [B, S] fp32 rows are 2040 bytes apart at S = 510).
+//     The producer warpgroup gives its registers to the consumers
+//     (`setmaxnreg`); the launch checks that the block's pool covers the
+//     consumers' raise, so the raise can never wait forever;
+//   - every product is a `wgmma` (m64nNk16, fp32 accumulate).  S = Q K^T
+//     reads both operands from shared memory, K-major; keep * p is packed
+//     to bf16 in registers as the A operand of O += P V, which reads V
+//     MN-major through wgmma's transpose;
+//   - the per-score work has no branch.  x is one FMA of the raw product
+//     with the scale and the key bias, in natural units, bit for bit what
+//     the backward recomputes; the exponent is a second FMA, x * log2(e) -
+//     c with c = m' * log2(e) rounded to fp32, and the exponential
+//     `ex2.approx.ftz` (the special-function unit alone; probabilities below
+//     2^-126 flush to zero).  Taking c as the shift keeps lse exact where
+//     x is huge: lse = (c + log2 l) / log2(e) in float64, with the same fp32
+//     log2(e), is what the exponents summed, so the fully masked row gets
+//     -1e9 + log(S).  (A bias premultiplied by log2(e), as #1 takes it,
+//     would round -1e9 * log2(e) by up to 64 and move that row's lse by up
+//     to 44.)  The row's max element then weighs 2^(m log2(e) - c), not
+//     exactly 1: the epilogue scales l for out by that weight rounded to
+//     bf16 over the weight, as P V saw it, so that a row one key dominates
+//     (the x30 rows of the checks) gives that key's v as exactly as the
+//     plain version.  Only the last, ragged tile (510 = 7 * 64 + 62, 1020 =
+//     15 * 64 + 60) selects its columns past S to -inf: it is a separate
+//     instantiation of the tile step, peeled from the loop.  The row sums
+//     stay per thread until the epilogue;
+//   - dropout is a template parameter (DROP): the rate-0 forwards (long
+//     serving, the forward of fused_attention's VJP) hash nothing.  With it,
+//     lanes t and t ^ 1 need the same two hash words of each 8-key group
+//     (keys 2t, 2t + 1 of rows g and g + 8 share one word per row); each
+//     hashes one and fetches the other by shuffle, as the dK/dV kernel
+//     does.  The keep bits apply to p after it is packed to bf16 pairs: two
+//     byte permutes and an add turn a word's two bytes into a mask of 16
+//     bits each, and one AND applies it (l has summed the undropped p);
+//   - the consumer warpgroup waits for each batch of products before it
+//     goes on (a wait deferred past the loop's back edge makes ptxas
+//     serialise the wgmmas); the other blocks on the SM run their softmax
+//     under its products.  So a block holds one consumer warpgroup, and as
+//     many blocks share an SM as fit (MIN_BLOCKS): four at H <= 64 (42,536
+//     bytes of shared memory a block, 64 registers a thread at entry, the
+//     consumers at 104 with dropout too), two at H = 128.  Timed in turns,
+//     three blocks an SM at H = 64 ran behind four at both train shapes,
+//     with dropout and without (PERF.md).
 // fp32 is a scalar-FMA correctness path on 64 x 64 tiles.
-//
-// Bound on this card (H100 SXM: 989 TFLOP/s dense bf16, 3.35 TB/s).  Work is
-// 4*B*N*S^2*H FLOP (two products) and 4*B*S*N*H*2 bytes plus the statistics.
-// At B=16, S=1024, N=16, H=64 in bf16: 68.7 GFLOP -> 0.069 ms and 136 MB ->
-// 0.041 ms, so the call is bound by operations, and more so as S grows.
-// mma.sync instead of wgmma, the B fragments read from shared memory per
-// warp and the mask hash on the integer pipes keep this version above it.
 
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -76,182 +127,186 @@ struct Params {
   float keep_p;
 };
 
-// Q (BQ rows), two stages of K and of V (BKV rows each), two stages of bias
-template <int HD>
-struct Bf16Layout {
-  static constexpr int LD = HD + 8;  // 16-byte rows, no bank conflicts
-  static constexpr int Q_TILE = BQ * LD;
-  static constexpr int KV_TILE = BKV * LD;
-  static constexpr int BIAS_OFF = (Q_TILE + 4 * KV_TILE) * 2;
-  static constexpr int BYTES = BIAS_OFF + 2 * BKV * 4;
-};
+// ---------------------------------------------------------------------------
+// bf16: wgmma, a TMA ring and a producer warpgroup
+// ---------------------------------------------------------------------------
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS) flash_fwd_bf16(Params p) {
-  using L = Bf16Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + L::Q_TILE;
-  bf16* Vs = Ks + 2 * L::KV_TILE;
-  float* Bs = reinterpret_cast<float*>(smem + L::BIAS_OFF);
+struct Fwd {
+  static constexpr int MIN_BLOCKS = HD <= 64 ? 4 : 2;  // blocks an SM
+  using Regs = FwdRegs<MIN_BLOCKS>;
+  using Ring = FwdRing<HD, 2>;
+  static_assert(Regs::CONSUMER_REGS >= 96, "too few registers for the consumers");
+};
+
+// DROP: dropout on (threshold > 0); without it no keep bit is hashed
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(Fwd<HD>::Regs::THREADS, Fwd<HD>::MIN_BLOCKS)
+    flash_fwd_bf16(const Params p, const __grid_constant__ QkvMaps maps) {
+  using F = Fwd<HD>;
+  using R = typename F::Ring;
+  using T = TileDesc<BQ, HD>;  // Q, K and V tiles alike: 64 rows
+  extern __shared__ unsigned char smem_raw[];
+  const R ring(smem_raw);
+  ring.init();
 
   const int S = p.S;
   const int m0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int r0 = (tid / 32) * ROWS_PER_WARP;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  const bf16* q = slice<bf16>(p.q, b, h, p.q_sb, p.q_sn);
-  const bf16* k = slice<bf16>(p.k, b, h, p.k_sb, p.k_sn);
-  const bf16* v = slice<bf16>(p.v, b, h, p.v_sb, p.v_sn);
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-
-  load_tile_bf16<BQ, HD, L::LD>(Qs, q, p.q_ss, m0, S);
-  load_tile_bf16<BKV, HD, L::LD>(Ks, k, p.k_ss, 0, S);
-  load_tile_bf16<BKV, HD, L::LD>(Vs, v, p.v_ss, 0, S);
-  cp_async_commit();
-  if (tid < BKV) Bs[tid] = (bias && tid < S) ? bias[tid] : 0.f;
-
-  // keys of this thread's two rows for the dropout hash
-  uint32_t rk[2] = {0u, 0u};
-  if (p.threshold) {
-    const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
-    rk[0] = row_key(hk, uint32_t(m0 + r0 + g));
-    rk[1] = row_key(hk, uint32_t(m0 + r0 + g + 8));
+  if (warp >= R::PRODUCER) {
+    setmaxnreg_dec<F::Regs::PRODUCER_REGS>();
+    if (warp == R::PRODUCER)
+      ring.produce(maps, p.bias ? p.bias + b * p.bias_sb : nullptr, 1.f, S, m0, h, b);
+    return;
   }
 
-  uint32_t qf[HD / 16][4];
-  float o_acc[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o_acc[j][0] = o_acc[j][1] = o_acc[j][2] = o_acc[j][3] = 0.f;
-  float m_row[2] = {INIT_MAX, INIT_MAX};
-  float l_row[2] = {0.f, 0.f};
+  setmaxnreg_inc<F::Regs::CONSUMER_REGS>();
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = m0 + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
+  // dropout: this lane hashes row row0 + 8 * (t & 1); `gather` moves the
+  // bytes of keys 2t and 2t + 1 (bytes 2 (t & 1) and 2 (t & 1) + 1 of their
+  // word) into the low bytes of two 16-bit halves, and `bump` adds 0x8000 -
+  // threshold to each half, whose bit 15 is then the keep bit
+  uint32_t rk = 0, gather = 0, bump = 0;
+  if constexpr (DROP) {
+    const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+    rk = row_key(hk, uint32_t(row0 + 8 * (t & 1)));
+    const uint32_t a = 2 * (t & 1);
+    gather = a | 0x40u | (a + 1) << 8 | 0x4000u;
+    bump = (0x8000u - p.threshold) * 0x10001u;
+  }
 
-  const int n_tiles = (S + BKV - 1) / BKV;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int kv0 = it * BKV;
-    const bf16* Kt = Ks + (it & 1) * L::KV_TILE;
-    const bf16* Vt = Vs + (it & 1) * L::KV_TILE;
-    const float* Bt = Bs + (it & 1) * BKV;
-    const bool full = kv0 + BKV <= S;
-    float bias_next = 0.f;
-    if (bias && tid < BKV && kv0 + BKV + tid < S) bias_next = bias[kv0 + BKV + tid];
-    if (it + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      load_tile_bf16<BKV, HD, L::LD>(Ks + ((it + 1) & 1) * L::KV_TILE, k, p.k_ss, kv0 + BKV, S);
-      load_tile_bf16<BKV, HD, L::LD>(Vs + ((it + 1) & 1) * L::KV_TILE, v, p.v_ss, kv0 + BKV, S);
-      cp_async_commit();
-      cp_async_wait_one();
-    } else {
-      cp_async_wait_all();
-    }
-    __syncthreads();
+  // accumulators (the wgmma layout): rows row0 and row0 + 8 in d[4j + 0, 1]
+  // and d[4j + 2, 3] of each 8-column group j, columns 8j + 2t and 8j + 2t + 1
+  float o[HD / 2], s[BKV / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < BKV / 2; ++e) s[e] = 0.f;
+  float m[2] = {INIT_MAX, INIT_MAX};  // the exact row max of x
+  // the exponents' shift: m * log2(e) rounded to fp32
+  float c[2] = {INIT_MAX * LOG2E, INIT_MAX * LOG2E};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  ring.wait_q();
 
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) load_a_frag_x4(qf[kk], Qs + r0 * L::LD + kk * 16, L::LD, lane);
-    }
+  // one KV tile; RAGGED (the last tile, S % 64 != 0) selects its columns
+  // past S away, every other tile runs no test on any score
+  auto step = [&](int it, auto ragged) {
+    constexpr bool RAGGED = decltype(ragged)::value;
+    const bf16* Kt = ring.k_tile(it);
+    const bf16* Vt = ring.v_tile(it);
+    const float* bt = ring.key_bias(it);
+    ring.wait(it);
 
-    float s[BKV / 8][4];
+    fence_regs(s);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BKV / 8; j += 2) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = s[j + 1][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t kb0[2], kb1[2];  // keys j*8.. and (j+1)*8..
-        load_b_frag_nk_x2(kb0, kb1, Kt + j * 8 * L::LD + kk * 16, L::LD, lane);
-        mma_bf16(s[j], qf[kk], kb0);
-        mma_bf16(s[j + 1], qf[kk], kb1);
-      }
-    }
+    for (int kk = 0; kk < HD / 16; ++kk)
+      Wgmma<BKV>::ss(s, T::k_major(ring.q, kk), T::k_major(Kt, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
 
-    // x = q.k * scale + bias in natural units; keys past S become -inf
-    float tile_max[2] = {-INFINITY, -INFINITY};
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j) {
-      const float2 bb = *reinterpret_cast<const float2*>(Bt + j * 8 + 2 * t);
+      const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * j + 2 * t);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + j * 8 + 2 * t + (e & 1);
-        const float x = (full || col < S) ? fmaf(s[j][e], p.scale, (e & 1) ? bb.y : bb.x) : -INFINITY;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-        s[j][e] = x;
+      for (int e4 = 0; e4 < 4; ++e4) {
+        const int e = 4 * j + e4;
+        float x = fmaf(s[e], p.scale, e4 & 1 ? bb.y : bb.x);
+        if constexpr (RAGGED) x = it * BKV + 8 * j + 2 * t + (e4 & 1) < S ? x : -INFINITY;
+        s[e] = x;
+        mx[e4 >> 1] = fmaxf(mx[e4 >> 1], x);
       }
     }
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_row[r], quad_max(tile_max[r]));
-      alpha[r] = exp2f((m_row[r] - m_new) * LOG2E);
-      m_row[r] = m_new;
+      mx[r] = quad_max(mx[r]);
+      const float cn = mx[r] * LOG2E;
+      alpha[r] = exp2_ftz(c[r] - cn);
+      m[r] = mx[r];
+      c[r] = cn;
+      l[r] *= alpha[r];
     }
-    float psum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = exp2f((s[j][e] - m_row[e >> 1]) * LOG2E);
-        psum[e >> 1] += pv;  // l sums the undropped mass
-        s[j][e] = pv;
-      }
+    for (int e = 0; e < BKV / 2; ++e) {
+      const float pe = exp2_ftz(fmaf(s[e], LOG2E, -c[(e >> 1) & 1]));
+      l[(e >> 1) & 1] += pe;
+      s[e] = pe;
     }
-    if (p.threshold) {
-      // cols 2t, 2t+1 of each 8-key group share one 4-byte word
 #pragma unroll
-      for (int j = 0; j < BKV / 8; ++j) {
-        const uint32_t col = kv0 + j * 8 + 2 * t;
+    for (int e = 0; e < HD / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+
+    // O += (keep * P) V, P rounded to bf16: two 8-key groups of s make one
+    // A operand, whose registers hold (row, keys 2t and 2t + 1) of group
+    // 2kk for rows row0, row0 + 8, then of group 2kk + 1
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) acc_to_a(pa[kk], s + 8 * kk, s + 8 * kk + 4);
+    if constexpr (DROP) {
+#pragma unroll
+      for (int jk = 0; jk < BKV / 8; ++jk) {
+        const uint32_t mine = key_word(rk, uint32_t(it * BKV + 8 * jk + 2 * t));
+        const uint32_t other = __shfl_xor_sync(0xffffffffu, mine, 1);
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const uint32_t word = key_word(rk[r], col);
-          if (!keep_bit(word, col, p.threshold)) s[j][2 * r] = 0.f;
-          if (!keep_bit(word, col + 1, p.threshold)) s[j][2 * r + 1] = 0.f;
+          const uint32_t word = (t & 1) == r ? mine : other;
+          // 0xffff in each half whose key is kept (bit 15 of the half
+          // repeated over its two bytes), 0 where it is dropped
+          const uint32_t keep = prmt(prmt(word, 0u, gather) + bump, 0u, 0xbb99u);
+          pa[jk >> 1][2 * (jk & 1) + r] &= keep;
         }
       }
     }
+    fence_regs(o);
+    wgmma_fence();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l_row[r] = l_row[r] * alpha[r] + quad_sum(psum[r]);
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      o_acc[j][0] *= alpha[0];
-      o_acc[j][1] *= alpha[0];
-      o_acc[j][2] *= alpha[1];
-      o_acc[j][3] *= alpha[1];
-    }
+    for (int kk = 0; kk < BKV / 16; ++kk) Wgmma<HD>::rs(o, pa[kk], T::mn_major(Vt, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    ring.release(it);  // this warp is done with the stage
+  };
 
-    // acc += (keep * P) V with P rounded to bf16
+  const int n_full = S / BKV;
+#pragma unroll 1
+  for (int it = 0; it < n_full; ++it) step(it, std::false_type{});
+  if (n_full * BKV < S) step(n_full, std::true_type{});
+
+  // l sums 2^(x log2(e) - c), which gives the row's max element pm =
+  // 2^(m log2(e) - c), within an ulp of c of 1 but not 1, where P V took
+  // it rounded to bf16.  lse takes l as it is; out takes it scaled by
+  // bf16(pm) / pm, so that a row that one key dominates gives that key's v
+  // divided by keep_p as exactly as a softmax whose max element is 1.
+  float denom[2], lsum[2];
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t pf[4];
-      acc_to_a(pf, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        uint32_t vb[2];
-        load_b_frag_kn(vb, Vt + kk * 16 * L::LD + j * 8, L::LD, lane);
-        mma_bf16(o_acc[j], pf, vb);
-      }
-    }
-    if (tid < BKV) Bs[((it + 1) & 1) * BKV + tid] = bias_next;
-    __syncthreads();
+  for (int r = 0; r < 2; ++r) {
+    lsum[r] = fmaxf(quad_sum(l[r]), MIN_DENOM);
+    const float pm = exp2_ftz(fmaf(m[r], LOG2E, -c[r]));
+    denom[r] = fmaxf(lsum[r] / pm * __bfloat162float(__float2bfloat16_rn(pm)), MIN_DENOM);
   }
-
-  bf16* o = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sn;
+  bf16* op = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sn;
   double* lse = p.lse + ((long long)b * p.N + h) * S;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + r0 + g + 8 * r;
-    if (row >= S) continue;
-    const float denom = fmaxf(l_row[r], MIN_DENOM);
-    if (t == 0) lse[row] = double(m_row[r]) + log(double(denom));
-    const float div = denom * p.keep_p;
-    bf16* orow = o + (long long)row * p.o_ss + 2 * t;
+    const int i = row0 + 8 * r;
+    if (i >= S) continue;
+    // log of the sum of exp(x): the exponents summed 2^(x log2(e) - c)
+    // with this fp32 log2(e), so the float64 lse divides by the same one
+    if (t == 0) lse[i] = (double(c[r]) + log2(double(lsum[r]))) / double(LOG2E);
+    const float div = denom[r] * p.keep_p;
+    bf16* orow = op + (long long)i * p.o_ss + 2 * t;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o_acc[j][2 * r] / div, o_acc[j][2 * r + 1] / div);
+    for (int jd = 0; jd < HD / 8; ++jd) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * jd) = __floats2bfloat162_rn(
+          o[4 * jd + 2 * r] / div, o[4 * jd + 2 * r + 1] / div);
     }
   }
 }
@@ -397,7 +452,15 @@ cudaError_t launch(Kernel kernel, int smem, const Params& p, int B, cudaStream_t
 
 template <int HD>
 cudaError_t launch_hd(int dtype, const Params& p, int B, cudaStream_t st) {
-  if (dtype == 1) return launch(flash_fwd_bf16<HD>, Bf16Layout<HD>::BYTES, p, B, st);
+  if (dtype == 1) {
+    const void* const src[3] = {p.q, p.k, p.v};
+    const long long strides[3][3] = {{p.q_sb, p.q_ss, p.q_sn}, {p.k_sb, p.k_ss, p.k_sn},
+                                     {p.v_sb, p.v_ss, p.v_sn}};
+    using F = Fwd<HD>;
+    return launch_fwd_block<typename F::Regs>(
+        p.threshold ? flash_fwd_bf16<HD, true> : flash_fwd_bf16<HD, false>, F::Ring::BYTES, p,
+        src, strides, B, p.S, p.N, HD, st);
+  }
   return launch(flash_fwd_f32<HD>, F32Layout<HD>::BYTES, p, B, st);
 }
 
@@ -406,12 +469,12 @@ cudaError_t launch_hd(int dtype, const Params& p, int B, cudaStream_t st) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 32, 64 or 128.  Strides are
-// in elements; the head dimension must be contiguous, and for
-// bfloat16 the pointers must be 16-byte aligned and the other strides
-// multiples of 8.  `bias` may be null; `lse` is a contiguous float64
-// [B, N, S].  threshold = round(rate * 256) (0: no dropout), keep_p = 1 -
-// threshold / 256.  Any S >= 1.  Returns the cudaError_t of the launch (0 on
-// success).
+// in elements; the head dimension must be contiguous, and for bfloat16 the
+// pointers must be 16-byte aligned and the other strides multiples of 8
+// and, where the size is above 1, positive (TMA).  `bias` may be null;
+// `lse` is a contiguous float64 [B, N, S].  threshold = round(rate * 256)
+// (0: no dropout), keep_p = 1 - threshold / 256.  Any S >= 1.  Returns the
+// cudaError_t of the launch (0 on success).
 int ia_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                  const void* v, const void* bias, void* o, void* lse, int B, int S, int N,
                  long long q_sb, long long q_ss, long long q_sn, long long k_sb, long long k_ss,
@@ -429,6 +492,15 @@ int ia_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   if (head_dim == 64) return launch_hd<64>(dtype, p, B, st);
   if (head_dim == 128) return launch_hd<128>(dtype, p, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bytes of dynamic shared memory a bf16 block at this head dim takes; -1
+// for a head dim the kernel does not have
+int ia_flash_fwd_smem_bytes(int head_dim) {
+  if (head_dim == 32) return Fwd<32>::Ring::BYTES;
+  if (head_dim == 64) return Fwd<64>::Ring::BYTES;
+  if (head_dim == 128) return Fwd<128>::Ring::BYTES;
+  return -1;
 }
 
 const char* ia_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -33,7 +33,10 @@
 // and an add.
 //
 // Design (bf16).  A block is one consumer warpgroup of 64 queries and a
-// producer warpgroup (hopper_common.cuh has the pieces):
+// producer warpgroup, the forward block that kernel #4
+// (flash_blockwise_fwd.cu) is built from too: FwdRegs, FwdRing and
+// launch_fwd_block of hopper_common.cuh, with the key bias staged times
+// log2(e):
 //   - every product is a `wgmma` (m64nNk16, fp32 accumulate).  S = Q K^T
 //     reads both operands from shared memory, K-major; P is packed to bf16
 //     in registers as the register A operand of O += P V, which reads V
@@ -79,7 +82,6 @@ using namespace ia;
 
 constexpr int BLOCK_N = 64;  // keys per KV tile (both paths)
 constexpr int WG_ROWS = 64;  // queries of a consumer warpgroup (bf16)
-constexpr int PRODUCER_REGS = 24;
 
 struct Params {
   const void* q;
@@ -100,94 +102,38 @@ struct Params {
 // bf16: wgmma, a TMA ring and a producer warpgroup
 // ---------------------------------------------------------------------------
 
-struct TmaMaps {
-  CUtensorMap q, k, v;
-};
-
-// A bf16 block: a consumer warpgroup (warps 0-3) and a producer warpgroup
-// (4-7), MIN_BLOCKS blocks an SM.  Shared memory from a 1024-byte boundary:
-// the Q tile, the ring (K then V of each stage), the key bias of each
-// stage, the barriers.
 template <int HD>
 struct Fwd {
-  static constexpr int THREADS = 256;
   static constexpr int MIN_BLOCKS = HD <= 64 ? 4 : 2;  // as many as fit an SM
-  static constexpr int PRODUCER = 4;  // the warp that loads
-  static constexpr int STAGES = 2;
-  // registers a thread at entry under __launch_bounds__(THREADS,
-  // MIN_BLOCKS), and what the consumers raise theirs to once the producer
-  // warpgroup has lowered its own to PRODUCER_REGS
-  static constexpr int ENTRY_REGS = 65536 / (THREADS * MIN_BLOCKS) / 8 * 8;
-  static constexpr int RAISED = (THREADS * ENTRY_REGS - 128 * PRODUCER_REGS) / 128 / 8 * 8;
-  static constexpr int CONSUMER_REGS = RAISED < 240 ? RAISED : 240;
-  static constexpr int POOL = 128 * PRODUCER_REGS + 128 * CONSUMER_REGS;
-
-  static constexpr int TILE = WG_ROWS * HD;  // elements of a 64-row tile
-  static constexpr uint32_t TILE_BYTES = TILE * 2;
-  static constexpr int KV_OFF = TILE_BYTES;
-  static constexpr int BIAS_OFF = KV_OFF + STAGES * 2 * TILE_BYTES;
-  static constexpr int BAR_OFF = BIAS_OFF + STAGES * BLOCK_N * 4;
-  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment
-  static_assert(CONSUMER_REGS >= 96, "too few registers for the consumers");
+  using Regs = FwdRegs<MIN_BLOCKS>;
+  using Ring = FwdRing<HD, 2>;
+  static_assert(Regs::CONSUMER_REGS >= 96, "too few registers for the consumers");
 };
 
 template <int HD>
-__global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
-    attn_fwd_bf16(const Params p, const __grid_constant__ TmaMaps maps) {
+__global__ void __launch_bounds__(Fwd<HD>::Regs::THREADS, Fwd<HD>::MIN_BLOCKS)
+    attn_fwd_bf16(const Params p, const __grid_constant__ QkvMaps maps) {
   using F = Fwd<HD>;
+  using R = typename F::Ring;
   using T = TileDesc<WG_ROWS, HD>;  // Q, K and V tiles alike: 64 rows
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  bf16* qs = reinterpret_cast<bf16*>(sm);
-  bf16* kv = reinterpret_cast<bf16*>(sm + F::KV_OFF);  // stage s: K, then V
-  float* bs = reinterpret_cast<float*>(sm + F::BIAS_OFF);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + F::BAR_OFF);
-  uint64_t* empty = full + F::STAGES;
-  uint64_t* q_full = empty + F::STAGES;
+  const R ring(smem_raw);
+  ring.init();
 
   const int S = p.S;
   const int m0 = blockIdx.x * WG_ROWS;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int n_tiles = (S + BLOCK_N - 1) / BLOCK_N;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < F::STAGES; ++s) {
-      mbar_init(&full[s], 32);              // the producer warp's lanes
-      mbar_init(&empty[s], 4);  // one per consumer warp
-    }
-    mbar_init(q_full, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp >= F::PRODUCER) {
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (warp > F::PRODUCER) return;
-    if (lane == 0) {  // the block's Q tile
-      mbar_arrive_expect_tx(q_full, F::TILE_BYTES);
-      tma_load_tile<WG_ROWS, HD>(qs, &maps.q, q_full, m0, h, b);
-    }
-    const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % F::STAGES;
-      const int k0 = it * BLOCK_N;
-      if (it >= F::STAGES) mbar_wait(&empty[s], ((it / F::STAGES) + 1) & 1);
-      for (int r = lane; r < BLOCK_N; r += 32)
-        bs[s * BLOCK_N + r] = (bias && k0 + r < S) ? bias[k0 + r] * LOG2E : 0.f;
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&full[s], 2 * F::TILE_BYTES);
-        tma_load_tile<BLOCK_N, HD>(kv + 2 * s * F::TILE, &maps.k, &full[s], k0, h, b);
-        tma_load_tile<BLOCK_N, HD>(kv + (2 * s + 1) * F::TILE, &maps.v, &full[s], k0, h, b);
-      } else {
-        mbar_arrive(&full[s]);
-      }
-    }
+  if (warp >= R::PRODUCER) {
+    setmaxnreg_dec<F::Regs::PRODUCER_REGS>();
+    if (warp == R::PRODUCER)
+      ring.produce(maps, p.bias ? p.bias + b * p.bias_sb : nullptr, LOG2E, S, m0, h, b);
     return;
   }
 
-  setmaxnreg_inc<F::CONSUMER_REGS>();
+  setmaxnreg_inc<F::Regs::CONSUMER_REGS>();
   const int g = lane >> 2;
   const int t = lane & 3;
   const float scale_log2 = p.scale * LOG2E;  // scores in the log2 domain
@@ -202,23 +148,22 @@ __global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
   for (int e = 0; e < BLOCK_N / 2; ++e) s[e] = 0.f;
   float m[2] = {INIT_MAX, INIT_MAX};
   float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  mbar_wait(q_full, 0);
+  ring.wait_q();
 
   // one KV tile; RAGGED (the last tile, S % 64 != 0) selects its columns
   // past S away, every other tile runs no test on any score
   auto step = [&](int it, auto ragged) {
     constexpr bool RAGGED = decltype(ragged)::value;
-    const int st = it % F::STAGES;
-    const bf16* Kt = kv + 2 * st * F::TILE;
-    const bf16* Vt = Kt + F::TILE;
-    const float* bt = bs + st * BLOCK_N;
-    mbar_wait(&full[st], (it / F::STAGES) & 1);
+    const bf16* Kt = ring.k_tile(it);
+    const bf16* Vt = ring.v_tile(it);
+    const float* bt = ring.key_bias(it);
+    ring.wait(it);
 
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      Wgmma<BLOCK_N>::ss(s, T::k_major(qs, kk), T::k_major(Kt, kk), kk > 0);
+      Wgmma<BLOCK_N>::ss(s, T::k_major(ring.q, kk), T::k_major(Kt, kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -264,14 +209,13 @@ __global__ void __launch_bounds__(Fwd<HD>::THREADS, Fwd<HD>::MIN_BLOCKS)
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    ring.release(it);  // this warp is done with the stage
   };
 
   const int n_full = S / BLOCK_N;
 #pragma unroll 1
   for (int it = 0; it < n_full; ++it) step(it, std::false_type{});
-  if (n_full < n_tiles) step(n_full, std::true_type{});
+  if (n_full * BLOCK_N < S) step(n_full, std::true_type{});
 
   float denom[2];
 #pragma unroll
@@ -423,29 +367,12 @@ __global__ void __launch_bounds__(THREADS) attn_fwd_f32(Params p) {
 
 template <int HD>
 cudaError_t launch_bf16(const Params& p, int B, int N, cudaStream_t st) {
-  using F = Fwd<HD>;
-  const auto kernel = attn_fwd_bf16<HD>;
-  // setmaxnreg.inc waits until the block's pool has the registers: refuse
-  // a build whose entry count would leave the consumers waiting forever
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  if (attr.numRegs * F::THREADS < F::POOL) return cudaErrorInvalidConfiguration;
-  TmaMaps maps;
-  const void* src[3] = {p.q, p.k, p.v};
+  const void* const src[3] = {p.q, p.k, p.v};
   const long long strides[3][3] = {{p.q_sb, p.q_ss, p.q_sn}, {p.k_sb, p.k_ss, p.k_sn},
                                    {p.v_sb, p.v_ss, p.v_sn}};
-  CUtensorMap* map[3] = {&maps.q, &maps.k, &maps.v};
-  for (int i = 0; i < 3; ++i) {
-    err = make_tile_map(map[i], src[i], B, p.S, N, HD, WG_ROWS, strides[i][0], strides[i][1],
-                        strides[i][2]);
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + WG_ROWS - 1) / WG_ROWS, N, B);
-  kernel<<<grid, F::THREADS, F::SMEM, st>>>(p, maps);
-  return cudaGetLastError();
+  using F = Fwd<HD>;
+  return launch_fwd_block<typename F::Regs>(attn_fwd_bf16<HD>, F::Ring::BYTES, p, src, strides, B,
+                                            p.S, N, HD, st);
 }
 
 template <int HD>
@@ -495,9 +422,9 @@ int ia_fused_attention_fwd(int dtype, int head_dim, const void* q, const void* k
 // bytes of dynamic shared memory a bf16 block at this head dim takes; -1
 // for a head dim the kernel does not have
 int ia_fused_attention_smem_bytes(int head_dim) {
-  if (head_dim == 32) return Fwd<32>::SMEM;
-  if (head_dim == 64) return Fwd<64>::SMEM;
-  if (head_dim == 128) return Fwd<128>::SMEM;
+  if (head_dim == 32) return Fwd<32>::Ring::BYTES;
+  if (head_dim == 64) return Fwd<64>::Ring::BYTES;
+  if (head_dim == 128) return Fwd<128>::Ring::BYTES;
   return -1;
 }
 

@@ -1,7 +1,10 @@
-// Hopper (sm_90a) building blocks of the long-sequence backward kernels
-// (flash_blockwise_bwd.cu): mbarriers, TMA tile loads and their tensor maps,
-// wgmma shared-memory descriptors and products, setmaxnreg and a flushing
-// exp2.
+// Hopper (sm_90a) building blocks of the bf16 attention kernels
+// (fused_attention.cu, flash_blockwise_fwd.cu, flash_blockwise_bwd.cu):
+// mbarriers, TMA tile loads and their tensor maps, wgmma shared-memory
+// descriptors and products, setmaxnreg, a flushing exp2, a byte permute,
+// and a forward block's registers, shared memory, producer and launch
+// (FwdRegs, FwdRing, launch_fwd_block: kernel #4's; fused_attention.cu
+// keeps its own copy of the same block, #1's).
 //
 // Tiles in shared memory.  A tile of R rows by HD bf16 columns (one row of
 // q, k, v or g per sequence position) is stored as HD / W column blocks of
@@ -124,6 +127,15 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// byte n of the result is byte (sel >> 4n) & 7 of {b, a} (a: bytes 0-3),
+// or, where bit 3 of that nibble is set, that byte's sign bit repeated
+// over all eight bits
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
 }
 
 // ---------------------------------------------------------------------------
@@ -270,6 +282,120 @@ struct Wgmma<128> {
 
 
 // ---------------------------------------------------------------------------
+// a forward block (kernels #1 and #4)
+// ---------------------------------------------------------------------------
+
+// Registers of a forward block: a consumer warpgroup (warps 0-3) and a
+// producer warpgroup (4-7), MIN_BLOCKS blocks an SM.  ptxas gives each
+// thread ENTRY_REGS under __launch_bounds__(THREADS, MIN_BLOCKS); the
+// producer warpgroup lowers its own to PRODUCER_REGS (setmaxnreg) and the
+// consumers raise theirs to CONSUMER_REGS.  The raise waits until the
+// block's pool holds POOL registers, so a launch checks the pool first.
+template <int MIN_BLOCKS>
+struct FwdRegs {
+  static constexpr int THREADS = 256;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int ENTRY_REGS = 65536 / (THREADS * MIN_BLOCKS) / 8 * 8;
+  static constexpr int RAISED = (THREADS * ENTRY_REGS - 128 * PRODUCER_REGS) / 128 / 8 * 8;
+  static constexpr int CONSUMER_REGS = RAISED < 240 ? RAISED : 240;
+  static constexpr int POOL = 128 * PRODUCER_REGS + 128 * CONSUMER_REGS;
+};
+
+struct QkvMaps {
+  CUtensorMap q, k, v;
+};
+
+// Shared memory of a forward block, from a 1024-byte boundary: the block's
+// Q tile (64 queries), a ring of STAGES stages of a K and a V tile (64 keys
+// each), each stage's key bias, and the barriers: full (the TMA bytes and
+// the producer warp's 32 arrivals) and empty (one arrival per consumer
+// warp) per stage, and one for Q.
+template <int HD, int STAGES>
+struct FwdRing {
+  static constexpr int ROWS = 64;
+  static constexpr int PRODUCER = 4;  // the warp that loads
+  static constexpr int TILE = ROWS * HD;
+  static constexpr uint32_t TILE_BYTES = TILE * 2;
+  static constexpr int KV_OFF = TILE_BYTES;
+  static constexpr int BIAS_OFF = KV_OFF + STAGES * 2 * TILE_BYTES;
+  static constexpr int BAR_OFF = BIAS_OFF + STAGES * ROWS * 4;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment
+
+  bf16* q;
+  bf16* kv;  // stage s: K, then V
+  float* bias;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* q_full;
+
+  __device__ explicit FwdRing(unsigned char* raw) {
+    unsigned char* sm = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+    q = reinterpret_cast<bf16*>(sm);
+    kv = reinterpret_cast<bf16*>(sm + KV_OFF);
+    bias = reinterpret_cast<float*>(sm + BIAS_OFF);
+    full = reinterpret_cast<uint64_t*>(sm + BAR_OFF);
+    empty = full + STAGES;
+    q_full = empty + STAGES;
+  }
+  // the stage of key tile `it`
+  __device__ const bf16* k_tile(int it) const { return kv + 2 * (it % STAGES) * TILE; }
+  __device__ const bf16* v_tile(int it) const { return k_tile(it) + TILE; }
+  __device__ const float* key_bias(int it) const { return bias + (it % STAGES) * ROWS; }
+
+  // thread 0 sets up the barriers; every thread of the block calls this
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(&full[s], 32);  // the producer warp's lanes
+        mbar_init(&empty[s], 4);  // one per consumer warp
+      }
+      mbar_init(q_full, 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+  }
+
+  // The producer warp: the block's Q tile (queries m0..) once, then each of
+  // the n_tiles K and V tiles into the ring once the consumers have released
+  // its stage, with the tile's key bias times bias_scale (0 past S, or
+  // everywhere without a bias) written by the warp's lanes.  The [B, S]
+  // fp32 bias rows are S * 4 bytes apart, no multiple of 16 at S = 510, so
+  // TMA cannot load them.
+  __device__ void produce(const QkvMaps& maps, const float* bias_row, float bias_scale, int S,
+                          int m0, int h, int b) const {
+    const int lane = threadIdx.x % 32;
+    const int n_tiles = (S + ROWS - 1) / ROWS;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, TILE_BYTES);
+      tma_load_tile<ROWS, HD>(q, &maps.q, q_full, m0, h, b);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      const int k0 = it * ROWS;
+      if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) + 1) & 1);
+      for (int r = lane; r < ROWS; r += 32)
+        bias[s * ROWS + r] = (bias_row && k0 + r < S) ? bias_row[k0 + r] * bias_scale : 0.f;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * TILE_BYTES);
+        tma_load_tile<ROWS, HD>(kv + 2 * s * TILE, &maps.k, &full[s], k0, h, b);
+        tma_load_tile<ROWS, HD>(kv + (2 * s + 1) * TILE, &maps.v, &full[s], k0, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  }
+
+  __device__ void wait_q() const { mbar_wait(q_full, 0); }
+  __device__ void wait(int it) const { mbar_wait(&full[it % STAGES], (it / STAGES) & 1); }
+  // a consumer warp is done with key tile `it` (its products have completed)
+  __device__ void release(int it) const {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[it % STAGES]);
+  }
+};
+
+
+// ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
 
@@ -320,6 +446,32 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int B, int 
       W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A forward block's launch: refuses a build whose registers at
+// entry would leave the consumers' raise waiting forever (the block's pool
+// below R::POOL), makes the tensor maps of the Q, K and V tiles, and
+// launches one block per 64 queries of each (batch row, head).
+template <typename R, typename Kernel, typename P>
+cudaError_t launch_fwd_block(Kernel kernel, int smem, const P& p, const void* const (&src)[3],
+                             const long long (&strides)[3][3], int B, int S, int N, int HD,
+                             cudaStream_t st) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * R::THREADS < R::POOL) return cudaErrorInvalidConfiguration;
+  QkvMaps maps;
+  CUtensorMap* map[3] = {&maps.q, &maps.k, &maps.v};
+  for (int i = 0; i < 3; ++i) {
+    err = make_tile_map(map[i], src[i], B, S, N, HD, 64, strides[i][0], strides[i][1],
+                        strides[i][2]);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + 63) / 64, N, B);
+  kernel<<<grid, R::THREADS, smem, st>>>(p, maps);
+  return cudaGetLastError();
 }
 
 }  // namespace ia

@@ -1,17 +1,26 @@
-"""What every attention kernel launch shares, and the launchers of the Hopper
-backward family.
+"""What every attention kernel launch shares, and the launchers of the two
+Hopper kernel files that serve the contracts with row statistics.
 
 - The checks a launch makes beyond the public functions' shape checks
   (``check_launchable``; ``check_tma`` for the bf16 kernels that load their
-  tiles by TMA), the dtype codes of the C interfaces, the key bias as fp32
-  rows, the current stream, and ``entry``, which binds one C function of a
-  kernel library with ``ctypes``.
+  tiles by TMA, which is all of them), the dtype codes of the C interfaces,
+  the key bias as fp32 rows, the current stream, and ``entry``, which binds
+  one C function of a kernel library with ``ctypes``.
+- ``launch_fwd`` launches ``ia_flash_fwd`` of ``csrc/flash_blockwise_fwd.cu``
+  (kernel #4), the forward of two contracts:
+  ``cuda_attention_train.fused_attention_dropout_fwd`` (TPU kernel #2, the
+  forward at S <= 512) and ``cuda_attention_blockwise.flash_fwd`` (#4, any
+  S).
 - ``launch_delta``, ``launch_dq`` and ``launch_dkv`` launch the three entry
   points of ``csrc/flash_blockwise_bwd.cu`` (the delta kernel, the dQ
   kernel #5 and the dK/dV kernel #6).  Two contracts run on them:
   ``cuda_attention_train.fused_attention_dropout_bwd`` (TPU kernel #3, the
   backward at S <= 512) and ``cuda_attention_blockwise.flash_dq`` /
-  ``flash_dkv`` (#5 and #6, any S).  Each contract counts its own launches.
+  ``flash_dkv`` (#5 and #6, any S).
+
+Each contract counts its own launches.  Every bf16 contract is held to
+``check_tma`` before anything is built, so a view that TMA cannot load
+raises at the forward, not after the forward's work is spent.
 
 This module imports neither wrapper module: both import it, and
 ``cuda_attention_blockwise`` imports ``cuda_attention_train`` (for the plain
@@ -48,9 +57,9 @@ def check_launchable(*tensors: torch.Tensor) -> None:
 
 
 def check_tma(*tensors: torch.Tensor) -> None:
-    """What TMA, which loads the tiles of the bf16 kernels #1, #5 and #6,
-    needs beyond ``check_launchable``: a positive stride (below 2^40 bytes)
-    in each of the first three dimensions whose size is above 1."""
+    """What TMA, which loads the tiles of the bf16 kernels #1, #4, #5 and
+    #6, needs beyond ``check_launchable``: a positive stride (below 2^40
+    bytes) in each of the first three dimensions whose size is above 1."""
     if tensors[0].dtype != torch.bfloat16:
         return
     for t in tensors:
@@ -89,6 +98,28 @@ def entry(name: str, fn: str, argtypes: str):
         f.argtypes = [kinds[c] for c in argtypes]
         f.restype = ctypes.c_int
     return lib, f
+
+
+def launch_fwd(rate, seed, q, k, v, bias):
+    """(out, lse) by kernel #4: out ``[B, S, N, H]`` in q's dtype, lse
+    float64 ``[B, N, S]``."""
+    check_launchable(q, k, v)
+    check_tma(q, k, v)
+    lib, fn = entry("flash_blockwise_fwd", "ia_flash_fwd",
+                    "ii" + "p" * 6 + "iii" + "l" * 13 + "fuufp")
+    B, S, N, H = q.shape
+    t, keep_p = dropout_consts(rate)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((B, N, S), dtype=torch.float64, device=q.device)
+    rows = bias_rows(bias, B, S)
+    with torch.cuda.device(q.device):
+        err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), ptr(rows), out.data_ptr(), lse.data_ptr(),
+                 B, S, N, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *out.stride()[:3], 0 if rows is None else rows.stride(0),
+                 1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, cuda_stream(q))
+    _build.check(lib, err, "attention forward")
+    return out, lse
 
 
 def launch_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

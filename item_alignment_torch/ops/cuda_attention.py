@@ -7,9 +7,9 @@ need none) ``fused_attention`` launches the ``_attn_kernel`` port in
 Hopper kernel whose tiles TMA loads, so q, k and v are held to
 ``check_tma`` too: a view TMA cannot take raises, it does not fall back.
 When a gradient is wanted it takes the route of the JAX custom VJP
-(``_fused_attention_fwd`` / ``_fused_attention_bwd``): the forward runs the
-attention-dropout kernel at rate 0, which also emits lse, and the backward
-runs #3's contract at rate 0 (``ops/cuda_attention_train.py``).  CPU tensors
+(``_fused_attention_fwd`` / ``_fused_attention_bwd``): the forward runs #2's
+contract at rate 0, which also emits lse, and the backward #3's contract at
+rate 0 (``ops/cuda_attention_train.py``).  CPU tensors
 run ``fused_attention_reference``, which autograd differentiates; any other
 device raises.
 """

@@ -7,18 +7,21 @@ Port of ``item_alignment_tpu/ops/pallas_attention.py``'s
 backward).
 
 - ``flash_fwd`` launches ``csrc/flash_blockwise_fwd.cu`` (kernel #4): out
-  ``[B, S, N, H]`` and the float64 row statistics lse ``[B, N, S]``.
+  ``[B, S, N, H]`` and the float64 row statistics lse ``[B, N, S]``.  In
+  bf16 it is a Hopper kernel (``wgmma`` products, a TMA ring fed by a
+  producer warp) that also serves #2's contract
+  (``cuda_attention_train.fused_attention_dropout_fwd``), so its launcher
+  lives in ``ops/_launch.py`` as well.
 - ``flash_delta`` computes delta = rowsum(g * out) ``[B, N, S]``, which the
   JAX package leaves to XLA (the delta CUDA kernel of
   ``csrc/attention_common.cuh``; it counts as no kernel of its own).
 - ``flash_dq`` (kernel #5) and ``flash_dkv`` (kernel #6) launch the two
-  entry points of ``csrc/flash_blockwise_bwd.cu``: in bf16 Hopper kernels
-  (``wgmma`` products, a TMA ring fed by a producer warp), whose inputs
-  ``check_tma`` holds to what TMA takes.  The launchers live in
-  ``ops/_launch.py``, because #3's contract
+  entry points of ``csrc/flash_blockwise_bwd.cu``, Hopper kernels in bf16
+  too.  Their launchers live in ``ops/_launch.py``, because #3's contract
   (``cuda_attention_train.fused_attention_dropout_bwd``) runs on the same
-  kernels; this module imports ``cuda_attention_train``, not the reverse,
-  and its counters count only the calls made here.
+  kernels.  Every bf16 input is held by ``check_tma`` to what TMA takes
+  before anything is built.  This module imports ``cuda_attention_train``,
+  not the reverse, and its counters count only the calls made here.
 - ``fused_attention_blockwise_dropout`` is the ``autograd.Function``: it
   saves the seed, q, k, v, the bias, out and lse, and the backward
   regenerates the mask from the seed.  ``fused_attention_blockwise`` is its
@@ -38,36 +41,29 @@ block owns 64 queries, a bf16 backward block 128 rows; PERF.md has the
 measurements behind them).  And the keep bit of score (b, n, i, j) is the
 package's one hash of (seed, b, n, i, j) (``keep_mask_reference``), not a
 per-tile reseed of a hardware generator: the three kernels tile differently
-and draw the same bits, which at S <= 512 are the bits of kernels #2/#3.
+and draw the same bits.  At S <= 512 the same kernels serve #2's and #3's
+contracts (``cuda_attention_train``).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 
 from item_alignment_torch.ops import _build
 from item_alignment_torch.ops import cuda_attention_train as train
-from item_alignment_torch.ops._launch import (
-    DTYPE_CODE,
-    HEAD_DIMS,
-    bias_rows,
-    check_launchable,
-    cuda_stream,
-    entry,
-    ptr,
-)
+from item_alignment_torch.ops._launch import HEAD_DIMS
 from item_alignment_torch.ops._launch import launch_delta as _launch_delta
 from item_alignment_torch.ops._launch import launch_dkv as _launch_dkv
 from item_alignment_torch.ops._launch import launch_dq as _launch_dq
+from item_alignment_torch.ops._launch import launch_fwd as _launch_fwd
 from item_alignment_torch.ops.cuda_attention_train import (
     _device_kind,
     attention_delta,
     check_inputs,
 )
-from item_alignment_torch.ops.dropout import M32, dropout_consts
+from item_alignment_torch.ops.dropout import dropout_consts
 
 # launches of the CUDA kernels (never counts the CPU plain versions)
 FWD_LAUNCHES = 0
@@ -122,34 +118,17 @@ def flash_dkv_reference(
 # kernels
 # ---------------------------------------------------------------------------
 
-def _launch_fwd(rate, seed, q, k, v, bias):
-    check_launchable(q, k, v)
-    lib, fn = entry("flash_blockwise_fwd", "ia_flash_fwd",
-                    "ii" + "p" * 6 + "iii" + "l" * 13 + "fuufp")
-    B, S, N, H = q.shape
-    t, keep_p = dropout_consts(rate)
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((B, N, S), dtype=torch.float64, device=q.device)
-    rows = bias_rows(bias, B, S)
-    with torch.cuda.device(q.device):
-        err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), ptr(rows), out.data_ptr(), lse.data_ptr(),
-                 B, S, N, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], 0 if rows is None else rows.stride(0),
-                 1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, cuda_stream(q))
-    _build.check(lib, err, "blockwise attention forward")
-    return out, lse
-
-
-def bwd_smem_bytes() -> dict:
-    """Dynamic shared memory a block of the bf16 #5 ("dq") and #6 ("dkv")
-    kernels takes, by (kernel, head dim); builds the library."""
+def smem_bytes() -> dict:
+    """Dynamic shared memory a block of the bf16 #4 ("fwd"), #5 ("dq") and
+    #6 ("dkv") kernels takes, by (kernel, head dim); builds the libraries."""
     import ctypes
-    fn = _build.load("flash_blockwise_bwd").ia_flash_bwd_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return {(name, h): fn(i, h) for i, name in enumerate(("dq", "dkv"))
-            for h in HEAD_DIMS}
+    fwd = _build.load("flash_blockwise_fwd").ia_flash_fwd_smem_bytes
+    fwd.argtypes = [ctypes.c_int]
+    bwd = _build.load("flash_blockwise_bwd").ia_flash_bwd_smem_bytes
+    bwd.argtypes = [ctypes.c_int, ctypes.c_int]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return {(name, h): fwd(h) if name == "fwd" else bwd(i - 1, h)
+            for i, name in enumerate(("fwd", "dq", "dkv")) for h in HEAD_DIMS}
 
 
 def _check_bwd(q, k, v, bias, g, lse, delta):

@@ -4,9 +4,11 @@ plain versions, and the autograd function around them.
 Port of ``item_alignment_tpu/ops/pallas_attention.py:fused_attention_dropout``
 (``_attn_dropout_kernel`` forward, ``_attn_dropout_bwd_kernel`` backward).
 
-- ``fused_attention_dropout_fwd`` launches ``csrc/attention_dropout_fwd.cu``
-  (kernel #2): out ``[B, S, N, H]`` and the float64 row statistics lse
-  ``[B, N, S]``.
+- ``fused_attention_dropout_fwd`` (kernel #2's contract: out ``[B, S, N, H]``
+  and the float64 row statistics lse ``[B, N, S]``) runs on the Hopper
+  forward of ``csrc/flash_blockwise_fwd.cu``, the kernel that also serves
+  #4 at any S (launched through ``ops/_launch.py``).  One call counts once
+  in ``FWD_LAUNCHES`` and never in the blockwise module's counters.
 - ``fused_attention_dropout_bwd`` (kernel #3's contract: dq, dk, dv) runs on
   the Hopper backward family of ``csrc/flash_blockwise_bwd.cu``: the delta
   kernel, then the dQ and dK/dV kernels that also serve #5 and #6 at any S
@@ -31,15 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from item_alignment_torch.ops import _build
 from item_alignment_torch.ops import _launch
-from item_alignment_torch.ops._launch import (
-    DTYPE_CODE,
-    bias_rows,
-    check_launchable,
-    cuda_stream,
-    ptr,
-)
 from item_alignment_torch.ops.dropout import M32, dropout_consts, mix32
 
 # launches of the CUDA kernels (never counts the CPU plain versions); one
@@ -235,25 +229,6 @@ def fused_attention_dropout_bwd_reference(
 # kernels
 # ---------------------------------------------------------------------------
 
-def _launch_fwd(rate, seed, q, k, v, bias):
-    check_launchable(q, k, v)
-    lib, fn = _launch.entry("attention_dropout_fwd", "ia_attention_dropout_fwd",
-                            "ii" + "p" * 6 + "iii" + "l" * 13 + "fuufp")
-    B, S, N, H = q.shape
-    t, keep_p = dropout_consts(rate)
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((B, N, S), dtype=torch.float64, device=q.device)
-    rows = bias_rows(bias, B, S)
-    with torch.cuda.device(q.device):
-        err = fn(DTYPE_CODE[q.dtype], H, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), ptr(rows), out.data_ptr(), lse.data_ptr(),
-                 B, S, N, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], 0 if rows is None else rows.stride(0),
-                 1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, cuda_stream(q))
-    _build.check(lib, err, "attention dropout forward")
-    return out, lse
-
-
 def _launch_bwd(rate, seed, q, k, v, bias, g, out, lse):
     """Kernel #3's contract on the Hopper backward family: delta =
     rowsum(g * out), then the dQ and dK/dV kernels; (dq, dk, dv)."""
@@ -266,15 +241,16 @@ def fused_attention_dropout_fwd(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel #2: (out, lse).  q/k/v ``[B, S, N, H]`` (float32 or bfloat16,
-    H in 32/64/128 on CUDA), bias ``[B, 1, 1, S]`` or None, ``rate`` in
-    [0, 1), ``seed`` a 32-bit int."""
+    """Kernel #2's contract: (out, lse).  q/k/v ``[B, S, N, H]`` (float32 or
+    bfloat16, H in 32/64/128 on CUDA), bias ``[B, 1, 1, S]`` or None,
+    ``rate`` in [0, 1), ``seed`` a 32-bit int.  On CUDA it launches kernel
+    #4 (``_launch.launch_fwd``) and counts once in ``FWD_LAUNCHES``."""
     global FWD_LAUNCHES
     check_inputs(q, k, v, bias)
     dropout_consts(rate)
     if _device_kind(q, "fused_attention_dropout") == "cpu":
         return fused_attention_dropout_reference(rate, seed, q, k, v, bias)
-    out = _launch_fwd(rate, seed, q, k, v, bias)
+    out = _launch.launch_fwd(rate, seed, q, k, v, bias)
     FWD_LAUNCHES += 1
     return out
 
@@ -304,8 +280,8 @@ def fused_attention_dropout_bwd(
 
 
 class _FusedAttentionDropout(torch.autograd.Function):
-    """Forward kernel #2, backward #3's contract; the mask is regenerated
-    from the seed.  The bias is a mask and gets no gradient."""
+    """Forward #2's contract, backward #3's; the mask is regenerated from
+    the seed.  The bias is a mask and gets no gradient."""
 
     @staticmethod
     def forward(ctx, rate, seed, q, k, v, bias):

@@ -15,9 +15,9 @@ import torch
 
 from item_alignment_torch.ops import attention as tatt
 from item_alignment_torch.ops import (
+    _launch,
     cuda_attention,
     cuda_attention_blockwise,
-    cuda_attention_train,
 )
 
 jax = pytest.importorskip("jax")
@@ -126,8 +126,10 @@ def _pretend_cuda(monkeypatch):
 
 def test_dispatcher_raises_on_cuda_dropout(monkeypatch):
     """CUDA dropout at S <= 512 goes to the training kernels' wrapper and at
-    S > 512 to the blockwise kernels' (their launchers stubbed here); a
-    launcher that fails raises, nothing falls back to a plain version."""
+    S > 512 to the blockwise kernels' (their launches stubbed here: #2's
+    contract reaches kernel #4 through ``_launch.launch_fwd``, the blockwise
+    wrapper through its own binding of it); a launcher that fails raises,
+    nothing falls back to a plain version."""
     calls = []
 
     def launch(rate, seed, q, k, v, bias):
@@ -139,7 +141,7 @@ def test_dispatcher_raises_on_cuda_dropout(monkeypatch):
         raise RuntimeError("nvcc not found")
 
     q, long = torch.zeros(1, 8, 2, 32), torch.zeros(1, 520, 1, 32)
-    monkeypatch.setattr(cuda_attention_train, "_launch_fwd", launch)
+    monkeypatch.setattr(_launch, "launch_fwd", launch)
     monkeypatch.setattr(cuda_attention_blockwise, "_launch_fwd", launch)
     _pretend_cuda(monkeypatch)
     for x in (q, long):
@@ -147,7 +149,7 @@ def test_dispatcher_raises_on_cuda_dropout(monkeypatch):
                                    dropout_seed=5)
         assert float(out.max()) == 3.0
     assert calls == [(8, 0.1, 5), (520, 0.1, 5)]
-    monkeypatch.setattr(cuda_attention_train, "_launch_fwd", broken)
+    monkeypatch.setattr(_launch, "launch_fwd", broken)
     monkeypatch.setattr(cuda_attention_blockwise, "_launch_fwd", broken)
     for x in (q, long):
         with pytest.raises(RuntimeError, match="nvcc not found"):

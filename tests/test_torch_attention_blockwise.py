@@ -350,3 +350,29 @@ def test_tma_strides_are_checked_before_any_build(monkeypatch):
     wide = q[:1].float().expand(2, 520, 2, 32)
     assert wide.stride(0) == 0
     _launch.check_tma(wide, wide)
+
+
+@pytest.mark.parametrize("S", [64, 520])
+@pytest.mark.parametrize("fn", ["fused_attention_dropout",
+                                "fused_attention_blockwise_dropout",
+                                "fused_attention_blockwise"])
+def test_broadcast_bf16_views_raise_at_the_forward(fn, S, monkeypatch):
+    """Every bf16 contract is held to what TMA takes before anything is
+    built: a k broadcast over the batch (stride 0) raises a ValueError at
+    the forward of #2's contract and of #4's, with and without a gradient,
+    and not after the forward's work is spent (the backward has the same
+    rule).  The JAX package takes such a view: its arrays have no
+    strides."""
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("built"))
+    q = torch.zeros(2, S, 2, 32, dtype=torch.bfloat16, requires_grad=True)
+    k = q.detach()[:1].expand(2, S, 2, 32)
+    assert k.stride(0) == 0
+    _pretend_cuda(monkeypatch)
+    with pytest.raises(ValueError, match="TMA"):
+        if fn == "fused_attention_dropout":
+            cat.fused_attention_dropout(0.1, 7, q, k, q)
+        elif fn == "fused_attention_blockwise_dropout":
+            cab.fused_attention_blockwise_dropout(0.1, 7, q, k, q)
+        else:
+            with torch.no_grad():
+                cab.fused_attention_blockwise(q, k, q)

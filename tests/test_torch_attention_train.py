@@ -237,9 +237,9 @@ def test_cuda_attention_gradients_reach_qkv(monkeypatch):
     """The fault of slice 1: on CUDA, fused_attention returned the kernel's
     buffer with no autograd node, so q, k and v got no gradient.  Under
     pretend-CUDA with the launchers routed to their plain versions, a
-    forward with grad goes through kernel #2 and #3's contract (the delta,
-    dQ and dK/dV launchers) at rate 0 and its gradients equal the plain
-    path's; without grad it launches #1."""
+    forward with grad goes through #2's contract (the forward launcher) and
+    #3's (the delta, dQ and dK/dV launchers) at rate 0 and its gradients
+    equal the plain path's; without grad it launches #1."""
     q, k, v, mask = _inputs(37, "float32")
     w = torch.from_numpy(np.random.RandomState(4).randn(*q.shape)
                          .astype(np.float32))
@@ -252,7 +252,7 @@ def test_cuda_attention_gradients_reach_qkv(monkeypatch):
 
     expect = grads(cuda_attention.fused_attention_reference)
     kernel1 = []
-    monkeypatch.setattr(cat, "_launch_fwd", cat.fused_attention_dropout_reference)
+    monkeypatch.setattr(_launch, "launch_fwd", cat.fused_attention_dropout_reference)
     _stub_backward_launchers(monkeypatch)
     monkeypatch.setattr(cuda_attention, "_launch",
                         lambda *a: kernel1.append(1) or
@@ -327,3 +327,53 @@ def test_cuda_backward_route_matches_the_jax_kernel(S, N, monkeypatch):
     for name, a, b in zip("qkv", got, expect):
         assert a.dtype == torch.float32
         assert _rel_err(a.numpy(), np.asarray(b)) < 1e-4, name
+
+
+@pytest.mark.parametrize("S", [130, 255, 510])
+def test_cuda_forward_route_matches_the_jax_kernel(S, monkeypatch):
+    """Kernel #2's contract on "CUDA" (pretend-CUDA tensors) goes through
+    ``_launch.launch_fwd``, the launcher of kernel #4 (stubbed here with
+    #4's plain version), and through nothing else; it counts once in
+    ``cat.FWD_LAUNCHES`` and never in ``cab.FWD_LAUNCHES``, and at rate 0
+    its out and lse are those of the JAX package's
+    ``_fused_attention_dropout_impl`` (its Pallas kernel in interpret
+    mode): out within 1e-4 of max|ref|, lse within 1e-5 of |lse| + 1, fp32
+    module math as in the backward test above."""
+    import functools
+
+    from jax.experimental import pallas as pl
+
+    from item_alignment_tpu.ops import pallas_attention as jpa
+
+    q, k, v, mask = _inputs(S, "float32")
+    monkeypatch.setattr(pl, "pallas_call",
+                        functools.partial(pl.pallas_call, interpret=True))
+    out, lse = jpa._fused_attention_dropout_impl(
+        0.0, 0, *(jnp.asarray(x) for x in (q, k, v)),
+        jatt.make_attention_bias(jnp.asarray(mask)))
+
+    launched = []
+
+    def launch_fwd(*args):
+        launched.append("launch_fwd")
+        return cab.fused_attention_blockwise_reference(*args)
+
+    monkeypatch.setattr(_launch, "launch_fwd", launch_fwd)
+    for mod, name in ((_launch, "launch_delta"), (_launch, "launch_dq"),
+                      (_launch, "launch_dkv"), (cab, "_launch_fwd"),
+                      (cuda_attention, "_launch"),
+                      (cat, "fused_attention_dropout_reference")):
+        monkeypatch.setattr(mod, name, lambda *a, name=name: pytest.fail(
+            f"{name} ran for #2's contract on a CUDA tensor"))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    before = (cat.FWD_LAUNCHES, cab.FWD_LAUNCHES)
+    _pretend_cuda(monkeypatch)
+    got, got_lse = cat.fused_attention_dropout_fwd(0.0, 0, tq, tk, tv,
+                                                   _bias(mask))
+    after = (cat.FWD_LAUNCHES, cab.FWD_LAUNCHES)
+    assert launched == ["launch_fwd"]
+    assert [a - b for a, b in zip(after, before)] == [1, 0]
+    assert got.dtype == torch.float32 and got_lse.dtype == torch.float64
+    assert _rel_err(got.numpy(), np.asarray(out)) < 1e-4
+    lse = np.asarray(lse, np.float64)
+    assert (np.abs(got_lse.numpy() - lse) / (np.abs(lse) + 1.0)).max() < 1e-5

@@ -52,15 +52,18 @@ def test_port_imports_no_jax():
 def test_kernel_source_ships_with_the_package():
     from item_alignment_torch.ops import _build
 
-    for source in ("fused_attention.cu", "attention_dropout_fwd.cu",
-                   "flash_blockwise_fwd.cu", "flash_blockwise_bwd.cu",
-                   "attention_common.cuh", "hopper_common.cuh"):
+    for source in ("fused_attention.cu", "flash_blockwise_fwd.cu",
+                   "flash_blockwise_bwd.cu", "attention_common.cuh",
+                   "hopper_common.cuh"):
         assert (ROOT / "item_alignment_torch" / "csrc" / source).is_file()
-    # kernel #3's contract runs on the dQ and dK/dV kernels of
-    # flash_blockwise_bwd.cu; its own source is gone
-    assert not (ROOT / "item_alignment_torch" / "csrc"
-                / "attention_dropout_bwd.cu").exists()
-    # ops/_build.py names every source, and no other
+    # kernel #2's contract runs on the forward of flash_blockwise_fwd.cu and
+    # #3's on the dQ and dK/dV kernels of flash_blockwise_bwd.cu; their own
+    # sources are gone
+    for gone in ("attention_dropout_fwd.cu", "attention_dropout_bwd.cu"):
+        assert not (ROOT / "item_alignment_torch" / "csrc" / gone).exists()
+    # ops/_build.py names exactly the three sources
+    assert sorted(_build.SOURCES) == ["flash_blockwise_bwd",
+                                      "flash_blockwise_fwd", "fused_attention"]
     assert {f"{name}.cu" for name in _build.SOURCES} == {
         p.name for p in _build.CSRC.glob("*.cu")}
 
