@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-6, 11, 7-9, 12-15, 10:
+run in the order 1-6, 11, 7-9, 12-15, 10, 16:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -96,13 +96,35 @@ run in the order 1-6, 11, 7-9, 12-15, 10:
    of two steps, against a run stopped after the first epoch and resumed
    with ``resume=True``: final parameters and optimizer moments equal bit
    for bit.
+16. entry points: ``item_alignment_torch.cli.main`` in this process, at
+   ``configs/roberta_large.json`` width in bf16 with random weights, on a
+   corpus and a 21128-row vocab written from --seed into a temporary
+   directory (jieba where installed, else a whitespace stand-in registered
+   for this phase only; the line says which).  ``prepare`` writes the
+   TSVs; ``finetune-text`` one-tower (max_seq_len 50 + 205, pair S=510,
+   batch 40, phase 8's schedule horizon) trains four steps, evaluates and
+   predicts: losses finite, 24
+   calls of #2's and of #3's contracts a step, #1 in every eval and
+   prediction batch, and the prediction file equal to a direct forward of
+   the saved ``best_f1.pt`` within 2e-2.  ``finetune-text`` two-tower
+   trains two steps; ``mine`` on its weights (512 items at S=255, 10 pairs
+   an item) runs in bf16, with ``--cache_quant int8`` and with ``--quant
+   int8 --cache_quant int8``: bf16 within 2e-2 of 64 direct two-tower
+   forwards, the int8 cache within 0.01 and int8 dense projections within
+   0.05 of bf16 (the JAX package's own limits), ``torch._int_mm`` 6 x 24
+   times an encode batch.  ``pred-text`` on every entity of ``prepare``'s
+   ``entity2id.txt`` (over 1024) at S=64, bf16 and int8: [n, 1024], finite,
+   int8 within 8% of bf16 (relative, Frobenius).  ``ops/quant.int8_mm`` is
+   exact on the card at the encoder's product shapes.  Wall times of every
+   command, ``mine``'s pairs/s and the CLI's ms/step.
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
 phase 8 (training: 24 calls of #2's contract and 24 of #3's per step,
 none counted as #4, #5 or #6), phase 12 (long
-serving: 24 launches of #4 per forward, no other kernel) and phase 14 (long
-training: 24 launches each of #4, #5 and #6 per step, no other kernel).  The
+serving: 24 launches of #4 per forward, no other kernel), phase 14 (long
+training: 24 launches each of #4, #5 and #6 per step, no other kernel) and
+each command of phase 16 (the kernels line adds its #1-#3 launches).  The
 line before the last is one JSON object with the six kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -116,18 +138,33 @@ import math
 import os
 import re
 import shutil
+import gc
+import io
+import random
+import string
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 
+import numpy as np
+
+from item_alignment_torch import cli
 from item_alignment_torch.config import ModelConfig, OptimizerConfig, TrainConfig
 from item_alignment_torch.data.datasets import ArrayDataset
+from item_alignment_torch.data.prepare import load_item_info, read_finetune_tsv
+from item_alignment_torch.data.tokenization import (
+    encode_texts,
+    load_text_tokenizer,
+    rows_to_one_tower_dataset,
+)
+from item_alignment_torch.engine.checkpoint import load_params
 from item_alignment_torch.engine.inference import (
     TwoTowerInference,
     two_tower_encode_fn,
@@ -139,6 +176,7 @@ from item_alignment_torch.models.text import RobertaOneTower, RobertaTwoTower
 from item_alignment_torch.ops import _build, _launch, cuda_attention
 from item_alignment_torch.ops import cuda_attention_blockwise as cab
 from item_alignment_torch.ops import cuda_attention_train as cat
+from item_alignment_torch.ops import quant
 from item_alignment_torch.ops.attention import make_attention_bias
 
 ROOT = Path(__file__).resolve().parent
@@ -1471,8 +1509,391 @@ def phase_sensitivity(cfg: ModelConfig, long_cfg: ModelConfig, seed: int,
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the entry points, ``ia-torch finetune-text / mine / pred-text``
+# ---------------------------------------------------------------------------
+
+VOCAB_ROWS = 21128  # configs/roberta_large.json's vocab_size
+INT8_CACHE_TOL = 0.01   # tests/test_images_and_inference.py:155
+INT8_DENSE_TOL = 0.05   # tests/test_quant.py:82
+# pred-text's pooled features, int8 vs bf16, relative (Frobenius): on
+# random RoBERTa-large weights the int8 encoder's last hidden states sit
+# 4.3% from fp32's, bf16's 1.3% at layer 24 (PERF.md §6)
+POOLED_INT8_REL = 0.08
+# the schedule horizon of phase 8 and bench.py: with --epochs 1 alone the
+# schedule would decay over these few steps at the full learning rate
+TOTAL_STEPS = "16000"
+
+
+def check_int8_products(gen: torch.Generator) -> str:
+    """``ops/quant.int8_mm`` on the card at the encoder's product shapes
+    (an encode batch of 64 x 255 tokens: K, N = 1024, 4096) and at a row
+    count ``torch._int_mm`` needs padded: equal to the exact product."""
+    out = []
+    for M, K, N in ((64 * 255, 1024, 4096), (64 * 255, 4096, 1024),
+                    (12, 1024, 1024)):
+        a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        got = quant.int8_mm(a, b.t())
+        ref = a.double() @ b.double().t()  # exact: |sum| < 2**53
+        check(got.dtype == torch.int32 and bool((got.double() == ref).all()),
+              f"phase 16: int8_mm at {M}x{K}x{N} is not exact")
+        out.append(f"{M}x{K}x{N}")
+    return ", ".join(out)
+
+
+@contextlib.contextmanager
+def segmenter():
+    """jieba where it is installed; otherwise a stand-in module whose
+    ``cut`` splits on whitespace, registered for this phase only.  Phase 16
+    holds the card path against direct calls on the same token ids, so the
+    segmentation only has to be the same on both sides; the CPU tests hold
+    the port's tokenization against JAX's with the real jieba."""
+    try:
+        import jieba
+    except ImportError:
+        jieba = None
+    if jieba is not None:
+        yield f"jieba {getattr(jieba, '__version__', '')}".strip()
+        return
+    stand_in = types.ModuleType("jieba")
+    stand_in.cut = lambda text: iter(text.split())
+    sys.modules["jieba"] = stand_in
+    try:
+        yield "a whitespace stand-in (jieba is not installed)"
+    finally:
+        del sys.modules["jieba"]
+
+
+def smoke_vocab() -> list:
+    """A BERT-Chinese-shaped vocab of VOCAB_ROWS rows: the special tokens
+    at their usual ids, ASCII, then CJK characters each with its ``##``
+    continuation, ``<S>`` last."""
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+             + list(string.punctuation + string.digits
+                    + string.ascii_lowercase))
+    k = 0
+    while len(vocab) < VOCAB_ROWS - 1:
+        c = chr(0x4E00 + k)
+        vocab += [c, "##" + c][: VOCAB_ROWS - 1 - len(vocab)]
+        k += 1
+    return vocab + ["<S>"]
+
+
+def write_smoke_corpus(root: Path, seed: int, n_items: int = 1024,
+                       n_train: int = 200, n_test: int = 40,
+                       n_mine: int = 512, per_item: int = 10) -> dict:
+    """item_info.jsonl, labelled train pairs, test pairs and a mining pair
+    list, from ``seed``: CJK titles of 3-20 words and 5-30 key:value pvs an
+    item (40 keys a category, 8 values a key), four categories."""
+    rng = random.Random(seed)
+    chars = [chr(0x4E00 + k) for k in range(3000)]
+
+    def word(lo=1, hi=4):
+        return "".join(rng.choice(chars) for _ in range(rng.randint(lo, hi)))
+
+    keys = {c: [word(2, 3) for _ in range(40)] for c in "abcd"}
+    values = {k: [word() for _ in range(8)] for ks in keys.values()
+              for k in ks}
+    raw = root / "raw"
+    raw.mkdir(parents=True)
+    cates = []
+    with open(raw / "item_info.jsonl", "w", encoding="utf-8") as w:
+        for i in range(n_items):
+            cate = "abcd"[i % 4]
+            cates.append(cate)
+            pvs = "#;#".join(f"{k}#:#{rng.choice(values[k])}" for k in
+                             rng.sample(keys[cate], rng.randint(5, 30)))
+            w.write(json.dumps({
+                "item_id": f"i{i}", "cate_name": cate, "cate_id": cate,
+                "industry_name": "ind",
+                "title": " ".join(word() for _ in range(rng.randint(3, 20))),
+                "item_pvs": pvs, "sku_pvs": ""}, ensure_ascii=False) + "\n")
+
+    def pairs(path, n, labelled):
+        with open(path, "w") as w:
+            for _ in range(n):
+                a = rng.randrange(n_items)
+                b = rng.choice([j for j in range(a % 4, n_items, 4) if j != a])
+                w.write(json.dumps({"src_item_id": f"i{a}",
+                                    "tgt_item_id": f"i{b}",
+                                    "item_label": str(rng.randint(0, 1))
+                                    if labelled else "0"}) + "\n")
+
+    pairs(raw / "item_train_pair.jsonl", n_train, True)
+    pairs(raw / "item_test_pair.jsonl", n_test, False)
+    with open(root / "mine_pairs.jsonl", "w") as w:
+        for a in range(n_mine):
+            for b in rng.sample(range(n_mine), per_item):
+                w.write(json.dumps({"src_item_id": f"i{a}",
+                                    "tgt_item_id": f"i{b}"}) + "\n")
+    (root / "vocab").mkdir()
+    (root / "vocab" / "vocab.txt").write_text("\n".join(smoke_vocab()),
+                                              encoding="utf-8")
+    return {"raw": raw, "vocab": root / "vocab",
+            "mine_pairs": root / "mine_pairs.jsonl"}
+
+
+def run_cli(argv: list) -> tuple:
+    """``cli.main(argv)`` in this process; returns (the JSON lines it
+    printed, wall seconds).  A non-zero return is a failed check."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"phase 16: ia-torch {argv[0]} returned {rc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")], wall
+
+
+def _jsonl_probs(path) -> tuple:
+    rows = [json.loads(line) for line in open(path)]
+    return rows, np.array([float(r["tgt_item_emb"].strip("[]"))
+                           for r in rows])
+
+
+def phase_entry_points(seed: int, card: str) -> tuple:
+    """Phase 16: ``finetune-text`` (one-tower, then two-tower), ``mine``
+    three ways and ``pred-text`` two ways through ``cli.main`` at full
+    RoBERTa-large width in bf16 with random weights; each output is held
+    against direct model calls or the bf16 run.  Returns the launches of
+    #1-#6 over the phase."""
+    counts = [0] * 6
+
+    def tally(before):
+        for k, (a, b) in enumerate(zip(before, counters())):
+            counts[k] += b - a
+
+    products = check_int8_products(torch.Generator(device="cuda")
+                                   .manual_seed(seed))
+    with segmenter() as seg, tempfile.TemporaryDirectory() as tmp:
+        print(f"phase 16 entry points: segmenter {seg}", flush=True)
+        root = Path(tmp)
+        files = write_smoke_corpus(root, seed)
+        raw_cfg = json.loads((ROOT / "configs" / "roberta_large.json"
+                              ).read_text())
+        cfg_json = root / "roberta_large_bf16.json"
+        cfg_json.write_text(json.dumps(dict(raw_cfg, dtype="bfloat16")))
+        processed = root / "processed"
+        prep, t_prep = run_cli(["prepare", "--data_dir", str(files["raw"]),
+                                "--output_dir", str(processed),
+                                "--seed", str(seed)])
+        walls = {"prepare": t_prep}
+        ft = ["finetune-text", "--data_dir", str(processed),
+              "--output_dir", str(root / "out"),
+              "--vocab_path", str(files["vocab"]),
+              "--model_name", "roberta_large", "--config_file", str(cfg_json),
+              "--max_seq_len", "50", "--max_seq_len_pv", "205",
+              "--train_batch_size", "40", "--eval_batch_size", "40",
+              "--epochs", "1", "--learning_rate", "5e-5",
+              "--opt_state_dtype", "bfloat16", "--bf16", "--log_steps", "1",
+              "--total_steps", TOTAL_STEPS, "--seed", str(seed)]
+
+        # 1. one-tower: train, evaluate, predict
+        n_train = len(read_finetune_tsv(prep[-1]["train"]))
+        n_valid = len(read_finetune_tsv(prep[-1]["valid"]))
+        test_rows = read_finetune_tsv(prep[-1]["test"])
+        steps = n_train // 40
+        zero_counters()
+        out, walls["finetune-text one-tower"] = run_cli(
+            ft + ["--do_train", "--do_eval", "--do_pred",
+                  "--log_dir", str(root / "logs")])
+        one = counters()
+        tally((0,) * 6)
+        scalars = [json.loads(line) for line in open(root / "logs" /
+                                                     "scalars.jsonl")]
+        losses = [s["value"] for s in scalars if s["tag"] == "train/loss"]
+        stamps = [s["time"] for s in scalars if s["tag"] == "train/loss"]
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"phase 16: one-tower losses {losses} over {steps} steps")
+        n_eval = 2 * -(-n_valid // 40) + -(-len(test_rows) // 40)
+        check(one == (LAYERS * n_eval, LAYERS * steps, LAYERS * steps, 0, 0,
+                      0), f"phase 16: one-tower launches (#1..#6) {one}: "
+              f"{steps} train steps, {n_eval} eval/pred batches")
+        step_ms = 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+        pred = [o for o in out if "prediction_file" in o][-1]
+        check(pred["prediction_split"] == "test",
+              f"phase 16: predicted on {pred['prediction_split']}")
+        rows, probs = _jsonl_probs(pred["prediction_file"])
+        run_dir = Path(pred["prediction_file"]).parent
+        tok = load_text_tokenizer(str(files["vocab"]))
+        mcfg = ModelConfig.from_json(str(cfg_json), vocab_size=len(tok),
+                                     max_seq_len=50, max_seq_len_pv=205)
+        check(len(tok) == VOCAB_ROWS and mcfg.num_hidden_layers == LAYERS
+              and mcfg.hidden_size == 1024, "phase 16: not RoBERTa-large")
+        model = RobertaOneTower(mcfg, seed=None).eval()
+        model.load_state_dict(load_params(str(run_dir / "best_f1.pt")))
+        ds = rows_to_one_tower_dataset(test_rows, tok, 50, 205)
+        direct = []
+        with torch.inference_mode():
+            for batch, meta in ds.batches(40):
+                feed = {k: torch.from_numpy(v).long().cuda()
+                        for k, v in batch.items() if k != "labels"}
+                direct.append(model(**feed).probs.float().cpu().numpy()
+                              [: meta["n_valid"]])
+        del model
+        diff = np.abs(np.concatenate(direct) - probs).max()
+        check(len(rows) == len(test_rows) and np.isfinite(probs).all()
+              and diff <= 2e-2, f"phase 16: prediction file vs a direct "
+              f"forward of best_f1.pt differ by {diff}")
+        print(f"phase 16 finetune-text one-tower: batch 40 S=510 bf16, "
+              f"{steps} steps, losses {[round(x, 6) for x in losses]}, "
+              f"{step_ms:.2f} ms/step through the CLI (host clock between "
+              f"logged losses), launches #1..#6 {one} (#2/#3 {LAYERS}/step), "
+              f"{len(rows)} test predictions vs a direct forward of "
+              f"best_f1.pt max diff {diff:.3e}; {card}", flush=True)
+
+        # 2. two-tower: two steps, then mine three ways on its weights
+        with open(prep[-1]["train"], encoding="utf-8") as r:
+            head = [next(r) for _ in range(80)]
+        (processed / "tt_train.tsv").write_text("".join(head),
+                                                encoding="utf-8")
+        before = counters()
+        _, walls["finetune-text two-tower"] = run_cli(
+            ft + ["--interaction_type", "two_tower", "--do_train",
+                  "--train_file", "tt_train.tsv"])
+        tally(before)
+        state = root / "out" / "roberta_large-v1-two_tower-cls-NA-ce" / \
+            "best_f1.pt"
+        mine = ["mine", "--item_info", str(files["raw"] / "item_info.jsonl"),
+                "--pairs", str(files["mine_pairs"]),
+                "--vocab_path", str(files["vocab"]),
+                "--config_file", str(cfg_json),
+                "--max_seq_len", "50", "--max_seq_len_pv", "205",
+                "--batch_size", "64", "--file_state_dict", str(state)]
+        variants = {"bf16": [], "int8 cache": ["--cache_quant", "int8"],
+                    "int8 dense + cache": ["--quant", "int8",
+                                           "--cache_quant", "int8"]}
+        mined = {}
+        for name, extra in variants.items():
+            zero_counters()
+            quant.INT_MM_LAUNCHES = 0
+            workers = ["--num_workers", "2"] if name == "bf16" else \
+                ["--num_workers", "0"]
+            out, wall = run_cli(mine + extra + workers + [
+                "--output", str(root / f"mine_{len(mined)}.jsonl")])
+            mined[name] = dict(out[-1], wall=wall, launches=counters(),
+                               int_mm=quant.INT_MM_LAUNCHES)
+            mined[name]["rows"], mined[name]["probs"] = _jsonl_probs(
+                out[-1]["output"])
+            tally((0,) * 6)
+        items, n_pairs = mined["bf16"]["items"], mined["bf16"]["pairs"]
+        batches = -(-items // 64)
+        check(items >= 512 and n_pairs >= 10 * items,
+              f"phase 16: mine on {items} items, {n_pairs} pairs")
+        for name, m in mined.items():
+            check(m["launches"] == (LAYERS * batches, 0, 0, 0, 0, 0),
+                  f"phase 16: mine {name} launches (#1..#6) {m['launches']}")
+        dense = mined["int8 dense + cache"]["int_mm"]
+        check(dense == 6 * LAYERS * batches and mined["bf16"]["int_mm"] == 0
+              and mined["int8 cache"]["int_mm"] == 0,
+              f"phase 16: torch._int_mm ran {dense} times for {batches} "
+              f"encode batches of {LAYERS} layers")
+
+        # the direct check: full two-tower forwards of 64 of the pairs
+        id_dict, _, rel = load_item_info(str(files["raw"] /
+                                             "item_info.jsonl"))
+        item_ids = sorted({r[k] for r in mined["bf16"]["rows"]
+                           for k in ("src_item_id", "tgt_item_id")})
+        ids, mask = encode_texts(
+            str(files["vocab"]), cli._item_texts(id_dict, rel, item_ids,
+                                                  tok.sep_token), 255)
+        row = {iid: i for i, iid in enumerate(item_ids)}
+        pick = np.arange(0, n_pairs, n_pairs // 64)[:64]
+        src = [row[mined["bf16"]["rows"][i]["src_item_id"]] for i in pick]
+        tgt = [row[mined["bf16"]["rows"][i]["tgt_item_id"]] for i in pick]
+        tcfg = mcfg.replace(interaction_type="two_tower",
+                            hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0)
+        model = RobertaTwoTower(tcfg, seed=None).eval()
+        model.load_state_dict(load_params(str(state)))
+        t = {k: torch.from_numpy(v).long().cuda() for k, v in
+             (("ids", ids), ("mask", mask))}
+        with torch.inference_mode():
+            direct = model(t["ids"][src], t["ids"][tgt], t["mask"][src],
+                           t["mask"][tgt]).probs.float().cpu().numpy()
+        del model, t
+        plain = mined["bf16"]["probs"]
+        diffs = {"direct": np.abs(plain[pick] - direct).max()}
+        for name in ("int8 cache", "int8 dense + cache"):
+            diffs[name] = np.abs(mined[name]["probs"] - plain).max()
+        # probabilities pinned at 0 or 1 would hide any int8 error
+        spread = float(np.mean((plain > 0.01) & (plain < 0.99)))
+        check(np.isfinite(plain).all() and diffs["direct"] <= 2e-2,
+              f"phase 16: mine vs direct two-tower forwards {diffs['direct']}")
+        check(spread >= 0.5, f"phase 16: only {spread:.3f} of mine's "
+              "probabilities lie in (0.01, 0.99)")
+        check(diffs["int8 cache"] <= INT8_CACHE_TOL,
+              f"phase 16: int8 cache vs bf16 {diffs['int8 cache']}")
+        check(diffs["int8 dense + cache"] <= INT8_DENSE_TOL,
+              f"phase 16: int8 dense vs bf16 {diffs['int8 dense + cache']}")
+        for name, m in mined.items():
+            walls[f"mine {name}"] = m["wall"]
+        print(f"phase 16 mine: {items} items at S=255, {n_pairs} pairs, "
+              "pairs_per_sec " + ", ".join(
+                  f"{name} {m['pairs_per_sec']} (encode {m['encode_s']} s, "
+                  f"score {m['score_s']} s)" for name, m in mined.items())
+              + f"; {spread:.3f} of the bf16 probabilities in (0.01, 0.99),"
+              f" mean {plain.mean():.4f}; bf16 vs {len(pick)} direct "
+              f"two-tower forwards max diff "
+              f"{diffs['direct']:.3e}, int8 cache vs bf16 "
+              f"{diffs['int8 cache']:.3e} (limit {INT8_CACHE_TOL}), int8 "
+              f"dense + cache vs bf16 {diffs['int8 dense + cache']:.3e} "
+              f"(limit {INT8_DENSE_TOL}); torch._int_mm {dense} calls "
+              f"(6 x {LAYERS} x {batches} encode batches); {card}",
+              flush=True)
+
+        # 3. pred-text: the pooled entity features, bf16 and int8
+        ents = processed / "entity2id.txt"
+        n_ents = sum(1 for line in open(ents) if line.strip())
+        pt = ["pred-text", "--entity2id", str(ents),
+              "--item_info", str(files["raw"] / "item_info.jsonl"),
+              "--vocab_path", str(files["vocab"]),
+              "--config_file", str(cfg_json), "--max_seq_len", "64",
+              "--batch_size", "256", "--num_workers", "0",
+              "--allow_random_weights"]
+        feats = {}
+        for name, extra in (("bf16", []), ("int8", ["--quant", "int8"])):
+            zero_counters()
+            quant.INT_MM_LAUNCHES = 0
+            out, walls[f"pred-text {name}"] = run_cli(
+                pt + extra + ["--output", str(root / f"feat_{name}.npy")])
+            feats[name] = np.load(out[-1]["output"])
+            check(counters()[0] == LAYERS * -(-n_ents // 256)
+                  and quant.INT_MM_LAUNCHES == (name == "int8") * 6 * LAYERS
+                  * -(-n_ents // 256), f"phase 16: pred-text {name} launches "
+                  f"{counters()}, torch._int_mm {quant.INT_MM_LAUNCHES}")
+            tally((0,) * 6)
+        pooled = np.abs(feats["int8"] - feats["bf16"]).max()
+        rel = float(np.linalg.norm(feats["int8"] - feats["bf16"])
+                    / np.linalg.norm(feats["bf16"]))
+        check(n_ents >= 1024 and all(f.shape == (n_ents, 1024)
+                                     and np.isfinite(f).all()
+                                     for f in feats.values()),
+              f"phase 16: pred-text shapes "
+              f"{[f.shape for f in feats.values()]}, {n_ents} entities")
+        check(rel <= POOLED_INT8_REL, f"phase 16: pred-text int8 vs bf16 "
+              f"features differ by {rel} (relative)")
+        print(f"phase 16 pred-text: {n_ents} entities at S=64, features "
+              f"{feats['bf16'].shape}, int8 vs bf16 relative (Frobenius) "
+              f"{rel:.3e} (limit {POOLED_INT8_REL}), max diff {pooled:.3e}; "
+              f"int8 products exact on the card at {products}; {card}",
+              flush=True)
+        print("phase 16 wall times: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in walls.items()) + f"; {card}",
+            flush=True)
+    return tuple(counts)
+
+
 def run(args) -> None:
-    phase_card()
+    card = phase_card()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     config = str(ROOT / "configs" / "roberta_large.json")
@@ -1522,19 +1943,22 @@ def run(args) -> None:
     phase_repeat(long_cfg, args.seed, gen, B=16)
     phase_resume(long_cfg, args.seed, gen)
     phase_sensitivity(cfg, long_cfg, args.seed, gen)
+    entry = phase_entry_points(args.seed, card)  # the entry points' path
 
     src, tpu = "item_alignment_torch/csrc/", "item_alignment_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         dict(name="fused_attention", source=src + "fused_attention.cu",
-             replaces=tpu + "63", launches=launches,
+             replaces=tpu + "63", launches=launches + entry[0],
              max_abs_err=kernel["max_abs_err"], **{k: kernel[k] for k in keys}),
         dict(name="fused_attention_dropout",
              source=src + "flash_blockwise_fwd.cu", replaces=tpu + "203",
-             launches=trained[1], max_abs_err=train["fwd_err"], **train["fwd"]),
+             launches=trained[1] + entry[1], max_abs_err=train["fwd_err"],
+             **train["fwd"]),
         dict(name="fused_attention_dropout_bwd",
              source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",
-             launches=trained[2], max_abs_err=max(train["bwd_err"]),
+             launches=trained[2] + entry[2],
+             max_abs_err=max(train["bwd_err"]),
              **train["bwd"]),
         dict(name="flash_blockwise_fwd", source=src + "flash_blockwise_fwd.cu",
              replaces=tpu + "458", launches=served_long + trained_long[3],

@@ -3,7 +3,9 @@
 Port of ``item_alignment_tpu/engine/inference.py``.  Each unique item is
 encoded once into an embedding cache on the device; pair lists are then
 scored with the classification head alone, a gather plus one small product
-per batch.  The callables close over modules instead of taking a params
+per batch.  ``cache_quant="int8"`` stores the cache as int8 rows with
+per-row absmax scales (``ops/quant.py``), dequantized in the gather before
+the head.  The callables close over modules instead of taking a params
 tree:
 
 - ``encode_fn(batch_dict) -> [B, F]`` item embeddings
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from item_alignment_torch.device import resolve_device
+from item_alignment_torch.ops.quant import quantize_rowwise
 
 
 class TwoTowerInference:
@@ -26,15 +29,15 @@ class TwoTowerInference:
     def __init__(self, encode_fn: Callable, head_fn: Callable,
                  batch_size: int = 256, cache_quant: Optional[str] = None,
                  device=None):
-        if cache_quant is not None:
-            raise NotImplementedError(
-                f"cache_quant={cache_quant!r} needs ops/quant, not ported yet "
-                "(ROADMAP Queue 1 #7)")
+        if cache_quant not in (None, "int8"):
+            raise ValueError(f"unknown cache_quant {cache_quant!r}")
         self.device = resolve_device(device)
         self._encode = encode_fn
         self._head = head_fn
         self.batch_size = batch_size
+        self.cache_quant = cache_quant
         self.cache: Optional[torch.Tensor] = None
+        self.cache_scale: Optional[torch.Tensor] = None
         self.id_to_row: Dict[str, int] = {}
 
     @torch.inference_mode()
@@ -43,8 +46,12 @@ class TwoTowerInference:
         """Encode all items once; ``batches`` yields fixed-shape feature
         dicts aligned with ``item_ids`` order (a padded tail is cut)."""
         embs = [self._encode(batch) for batch in batches]
-        self.cache = torch.cat(embs)[: len(item_ids)].to(self.device)
+        cache = torch.cat(embs)[: len(item_ids)].to(self.device)
         self.id_to_row = {iid: i for i, iid in enumerate(item_ids)}
+        if self.cache_quant == "int8":
+            self.cache, self.cache_scale = quantize_rowwise(cache)
+        else:
+            self.cache, self.cache_scale = cache, None
         return self.cache
 
     @torch.inference_mode()
@@ -67,8 +74,12 @@ class TwoTowerInference:
             device=self.device)
         out = []
         for s in range(0, n + pad, bs):
-            se = self.cache.index_select(0, src[s:s + bs])
-            te = self.cache.index_select(0, tgt[s:s + bs])
+            si, ti = src[s:s + bs], tgt[s:s + bs]
+            se = self.cache.index_select(0, si)
+            te = self.cache.index_select(0, ti)
+            if self.cache_scale is not None:
+                se = se.float() * self.cache_scale.index_select(0, si)
+                te = te.float() * self.cache_scale.index_select(0, ti)
             out.append(self._head(se, te))
         return torch.cat(out)[:n].float().cpu().numpy()
 

@@ -12,16 +12,19 @@ With ``config.checkpoint_dir``, ``fit`` saves the full train state every
 ``checkpoint_every_epochs`` epochs through ``engine/checkpoint.py``
 (parameters, optimizer moments and step count, ``step``, and the loop's
 bookkeeping), keeps the best-F1 parameters in ``best_f1.pt`` beside them,
-and with ``config.resume`` continues from the latest checkpoint.
+and with ``config.resume`` continues from the latest checkpoint.  With
+``log_dir``, the train loss at every ``log_steps`` and each epoch's eval go
+to ``scalars.jsonl`` and ``eval_results.csv`` there, as in the JAX
+``Trainer``.
 
 Not ported yet, and raising: a mesh of more than one device (ROADMAP Queue
-1 #17) and adversarial training (Queue 1 #10).
+1 #4: Parallelism) and adversarial training (Queue 1 #7: The legacy BERT
+model).
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 import time
 from typing import Any, Callable, Dict, Optional
@@ -39,10 +42,10 @@ from item_alignment_torch.engine.checkpoint import (
     load_params,
     save_params,
 )
+from item_alignment_torch.engine.observability import EvalWriter, ScalarLogger
 from item_alignment_torch.engine.optim import Optimizer, make_optimizer
 from item_alignment_torch.ops.dropout import fold_seed
-
-logger = logging.getLogger("item_alignment_torch")
+from item_alignment_torch.utils import logger
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -70,16 +73,16 @@ class Trainer:
 
     def __init__(self, model: nn.Module, config: TrainConfig, device=None,
                  batch_transform: Optional[Callable] = None,
-                 adversarial=None):
+                 adversarial=None, log_dir: Optional[str] = None):
         mesh = config.mesh
         if mesh.data not in (-1, 1) or mesh.fsdp > 1 or mesh.tensor > 1:
             raise NotImplementedError(
                 "the port's Trainer runs on one device; data/fsdp/tensor "
-                "meshes are ROADMAP Queue 1 #17")
+                "meshes are (ROADMAP Queue 1 #4: Parallelism)")
         if adversarial:
             raise NotImplementedError(
                 "adversarial training needs the port of engine/adversarial.py "
-                "(ROADMAP Queue 1 #10)")
+                "(ROADMAP Queue 1 #7: The legacy BERT model)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
@@ -87,6 +90,12 @@ class Trainer:
         self.optimizer: Optional[Optimizer] = None
         self.step = 0
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
+        self.scalars = self.eval_writer = None
+        if log_dir:
+            self.scalars = ScalarLogger(os.path.join(log_dir, "scalars.jsonl"))
+            self.eval_writer = EvalWriter(
+                os.path.join(log_dir, "eval_results.csv"),
+                ["epoch", "step", "loss", "best_f1", "best_threshold"])
 
     # ------------------------------------------------------------- setup
     def setup(self) -> "Trainer":
@@ -137,6 +146,9 @@ class Trainer:
                 losses.append(float(loss))
                 logger.info(f"epoch {epoch} step {steps} loss {losses[-1]:.4f} "
                             f"({(time.time() - t0) / steps:.3f}s/step)")
+                if self.scalars is not None:
+                    self.scalars.add_scalar("train/loss", losses[-1],
+                                            self.step)
             if (cfg.eval_every_steps and valid_ds is not None
                     and steps % cfg.eval_every_steps == 0):
                 ev = self.evaluate(valid_ds)
@@ -284,6 +296,14 @@ class Trainer:
                     stale_evals += 1
                 logger.info(f"epoch {epoch}: loss {stats['loss']:.4f} "
                             f"f1 {ev.get('best_f1', float('nan')):.4f}")
+                if self.eval_writer is not None:
+                    self.eval_writer.write(
+                        epoch=epoch, step=self.step, loss=stats["loss"],
+                        best_f1=ev.get("best_f1"),
+                        best_threshold=ev.get("best_threshold"))
+                if self.scalars is not None:
+                    self.scalars.add_scalar("eval/best_f1",
+                                            ev.get("best_f1", 0.0), self.step)
                 if (cfg.early_stopping_patience is not None
                         and stale_evals >= cfg.early_stopping_patience):
                     logger.info(f"early stopping after {stale_evals} stale evals")

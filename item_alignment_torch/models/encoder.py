@@ -3,8 +3,10 @@
 Port of ``item_alignment_tpu/models/encoder.py``.  Attention runs through
 ``ops.attention.flash_attention``, which launches the fused CUDA kernels on
 the card.  Parameter names follow the Flax tree (``layer_{i}.attention.query``
-...), so converted checkpoints load as they are.  The int8 ``QuantDense``
-path is not ported yet.
+...), so converted checkpoints load as they are.  With ``config.quant ==
+"int8"`` (inference only) the dense projections are ``QuantDense``: the same
+parameters, the product on the int8 path of ``ops/quant.py``.  ``Pooler`` is
+HF's dense + tanh over [CLS], for ``pred-text``.
 
 Training: ``dropout_seed`` is the forward's seed; each layer folds in its
 index and each site its place in the layer (``ops.dropout.fold_seed``).
@@ -37,6 +39,7 @@ from item_alignment_torch.ops.attention import (
     make_attention_bias,
 )
 from item_alignment_torch.ops.dropout import ReplayDropout, fold_seed
+from item_alignment_torch.ops.quant import int8_matmul
 
 ACT = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -47,20 +50,37 @@ ACT = {
 }
 
 
+class QuantDense(Dense):
+    """``Dense`` with its product on the int8 path (``ops/quant.py``):
+    dynamic per-token activation scales, per-channel weight scales, int32
+    accumulation.  The parameters are ``Dense``'s, so fp32 checkpoints load
+    unchanged; the input goes to the quantizer in its own dtype and the
+    output is cast to ``dtype``, as the JAX package's ``QuantDense`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return int8_matmul(x, self.weight, self.bias, out_dtype=dt)
+
+
+def _dense_cls(cfg: ModelConfig):
+    """The encoder's dense-projection class: ``QuantDense`` under the
+    inference knob ``cfg.quant == "int8"``, ``Dense`` otherwise."""
+    if cfg.quant not in (None, "int8"):
+        raise ValueError(f"unknown quant {cfg.quant!r}")
+    return QuantDense if cfg.quant == "int8" else Dense
+
+
 class SelfAttention(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         cfg = config
-        if cfg.quant == "int8":
-            raise NotImplementedError(
-                "quant='int8' needs ops/quant and QuantDense, not ported yet "
-                "(ROADMAP Queue 1 #7)")
         self.config = cfg
         dt, H, std = compute_dtype(cfg), cfg.hidden_size, cfg.initializer_range
-        self.query = Dense(H, H, dt, std)
-        self.key = Dense(H, H, dt, std)
-        self.value = Dense(H, H, dt, std)
-        self.output = Dense(H, H, dt, std)
+        dense = _dense_cls(cfg)
+        self.query = dense(H, H, dt, std)
+        self.key = dense(H, H, dt, std)
+        self.value = dense(H, H, dt, std)
+        self.output = dense(H, H, dt, std)
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
                 deterministic: bool = True,
@@ -68,9 +88,11 @@ class SelfAttention(nn.Module):
         cfg = self.config
         B, S, H = hidden.shape
         N, D = cfg.num_attention_heads, cfg.head_dim
-        if cfg.fuse_qkv:
+        if cfg.fuse_qkv and cfg.quant != "int8":
             # one [3H, H] product instead of three; the parameters stay
-            # separate, so checkpoints interchange with the unfused path
+            # separate, so checkpoints interchange with the unfused path.
+            # int8 quantizes each projection's activations on its own, as
+            # the JAX package does
             dt = compute_dtype(cfg)
             w = torch.cat([self.query.weight, self.key.weight,
                            self.value.weight]).to(dt)
@@ -105,9 +127,10 @@ class TransformerLayer(nn.Module):
         # LN statistics are fp32; the output stays in the compute dtype
         self.attention_layer_norm = LayerNorm(cfg.hidden_size,
                                               cfg.layer_norm_eps, dt)
-        self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size, dt,
+        dense = _dense_cls(cfg)
+        self.intermediate = dense(cfg.hidden_size, cfg.intermediate_size, dt,
                                   std)
-        self.mlp_output = Dense(cfg.intermediate_size, cfg.hidden_size, dt,
+        self.mlp_output = dense(cfg.intermediate_size, cfg.hidden_size, dt,
                                 std)
         self.output_layer_norm = LayerNorm(cfg.hidden_size,
                                            cfg.layer_norm_eps, dt)
@@ -188,3 +211,15 @@ class TransformerEncoder(nn.Module):
                 hidden = layer(hidden, bias, deterministic, seed)
             states.append(hidden)
         return states
+
+
+class Pooler(nn.Module):
+    """dense + tanh over [CLS] (HF ``RobertaPooler``), in fp32 as flax's
+    ``nn.Dense`` with no dtype computes against fp32 parameters."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.dense = Dense(config.hidden_size, config.hidden_size)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.dense(hidden[:, 0]))

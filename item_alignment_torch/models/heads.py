@@ -113,14 +113,15 @@ class TwoTowerClassificationHead(nn.Module):
 class ClsClassificationHead(nn.Module):
     """[CLS] -> dropout -> dense -> tanh -> dropout -> out_proj.  The
     multimodal ``ensemble == "end"`` variant comes with the multimodal
-    models (ROADMAP Queue 1 #9)."""
+    models (ROADMAP Queue 1 #6: The multimodal RobertaImage one/two-tower)."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
         if config.ensemble == "end":
             raise NotImplementedError(
                 "ensemble='end' heads come with the multimodal models "
-                "(ROADMAP Queue 1 #9)")
+                "(ROADMAP Queue 1 #6: The multimodal RobertaImage "
+                "one/two-tower)")
         self.dense = Dense(config.num_cls_features, config.hidden_size)
         self.out_proj = Dense(config.hidden_size, config.num_labels)
         self.rate = _head_rate(config)

@@ -111,6 +111,11 @@ def test_score_pairs_match_jax_and_direct_forward(both):
 
 
 def test_int8_cache_raises_until_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        TwoTowerInference(lambda b: b, lambda s, t: s, cache_quant="int8",
+    """The int8 cache is ported (``tests/test_torch_quant.py`` holds it
+    against JAX's); a cache_quant other than None or "int8" raises."""
+    inf = TwoTowerInference(lambda b: b, lambda s, t: s, cache_quant="int8",
+                            device="cpu")
+    assert inf.cache_quant == "int8"
+    with pytest.raises(ValueError, match="int4"):
+        TwoTowerInference(lambda b: b, lambda s, t: s, cache_quant="int4",
                           device="cpu")

@@ -1,8 +1,12 @@
-"""Rules of the port: it imports no JAX, and its entry points run on cuda
-unless asked for the CPU."""
+"""Rules of the port: it imports no JAX, no transformers and nothing of
+the JAX package, calls jieba only inside its two segmenters, points every
+part not yet ported at an open ROADMAP item, and its entry points run on
+cuda unless asked for the CPU."""
 
 import ast
+import json
 import pathlib
+import re
 
 import pytest
 import torch
@@ -18,10 +22,24 @@ from item_alignment_torch.models.text import (
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
-             "item_alignment_tpu")
+             "transformers", "item_alignment_tpu")
+SEGMENTERS = {"item_alignment_torch/data/tokenization.py": "segment_pvs",
+              "item_alignment_torch/data/prepare.py": "segment_title",
+              # the smoke run's stand-in where the card has no jieba
+              "chip_smoke.py": "segmenter"}
 TINY = ModelConfig(vocab_size=50, hidden_size=32, num_hidden_layers=1,
                    num_attention_heads=1, intermediate_size=32,
                    max_position_embeddings=32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _keep_torch_rng():
+    """Leave torch's global generator as this module found it: building a
+    model draws from it (``nn.Embedding``'s own init), and a later test
+    file in the same worker may draw weights from it."""
+    state = torch.random.get_rng_state()
+    yield
+    torch.random.set_rng_state(state)
 
 
 def _port_sources():
@@ -43,10 +61,155 @@ def test_port_imports_no_jax():
     names = {str(p.relative_to(ROOT)) for p in files}
     assert {"item_alignment_torch/ops/cuda_attention_blockwise.py",
             "item_alignment_torch/utils/hf_import.py",
-            "item_alignment_torch/engine/checkpoint.py"} <= names
+            "item_alignment_torch/engine/checkpoint.py",
+            "item_alignment_torch/cli.py",
+            "item_alignment_torch/data/wordpiece.py"} <= names
     bad = {f"{p.relative_to(ROOT)}: {name}" for p in files
            for name in _imported_roots(p) if name in FORBIDDEN}
     assert not bad, sorted(bad)
+
+
+def test_jieba_only_inside_the_segmenters():
+    """jieba is imported at call time, inside ``segment_pvs`` and
+    ``segment_title`` alone in the package (the card may not have it)."""
+    found = {}
+
+    def visit(node, where, path):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in child.names] + [
+                    getattr(child, "module", None) or ""]
+                if any(n.split(".")[0] == "jieba" for n in names):
+                    found.setdefault(path, set()).add(where)
+            inner = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                        ast.ClassDef)) else where
+            visit(child, inner, path)
+
+    for path in _port_sources():
+        visit(ast.parse(path.read_text(), str(path)), "<module>",
+              str(path.relative_to(ROOT)))
+    assert found == {k: {v} for k, v in SEGMENTERS.items()}
+
+
+def _roadmap_items():
+    """{(queue, number): bold title} of the open items of ROADMAP.md."""
+    text = (ROOT / "ROADMAP.md").read_text()
+    items, queue = {}, None
+    for line in text.splitlines():
+        m = re.match(r"### Queue (\d+)", line)
+        if m:
+            queue = int(m.group(1))
+        m = re.match(r"(\d+)\. \*\*(.+?)\*\*", line)
+        if m and queue and not m.group(2).startswith("Done"):
+            items[(queue, int(m.group(1)))] = m.group(2).rstrip(".")
+    return items
+
+
+ITEM_REF = re.compile(r"ROADMAP Queue (\d+) #(\d+): ([^)]+?)(?:\)|$)")
+
+
+def _strings(tree):
+    """Every string constant of a module (implicit concatenations joined by
+    the parser, f-strings by their literal parts), whitespace collapsed."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield " ".join(node.value.split())
+        elif isinstance(node, ast.JoinedStr):
+            yield " ".join("".join(
+                v.value for v in node.values
+                if isinstance(v, ast.Constant)).split())
+
+
+def _check_item(queue, number, title, items):
+    key = (int(queue), int(number))
+    assert key in items, f"ROADMAP Queue {queue} #{number} is not open"
+    assert items[key].lower().startswith(title.strip().rstrip(".").lower()), \
+        (title, items[key])
+
+
+def test_every_not_ported_raise_names_an_open_roadmap_item():
+    """Each ``raise NotImplementedError`` of the port names a ROADMAP item
+    as "ROADMAP Queue N #M: Title", and each such item is still listed, with
+    that title, and not done."""
+    items = _roadmap_items()
+    assert (1, 4) in items and (1, 14) in items
+    refs = 0
+    for path in _port_sources():
+        text = path.read_text()
+        tree = ast.parse(text, str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call) \
+                    and getattr(node.exc.func, "id", "") == "NotImplementedError":
+                seg = ast.get_source_segment(text, node)
+                assert "ROADMAP" in seg or "_ITEM" in seg or "item" in seg, \
+                    f"{path.name}: {seg}"
+        for string in _strings(tree):
+            for m in ITEM_REF.finditer(string):
+                _check_item(*m.groups(), items)
+                refs += 1
+    assert refs >= 10
+
+
+def test_cli_raises_name_open_roadmap_items(tmp_path):
+    """The commands and flags ``ia-torch`` has not ported raise, each with
+    its open ROADMAP item."""
+    from item_alignment_torch import cli
+
+    items = _roadmap_items()
+    calls = [[name] for name in sorted(cli.COMMANDS)
+             if name not in ("prepare", "finetune-text", "mine", "pred-text")]
+    calls += [["prepare", "--data_dir", "d", "--output_dir", "o", flag]
+              for flag in ("--with_image", "--only_image",
+                           "--object_detection")]
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
+                                 "[MASK]"]))
+    calls += [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
+               str(tmp_path), "--device", "cpu", "--model_name", name]
+              for name in ("pkgm_large", "textcnn", "roberta_image_large",
+                           "vit_base", "gcn")]
+    (tmp_path / "tiny.json").write_text(json.dumps(
+        {"hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 1,
+         "intermediate_size": 8, "max_position_embeddings": 16}))
+    calls += [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
+               str(tmp_path), "--device", "cpu", "--output_dir",
+               str(tmp_path / "out"), "--config_file",
+               str(tmp_path / "tiny.json"), "--do_train", "--distributed"]]
+    assert len(calls) == 11 + 3 + 5 + 1
+    for argv in calls:
+        with pytest.raises(NotImplementedError) as e:
+            cli.main(argv)
+        m = ITEM_REF.search(str(e.value))
+        assert m, (argv, str(e.value))
+        _check_item(*m.groups(), items)
+
+
+def test_msgpack_parameter_file_raises_with_the_roadmap_item(tmp_path):
+    """The port reads .pt parameter files; a Flax msgpack raises a
+    ValueError naming ROADMAP Queue 1 #14 instead of loading garbage."""
+    from item_alignment_torch import cli
+
+    (tmp_path / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "<S>"]))
+    (tmp_path / "info.jsonl").write_text("\n".join(json.dumps(
+        {"item_id": i, "cate_name": "c", "title": "a", "item_pvs": ""})
+        for i in ("x", "y")) + "\n")
+    (tmp_path / "pairs.jsonl").write_text(json.dumps(
+        {"src_item_id": "x", "tgt_item_id": "y"}) + "\n")
+    (tmp_path / "tiny.json").write_text(json.dumps(
+        {"hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 1,
+         "intermediate_size": 8, "max_position_embeddings": 16}))
+    (tmp_path / "best_f1.msgpack").write_bytes(b"\x80")
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 #14") as e:
+        cli.main(["mine", "--item_info", str(tmp_path / "info.jsonl"),
+                  "--pairs", str(tmp_path / "pairs.jsonl"), "--output",
+                  str(tmp_path / "out.jsonl"), "--vocab_path", str(tmp_path),
+                  "--config_file", str(tmp_path / "tiny.json"),
+                  "--max_seq_len", "2", "--max_seq_len_pv", "2",
+                  "--num_workers", "0", "--device", "cpu",
+                  "--file_state_dict", str(tmp_path / "best_f1.msgpack")])
+    _check_item(*ITEM_REF.search(str(e.value)).groups(), _roadmap_items())
 
 
 def test_kernel_source_ships_with_the_package():

@@ -231,14 +231,15 @@ def test_dropout_training_is_reproducible():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=TMesh(data=2)), "Queue 1 #17"),
-    (dict(mesh=TMesh(fsdp=2)), "Queue 1 #17"),
+    (dict(mesh=TMesh(data=2)), "Queue 1 #4: Parallelism"),
+    (dict(mesh=TMesh(fsdp=2)), "Queue 1 #4: Parallelism"),
 ])
 def test_trainer_raises_on_what_is_not_ported(kw, match):
     model = ttext.RobertaOneTower(TModel(**TINY), device="cpu", seed=0)
     with pytest.raises(NotImplementedError, match=match):
         TTrainer(model, TTrain(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1 #7: The legacy BERT model"):
         TTrainer(model, TTrain(), device="cpu", adversarial=("free", 1.0, 1.0))
 
 
