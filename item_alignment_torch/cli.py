@@ -6,10 +6,14 @@ Port of ``item_alignment_tpu/cli.py`` for the main path:
 
 - ``prepare``        item_info / pair jsonl -> KG files and finetune TSVs
   (text only);
-- ``finetune-text``  RoBERTa one-tower and two-tower: train, eval, predict;
+- ``finetune-text``  RoBERTa and PKGM, one-tower and two-tower: train,
+  eval, predict (PKGM takes ``--entity2id``/``--relation2id`` and merges
+  ``pkgm_model.bin`` beside ``pytorch_model.bin``);
 - ``mine``           encode each item once, score a candidate-pair list
   against the cache (``--quant int8``, ``--cache_quant int8``);
-- ``pred-text``      the pooled entity-feature matrix for the GCN.
+- ``pred-text``      the pooled entity-feature matrix for the GCN;
+- ``pkgm-pretrain``  KGE pretraining on the KG files (``kge/``), writing
+  ``kge_final.npz``.
 
 Flags are the JAX CLI's, so the same command lines run, with one more:
 ``--device {cuda,cpu}`` (default ``cuda``; without a GPU the default
@@ -317,8 +321,11 @@ def cmd_finetune_text(argv: List[str]) -> int:
     args = p.parse_args(argv)
 
     from item_alignment_torch.data.tokenization import (
+        load_kg_tokenizers,
         load_text_tokenizer,
         rows_to_one_tower_dataset,
+        rows_to_pkgm_dataset,
+        rows_to_pkgm_two_tower_dataset,
         rows_to_two_tower_dataset,
     )
     from item_alignment_torch.engine.checkpoint import save_params
@@ -328,7 +335,17 @@ def cmd_finetune_text(argv: List[str]) -> int:
 
     device = resolve_device(args.device)
     tok = load_text_tokenizer(args.vocab_path)
-    cfg = _model_config(args, vocab_size=len(tok))
+    pkgm = "pkgm" in args.model_name
+    extra = {}
+    if pkgm:
+        if not (args.entity2id and args.relation2id):
+            raise ValueError("a pkgm model needs the KG id maps "
+                             "--entity2id and --relation2id")
+        kg_ent, kg_rel = load_kg_tokenizers(args.entity2id, args.relation2id)
+        extra = dict(num_entities=max(kg_ent.values()) + 1,
+                     num_relations=max(kg_rel.values()) + 1,
+                     max_seq_len_pv=None)
+    cfg = _model_config(args, vocab_size=len(tok), **extra)
     model = build_model(cfg, device=device, seed=args.seed)
     train_rows = _load_tsv_rows(args, args.train_file)
     valid_rows = _load_tsv_rows(args, args.valid_file)
@@ -336,6 +353,13 @@ def cmd_finetune_text(argv: List[str]) -> int:
     def build_ds(rows):
         if rows is None:
             return None
+        if pkgm and args.interaction_type == "two_tower":
+            return rows_to_pkgm_two_tower_dataset(
+                rows, tok, kg_ent, kg_rel, cfg.max_seq_len, cfg.max_pvs)
+        if pkgm:
+            return rows_to_pkgm_dataset(rows, tok, kg_ent, kg_rel,
+                                        cfg.max_seq_len, cfg.max_pvs,
+                                        cfg.classification_method)
         if args.interaction_type == "two_tower":
             return rows_to_two_tower_dataset(rows, tok, cfg.max_seq_len,
                                              cfg.max_seq_len_pv)
@@ -394,18 +418,29 @@ def cmd_finetune_text(argv: List[str]) -> int:
 
 def _load_pretrained(model, cfg, args) -> None:
     """HF encoder weights from ``pytorch_model.bin`` under
-    ``--pretrained_model_path`` (``utils/hf_import.py``)."""
+    ``--pretrained_model_path`` (``utils/hf_import.py``); for a pkgm model,
+    merged with the PKGM pretrain tables of ``pkgm_model.bin`` beside it
+    when there is one.  Without ``pytorch_model.bin`` nothing is loaded."""
+    from item_alignment_torch.models import PKGMBackbone
+    from item_alignment_torch.utils import (
+        KG_WEIGHTS_NAME,
+        ROBERTA_WEIGHTS_NAME,
+    )
     from item_alignment_torch.utils.hf_import import (
         import_hf_roberta,
         load_torch_state_dict,
     )
 
-    rob = os.path.join(args.pretrained_model_path, "pytorch_model.bin")
+    rob = os.path.join(args.pretrained_model_path, ROBERTA_WEIGHTS_NAME)
+    kg = os.path.join(args.pretrained_model_path, KG_WEIGHTS_NAME)
     if not os.path.exists(rob):
-        logger.warning(f"no pytorch_model.bin under {args.pretrained_model_path}")
+        logger.warning(f"no {ROBERTA_WEIGHTS_NAME} under "
+                       f"{args.pretrained_model_path}")
         return
-    sd = load_torch_state_dict(rob)
-    model.load_state_dict(import_hf_roberta(model.state_dict(), sd, cfg))
+    kg_sd = (load_torch_state_dict(kg) if isinstance(
+        model.roberta, PKGMBackbone) and os.path.exists(kg) else None)
+    model.load_state_dict(import_hf_roberta(
+        model.state_dict(), load_torch_state_dict(rob), cfg, kg_sd))
     logger.info("loaded pretrained encoder weights")
 
 
@@ -702,6 +737,61 @@ def cmd_pred_text(argv: List[str]) -> int:
     return 0
 
 
+def cmd_pkgm_pretrain(argv: List[str]) -> int:
+    """KGE pretraining on ``entity2id/relation2id/train2id.txt`` (and, with
+    ``--do_eval``, filtered link prediction on ``valid2id.txt``); writes
+    ``kge_final.npz`` and prints ``{"final_loss"[, "hit10", "mrr"]}``."""
+    p = argparse.ArgumentParser(prog="ia-torch pkgm-pretrain")
+    p.add_argument("--data_dir", required=True,
+                   help="dir with entity2id/relation2id/train2id.txt")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--model_name", default="pkgm",
+                   help="kge model: transe|pkgm|transh|...")
+    p.add_argument("--embedding_dim", type=int, default=768)
+    p.add_argument("--batch_size", type=int, default=32768)
+    p.add_argument("--epochs", type=int, default=100)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--margin", type=float, default=1.0)
+    p.add_argument("--n_neg", type=int, default=3)
+    p.add_argument("--sampling_type", default="bernoulli")
+    p.add_argument("--do_eval", action="store_true")
+    p.add_argument("--save_epochs", type=int, default=50)
+    p.add_argument("--mesh", default=None,
+                   help="data,fsdp,tensor axis sizes; the port runs on one "
+                        f"device, others raise ({PARALLEL_ITEM})")
+    _device_flag(p)
+    args = p.parse_args(argv)
+
+    from item_alignment_torch.kge import (
+        KGETrainer,
+        LinkPredictionEvaluator,
+        load_ccks,
+        make_kge_model,
+    )
+
+    mesh = tuple(int(x) for x in args.mesh.split(",")) if args.mesh else None
+    kgs = load_ccks(args.data_dir, do_eval=args.do_eval)
+    kg_train = kgs[0]
+    model = make_kge_model(args.model_name, kg_train.n_ent, kg_train.n_rel,
+                           args.embedding_dim)
+    trainer = KGETrainer(model, kg_train, margin=args.margin,
+                         n_neg=args.n_neg, sampling_type=args.sampling_type,
+                         learning_rate=args.learning_rate,
+                         batch_size=args.batch_size, n_epochs=args.epochs,
+                         save_dir=args.output_dir,
+                         save_epochs=args.save_epochs, mesh=mesh,
+                         device=args.device)
+    result = trainer.run()
+    trainer.save(os.path.join(args.output_dir, "kge_final.npz"))
+    out = {"final_loss": result["history"][-1]["loss"]}
+    if args.do_eval and len(kgs) > 1:
+        ev = LinkPredictionEvaluator(model, result["params"], kgs[1],
+                                     kg_filter=kgs).evaluate()
+        out.update(hit10=ev.hit_at_k(10)[1], mrr=ev.mrr()[1])
+    print(json.dumps(out))
+    return 0
+
+
 def _not_ported(name: str, item: str):
     def cmd(argv: List[str]) -> int:
         raise NotImplementedError(f"ia-torch {name} is not ported yet ({item})")
@@ -721,8 +811,7 @@ COMMANDS = {
                                  "ROADMAP Queue 1 #7: The legacy BERT model"),
     "bert-pretrain": _not_ported("bert-pretrain", REST_OF_CLI),
     "coca-pretrain": _not_ported("coca-pretrain", REST_OF_CLI),
-    "pkgm-pretrain": _not_ported("pkgm-pretrain",
-                                 "ROADMAP Queue 1 #5: The PKGM family"),
+    "pkgm-pretrain": cmd_pkgm_pretrain,
     "pred-text": cmd_pred_text,
     "pred-bert": _not_ported("pred-bert", REST_OF_CLI),
     "mine": cmd_mine,

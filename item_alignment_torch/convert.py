@@ -4,8 +4,9 @@ port's state dicts.
 ``state_dict_from_flax`` takes a ``{"params": ...}`` tree of nested dicts of
 numpy arrays (as ``jax.tree_util.tree_map(np.asarray, variables)`` gives, or
 as a msgpack checkpoint restores) and returns the ``state_dict`` of the
-matching port model (``RobertaBackbone``, ``RobertaOneTower`` or
-``RobertaTwoTower``).  The port's module names follow the Flax tree, so the
+matching port model (``RobertaBackbone``, ``RobertaOneTower``,
+``RobertaTwoTower``, ``PKGMBackbone``, ``PKGMOneTower`` or
+``PKGMTwoTower``).  The port's module names follow the Flax tree, so the
 mapping is the tree path joined with dots, plus three leaf renames:
 
 - Dense ``kernel [in, out]`` -> ``weight [out, in]``
@@ -13,8 +14,9 @@ mapping is the tree path joined with dots, plus three leaf renames:
 - Embed ``embedding``        -> ``weight``
 
 ``flax_path`` maps a port parameter name back to its Flax path (a LayerNorm
-module's name contains ``layer_norm``, an embedding table's ends in
-``embeddings``), and ``flax_from_state_dict`` is the reverse conversion.
+module's name contains ``layer_norm``; an embedding table's ends in
+``embeddings``, as RoBERTa's tables, or in ``_emb``, as PKGM's ``ent_emb``
+and ``rel_emb``), and ``flax_from_state_dict`` is the reverse conversion.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+# the module-name endings of the ported models' embedding tables
+EMBED_SUFFIXES = ("embeddings", "_emb")
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias"}
 
@@ -55,7 +59,7 @@ def flax_path(name: str) -> Tuple[str, ...]:
     if leaf == "weight":
         if "layer_norm" in mods[-1]:
             leaf = "scale"
-        elif mods[-1].endswith("embeddings"):
+        elif mods[-1].endswith(EMBED_SUFFIXES):
             leaf = "embedding"
         else:
             leaf = "kernel"

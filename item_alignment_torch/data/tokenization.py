@@ -15,8 +15,12 @@ Port of the text layouts of ``item_alignment_tpu/data/tokenization.py``
 ``segment_pvs`` calls ``jieba`` when it is called, as the JAX package does;
 without jieba it raises ``ImportError``.  There is no whitespace fallback:
 another segmentation gives other WordPiece ids (``商品`` -> ``商 ##品``).
-The PKGM, image, multimodal and pv-pair layouts come with their model
-families (ROADMAP Queue 1 #5, #6).
+- PKGM: per item the text ids, then the entity id and the relation ids
+  (the id space), with masks and token types over the embedded length
+  ``max_seq_len + 2 * max_pvs`` and explicit positions (data.py:277-516).
+
+The image, multimodal and pv-pair layouts come with their model family
+(ROADMAP Queue 1 #6).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 
 from item_alignment_torch.data.datasets import ArrayDataset
 from item_alignment_torch.data.wordpiece import WordPieceTokenizer
+from item_alignment_torch.utils import BOS_TOKEN
 
 COLON_ID = 131
 SEMICOLON_ID = 132
@@ -222,6 +227,136 @@ def rows_to_two_tower_dataset(
         meta["src_item_id"].append(src_item_id)
         meta["tgt_item_id"].append(tgt_item_id)
     arrays = {k: np.asarray(v, dtype=np.int32) for k, v in feats.items()}
+    return ArrayDataset(arrays, meta)
+
+
+# ------------------------------------------------------------------ PKGM
+def _pad_text_sequence(ids: List[int], token_type_id: int, max_len: int):
+    mask = [1] * len(ids)
+    tt = [token_type_id] * len(ids)
+    ids = ids + [0] * (max_len - len(ids))
+    mask = mask + [0] * (max_len - len(mask))
+    tt = tt + [0] * (max_len - len(tt))
+    return ids, mask, tt
+
+
+def _pad_kg_sequence(ids: List[int], token_type_id: int, max_pvs: int):
+    """ids = [entity, rel...]; masks/token-types cover the 2*max_pvs embedded
+    kg tokens (data.py:378-388: each relation becomes 2 query tokens)."""
+    n_rel = max(len(ids) - 1, 0)
+    mask = [1] * (n_rel * 2)
+    tt = [token_type_id] * (n_rel * 2)
+    ids = ids + [0] * (max_pvs + 1 - len(ids))
+    mask = mask + [0] * (2 * max_pvs - len(mask))
+    tt = tt + [0] * (2 * max_pvs - len(tt))
+    return ids, mask, tt
+
+
+def encode_pkgm_item(tok, kg_ent: Dict[str, int], kg_rel: Dict[str, int],
+                     item_id: str, title: str, pvs: str, max_seq_len: int,
+                     max_pvs: int, token_type_id: int = 0,
+                     leading_token: Optional[str] = None,
+                     kg_token_type_id: Optional[int] = None):
+    """One PKGM item: text ids (max_seq_len) + kg ids (1+max_pvs) in the id
+    space; mask and token types in the embedded space (max_seq_len +
+    2*max_pvs).  An item with no known relation has an all-zero kg block,
+    masked.  One-tower uses one token type for both parts (0 src / 1 tgt,
+    data.py:328-341); two-tower uses text 0 / kg 1 (data.py:430-445) via
+    ``kg_token_type_id``."""
+    if kg_token_type_id is None:
+        kg_token_type_id = token_type_id
+    title_ids = tok.convert_tokens_to_ids(tok.tokenize(title))[: max_seq_len - 2]
+    lead = tok.cls_token_id if leading_token is None else \
+        tok.convert_tokens_to_ids(leading_token)
+    text_ids, text_mask, text_tt = _pad_text_sequence(
+        [lead] + title_ids + [tok.sep_token_id], token_type_id, max_seq_len)
+
+    rel_ids = []
+    for pv in pvs.split(";"):
+        try:
+            r, _ = pv.split(":", maxsplit=1)
+        except ValueError:
+            continue
+        if r in kg_rel:
+            rel_ids.append(kg_rel[r])
+    kg_ids = []
+    if rel_ids:
+        kg_ids = [kg_ent.get(f"/item/{item_id}", 0)] + rel_ids
+    kg_ids, kg_mask, kg_tt = _pad_kg_sequence(kg_ids[: 1 + max_pvs],
+                                              kg_token_type_id, max_pvs)
+    return text_ids + kg_ids, text_mask + kg_mask, text_tt + kg_tt
+
+
+def encode_pkgm_one_tower(tok, kg_ent, kg_rel, row, max_seq_len: int,
+                          max_pvs: int, classification_method: str = "cls"):
+    """(data.py:277-392): src block then tgt block; tgt leading token is
+    [BOS] for vec_sim else [SEP]."""
+    (label, src_item_id, _, src_title, src_pvs,
+     tgt_item_id, _, tgt_title, tgt_pvs) = row
+    src_ids, src_mask, src_tt = encode_pkgm_item(
+        tok, kg_ent, kg_rel, src_item_id, src_title, src_pvs,
+        max_seq_len, max_pvs, token_type_id=0)
+    lead = BOS_TOKEN if classification_method == "vec_sim" else tok.sep_token
+    tgt_ids, tgt_mask, tgt_tt = encode_pkgm_item(
+        tok, kg_ent, kg_rel, tgt_item_id, tgt_title, tgt_pvs,
+        max_seq_len, max_pvs, token_type_id=1, leading_token=lead)
+    return {
+        "input_ids": src_ids + tgt_ids,
+        "attention_mask": src_mask + tgt_mask,
+        "token_type_ids": src_tt + tgt_tt,
+        "position_ids": list(range(2 * (max_seq_len + 2 * max_pvs))),
+        "labels": int(label),
+    }
+
+
+def rows_to_pkgm_dataset(rows, tok, kg_ent, kg_rel, max_seq_len: int,
+                         max_pvs: int, classification_method: str = "cls"
+                         ) -> ArrayDataset:
+    """One-tower PKGM arrays: ``input_ids`` [n, 2*(L+1+P)] and
+    ``attention_mask``/``token_type_ids``/``position_ids`` [n, 2*(L+2P)]."""
+    feats = {"input_ids": [], "attention_mask": [], "token_type_ids": [],
+             "position_ids": [], "labels": []}
+    meta = {"src_item_id": [], "tgt_item_id": []}
+    for row in rows:
+        enc = encode_pkgm_one_tower(tok, kg_ent, kg_rel, row, max_seq_len,
+                                    max_pvs, classification_method)
+        for k in feats:
+            feats[k].append(enc[k])
+        meta["src_item_id"].append(row[1])
+        meta["tgt_item_id"].append(row[5])
+    arrays = {k: np.asarray(v, dtype=np.int32) for k, v in feats.items()}
+    return ArrayDataset(arrays, meta)
+
+
+def rows_to_pkgm_two_tower_dataset(rows, tok, kg_ent, kg_rel,
+                                   max_seq_len: int, max_pvs: int
+                                   ) -> ArrayDataset:
+    """Per-item PKGM layouts for the two-tower model (PKGMTwoTowerDataset,
+    data.py:394-516): each side gets its own id-space ids and
+    embedded-space masks; one position row serves both."""
+    feats = {f"{k}_{i}": [] for k in ("input_ids", "attention_mask",
+                                      "token_type_ids") for i in (1, 2)}
+    feats["labels"] = []
+    meta = {"src_item_id": [], "tgt_item_id": []}
+    for row in rows:
+        (label, src_item_id, _, src_title, src_pvs,
+         tgt_item_id, _, tgt_title, tgt_pvs) = row
+        for i, (iid, title, pvs) in enumerate(
+                ((src_item_id, src_title, src_pvs),
+                 (tgt_item_id, tgt_title, tgt_pvs)), start=1):
+            ids, mask, ttids = encode_pkgm_item(
+                tok, kg_ent, kg_rel, iid, title, pvs, max_seq_len, max_pvs,
+                token_type_id=0, kg_token_type_id=1)
+            feats[f"input_ids_{i}"].append(ids)
+            feats[f"attention_mask_{i}"].append(mask)
+            feats[f"token_type_ids_{i}"].append(ttids)
+        feats["labels"].append(int(label))
+        meta["src_item_id"].append(src_item_id)
+        meta["tgt_item_id"].append(tgt_item_id)
+    arrays = {k: np.asarray(v, np.int32) for k, v in feats.items()}
+    embed_len = max_seq_len + 2 * max_pvs
+    arrays["position_ids"] = np.tile(np.arange(embed_len, dtype=np.int32),
+                                     (len(rows), 1))
     return ArrayDataset(arrays, meta)
 
 

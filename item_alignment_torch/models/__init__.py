@@ -1,7 +1,10 @@
-"""Model families ported so far: the RoBERTa text models."""
+"""Model families ported so far: the RoBERTa and PKGM text models."""
 
 from item_alignment_torch.models.outputs import PairClassifierOutput  # noqa: F401
 from item_alignment_torch.models.text import (  # noqa: F401
+    PKGMBackbone,
+    PKGMOneTower,
+    PKGMTwoTower,
     RobertaBackbone,
     RobertaOneTower,
     RobertaTwoTower,
@@ -10,7 +13,6 @@ from item_alignment_torch.models.text import (  # noqa: F401
 # model-name substrings of the families still to port, in the JAX package's
 # dispatch order (item_alignment_tpu/models/__init__.py:build_model)
 NOT_PORTED = (
-    ("pkgm", "ROADMAP Queue 1 #5: The PKGM family"),
     ("textcnn", "ROADMAP Queue 1 #8: TextCNN"),
     ("roberta_image", "ROADMAP Queue 1 #6: The multimodal RobertaImage "
                       "one/two-tower"),
@@ -27,12 +29,15 @@ def build_model(config, device=None, seed=0):
     package's ``build_model`` dispatches); the families not yet ported
     raise with their ROADMAP item."""
     name = config.model_name
+    one_tower = config.interaction_type == "one_tower"
+    if "pkgm" in name:
+        cls = PKGMOneTower if one_tower else PKGMTwoTower
+        return cls(config, device=device, seed=seed)
     for key, item in NOT_PORTED:
         if key in name:
             raise NotImplementedError(
                 f"model {name!r} is not ported yet ({item})")
     if "roberta" in name or "bert" in name:
-        cls = (RobertaOneTower if config.interaction_type == "one_tower"
-               else RobertaTwoTower)
+        cls = RobertaOneTower if one_tower else RobertaTwoTower
         return cls(config, device=device, seed=seed)
     raise ValueError(f"unknown model name: {name}")

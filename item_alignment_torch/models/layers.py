@@ -8,11 +8,13 @@ E[x^2] - mean^2, clipped at 0) and returns ``dtype``, or the input's
 promoted type when ``dtype`` is None.
 
 ``embedding_lookup`` reads rows of an ``nn.Embedding``'s table and sums its
-gradient in a fixed order.  torch's own embedding backward on CUDA sums the
-duplicates of a row (thousands for the pad token, the pad position and the
-token types) in an order that changes from run to run, which would break
-bit-for-bit repeat and resume.  Here a small table's gradient is a one-hot
-matrix product, and a large table's a stable sort of the ids followed by
+gradient in a fixed order; ``take_rows`` does the same for any tensor whose
+first dimension it indexes (the KGE tables, ``[n, d]`` or ``[n, d, d]``).
+torch's own embedding backward on CUDA sums the duplicates of a row
+(thousands for the pad token, the pad position and the token types) in an
+order that changes from run to run, which would break bit-for-bit repeat and
+resume.  Here the gradient of a small table read by few ids is a one-hot
+matrix product, and otherwise a stable sort of the ids followed by
 ``torch.segment_reduce``, which adds each row's duplicates in turn
 (``index_put_`` with ``accumulate=True`` is as repeatable but took 23 ms of
 a RoBERTa-large train step on an H100 against about 2 ms for these).
@@ -28,51 +30,65 @@ from torch import nn
 
 
 ONE_HOT_ROWS = 2048  # tables up to this many rows take the one-hot product
+# ... unless the one-hot matrix (rows x ids) would exceed this many elements
+ONE_HOT_ELEMS = 1 << 25
 
 
 class _EmbeddingLookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, ids):
         ctx.save_for_backward(ids)
-        ctx.rows = table.shape[0]
+        ctx.shape = table.shape
         return table[ids]
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        flat, g = ids.reshape(-1).long(), g.reshape(-1, g.shape[-1])
-        rows = torch.arange(ctx.rows, device=g.device)
-        if ctx.rows <= ONE_HOT_ROWS:
-            return (rows[:, None] == flat[None, :]).to(g.dtype) @ g, None
-        order = torch.sort(flat, stable=True).indices
-        lengths = torch.zeros_like(rows).index_add_(0, flat,
-                                                    torch.ones_like(flat))
-        return torch.segment_reduce(g[order], "sum", lengths=lengths, axis=0,
-                                    unsafe=True), None
+        flat = ids.reshape(-1).long()
+        g = g.reshape(flat.shape[0], -1)
+        n = ctx.shape[0]
+        rows = torch.arange(n, device=g.device)
+        if n <= ONE_HOT_ROWS and n * flat.shape[0] <= ONE_HOT_ELEMS:
+            grad = (rows[:, None] == flat[None, :]).to(g.dtype) @ g
+        else:
+            order = torch.sort(flat, stable=True).indices
+            lengths = torch.zeros_like(rows).index_add_(0, flat,
+                                                        torch.ones_like(flat))
+            grad = torch.segment_reduce(g[order], "sum", lengths=lengths,
+                                        axis=0, unsafe=True)
+        return grad.reshape(ctx.shape), None
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with a gradient that repeats run to run."""
+    return _EmbeddingLookup.apply(table, ids)
 
 
 def embedding_lookup(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
     """``table.weight[ids]`` with a gradient that repeats run to run."""
-    return _EmbeddingLookup.apply(table.weight, ids)
+    return take_rows(table.weight, ids)
 
 
 class Dense(nn.Module):
     """``weight [out, in]`` and ``bias [out]``, the transpose of Flax's
     ``kernel [in, out]``.  ``init_std`` is the normal init's deviation;
-    None means Flax's default, LeCun normal."""
+    None means Flax's default, LeCun normal.  ``use_bias=False`` has no
+    bias, as Flax's ``use_bias=False``."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: Optional[torch.dtype] = None,
-                 init_std: Optional[float] = None):
+                 init_std: Optional[float] = None, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias \
+            else None
         self.dtype = dtype
         self.init_std = init_std
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.Module):
@@ -116,7 +132,8 @@ def init_weights(module: nn.Module, std: float,
                 dev = (1.0 / m.weight.shape[1]) ** 0.5 / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, 0.0, dev, -2.0 * dev,
                                       2.0 * dev, generator=generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

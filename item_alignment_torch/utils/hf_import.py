@@ -16,9 +16,9 @@ RandomState(0)``, normal with ``initializer_range``, the token-type table
 first), so both packages give equal tables.  HF to the port is a rename: the
 port's ``Dense.weight`` is ``[out, in]`` as torch stores it.  Converted
 weights are flat dicts of float numpy arrays whose names are relative to the
-backbone (``embeddings...``, ``encoder.layer_0...``).  The PKGM
-dual-checkpoint merge (``convert_pkgm_state_dicts``) waits for the PKGM
-family.
+backbone (``embeddings...``, ``encoder.layer_0...``).
+``convert_pkgm_state_dicts`` merges such a checkpoint with the PKGM
+pretrain arrays (``pkgm_model.bin``) into ``PKGMBackbone`` names.
 """
 
 from __future__ import annotations
@@ -99,14 +99,51 @@ def convert_encoder_state_dict(
     return out
 
 
+def convert_pkgm_state_dicts(
+    roberta_sd: Mapping[str, np.ndarray],
+    kg_sd: Mapping[str, np.ndarray],
+    type_vocab_size: Optional[int] = None,
+    max_position_embeddings: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """The text-encoder checkpoint merged with the PKGM pretrain arrays
+    (``ent_emb.weight``, ``rel_emb.weight``, ``proj_mat.weight`` and
+    optionally ``proj_mat.bias``) -> ``PKGMBackbone`` names.  Mh is
+    ``h @ proj_mat.T`` in the pretrain model, so ``proj_mat.weight`` is the
+    port's Dense weight as it is (the JAX package stores its transpose as
+    the Flax kernel)."""
+    out = convert_encoder_state_dict(roberta_sd, type_vocab_size,
+                                     max_position_embeddings)
+    kg = {_strip_prefix(k): np.asarray(v) for k, v in kg_sd.items()}
+
+    def find(*names):
+        for n in names:
+            if n in kg:
+                return kg[n]
+        raise KeyError(f"none of {names} in kg checkpoint: {list(kg)[:8]}")
+
+    for table in ("ent_emb", "rel_emb", "proj_mat"):
+        out[f"embeddings.{table}.weight"] = find(f"{table}.weight", table)
+    if "proj_mat.bias" in kg:
+        out["embeddings.proj_mat.bias"] = kg["proj_mat.bias"]
+    return out
+
+
 def import_hf_roberta(state: Mapping[str, torch.Tensor],
-                      sd: Mapping[str, np.ndarray], config
+                      sd: Mapping[str, np.ndarray], config,
+                      kg_sd: Optional[Mapping[str, np.ndarray]] = None
                       ) -> Dict[str, torch.Tensor]:
     """Overlay HF encoder weights onto the ``state_dict`` of an initialised
     ``RobertaOneTower``/``RobertaTwoTower`` (backbone under ``roberta.``);
-    returns a new dict to ``load_state_dict``."""
-    converted = convert_encoder_state_dict(
-        sd, config.type_vocab_size, config.max_position_embeddings)
+    with ``kg_sd`` (a ``pkgm_model.bin``), the PKGM tables too, onto a
+    ``PKGMOneTower``/``PKGMTwoTower``.  Returns a new dict to
+    ``load_state_dict``."""
+    if kg_sd is None:
+        converted = convert_encoder_state_dict(
+            sd, config.type_vocab_size, config.max_position_embeddings)
+    else:
+        converted = convert_pkgm_state_dicts(
+            sd, kg_sd, config.type_vocab_size,
+            config.max_position_embeddings)
     out = dict(state)
     _overlay(out, {f"roberta.{k}": v for k, v in converted.items()})
     return out

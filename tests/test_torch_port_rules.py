@@ -14,7 +14,10 @@ import torch
 from item_alignment_torch.config import ModelConfig, TrainConfig
 from item_alignment_torch.engine.inference import TwoTowerInference
 from item_alignment_torch.engine.train import Trainer
+from item_alignment_torch.kge import KGETrainer, KnowledgeGraph, make_kge_model
 from item_alignment_torch.models.text import (
+    PKGMOneTower,
+    PKGMTwoTower,
     RobertaBackbone,
     RobertaOneTower,
     RobertaTwoTower,
@@ -30,6 +33,9 @@ SEGMENTERS = {"item_alignment_torch/data/tokenization.py": "segment_pvs",
 TINY = ModelConfig(vocab_size=50, hidden_size=32, num_hidden_layers=1,
                    num_attention_heads=1, intermediate_size=32,
                    max_position_embeddings=32)
+PKGM_TINY = TINY.replace(model_name="pkgm", max_seq_len=4, max_seq_len_pv=None,
+                         max_pvs=2, num_entities=8, num_relations=3,
+                         kg_embedding_dim=16)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -63,7 +69,8 @@ def test_port_imports_no_jax():
             "item_alignment_torch/utils/hf_import.py",
             "item_alignment_torch/engine/checkpoint.py",
             "item_alignment_torch/cli.py",
-            "item_alignment_torch/data/wordpiece.py"} <= names
+            "item_alignment_torch/data/wordpiece.py",
+            "item_alignment_torch/kge/train.py"} <= names
     bad = {f"{p.relative_to(ROOT)}: {name}" for p in files
            for name in _imported_roots(p) if name in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -158,7 +165,8 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
 
     items = _roadmap_items()
     calls = [[name] for name in sorted(cli.COMMANDS)
-             if name not in ("prepare", "finetune-text", "mine", "pred-text")]
+             if name not in ("prepare", "finetune-text", "mine", "pred-text",
+                             "pkgm-pretrain")]
     calls += [["prepare", "--data_dir", "d", "--output_dir", "o", flag]
               for flag in ("--with_image", "--only_image",
                            "--object_detection")]
@@ -167,8 +175,8 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
                                  "[MASK]"]))
     calls += [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
                str(tmp_path), "--device", "cpu", "--model_name", name]
-              for name in ("pkgm_large", "textcnn", "roberta_image_large",
-                           "vit_base", "gcn")]
+              for name in ("textcnn", "roberta_image_large", "vit_base",
+                           "gcn")]
     (tmp_path / "tiny.json").write_text(json.dumps(
         {"hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 1,
          "intermediate_size": 8, "max_position_embeddings": 16}))
@@ -176,7 +184,7 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
                str(tmp_path), "--device", "cpu", "--output_dir",
                str(tmp_path / "out"), "--config_file",
                str(tmp_path / "tiny.json"), "--do_train", "--distributed"]]
-    assert len(calls) == 11 + 3 + 5 + 1
+    assert len(calls) == 10 + 3 + 4 + 1
     for argv in calls:
         with pytest.raises(NotImplementedError) as e:
             cli.main(argv)
@@ -248,17 +256,31 @@ def test_kernels_are_built_at_first_use_not_at_import(monkeypatch, tmp_path):
         cab._launch_dq(0.0, 0, q, q, q, None, q, q, q)
 
 
+def _kge_npz(tmp: pathlib.Path) -> str:
+    """A ``kge_final.npz`` of a tiny PKGM model, written on the CPU."""
+    path = str(tmp / "kge_final.npz")
+    KGETrainer(make_kge_model("pkgm", 8, 3, 4), KnowledgeGraph(
+        [1, 2], [0, 1], [3, 4], 8, 3), batch_size=2, n_epochs=1,
+        device="cpu").save(path)
+    return path
+
+
 @pytest.mark.parametrize("build", [
-    lambda: RobertaOneTower(TINY),
-    lambda: RobertaTwoTower(TINY),
-    lambda: RobertaBackbone(TINY),
-    lambda: TwoTowerInference(lambda b: b, lambda s, t: s),
-    lambda: Trainer(torch.nn.Linear(2, 2), TrainConfig()),
+    lambda tmp: RobertaOneTower(TINY),
+    lambda tmp: RobertaTwoTower(TINY),
+    lambda tmp: RobertaBackbone(TINY),
+    lambda tmp: TwoTowerInference(lambda b: b, lambda s, t: s),
+    lambda tmp: Trainer(torch.nn.Linear(2, 2), TrainConfig()),
+    lambda tmp: PKGMOneTower(PKGM_TINY),
+    lambda tmp: PKGMTwoTower(PKGM_TINY.replace(interaction_type="two_tower")),
+    lambda tmp: KGETrainer(make_kge_model("pkgm", 8, 3, 4), KnowledgeGraph(
+        [1, 2], [0, 1], [3, 4], 8, 3), batch_size=2, n_epochs=1),
+    lambda tmp: KGETrainer.load(_kge_npz(tmp)),
 ])
-def test_entry_points_default_to_cuda(build, monkeypatch):
+def test_entry_points_default_to_cuda(build, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        build()
+        build(tmp_path)
 
 
 def test_entry_points_run_on_cpu_when_asked():
