@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17:
+run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -139,6 +139,27 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17:
    phase 6 holds them; a PKGM-large train step timed and profiled, with the entity table's lookup
    backward and AdamW update timed alone; two train steps run twice from one
    state equal bit for bit (2 layers, the full entity table).
+18. multimodal: on the phase 16 corpus, with a synthetic
+   ``image_embedding.json`` of 3072 floats an item from --seed and the
+   vocab's ``[unused99]`` at row 99, at configs/roberta_image_large.json's
+   width in bf16 with random weights.  (a) ``prepare --with_image``: TSVs
+   of 9 columns whose image columns parse to the written vectors.  (b)
+   ``finetune-multimodal --model_name roberta_image_large --ensemble
+   begin`` one-tower (max_seq_len 50 + 205, S=510, batch 32, dropout 0.1)
+   trains 5 steps, evaluates and predicts: losses finite, the layout's
+   image tokens at position 1 and past it, probabilities on the kernels
+   within 2e-2 of plain attention and of the prediction file, then phase
+   8's timing of 3 steps and one profiled step.  (c) ``--ensemble end``
+   one-tower 1 step and eval (``dense_img`` 6144 -> 1024, no ``img2txt``);
+   the ``begin`` two-tower (S=255 a tower) 2 steps and eval.  (d) #2's
+   forward and #3's dq, dk and dv (dropout 0 and 0.1, and their keep
+   bits) against their plain versions at B=32, S=510 and 255 as phase 6
+   holds them.  (e) a text member (``finetune-text roberta_large``, 1
+   step, predict) and the multimodal member fused by ``ensemble
+   --ensemble_strategy threshold``: one row per test pair, each score the
+   sum of the members' prob - 0.5 and equal to ``ensemble_predictions``.
+   (f) ``model-soup`` of two epoch files of (b)'s command: every tensor
+   equal to (a + b) / 2 computed on the card.
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -148,7 +169,9 @@ serving: 24 launches of #4 per forward, no other kernel), phase 14 (long
 training: 24 launches each of #4, #5 and #6 per step, no other kernel),
 each command of phase 16, and phase 17's finetune commands (b-c: #1 in
 every eval and prediction batch, #2 and #3 24 calls a step a tower, none of
-#4-#6); the kernels line adds the #1-#3 launches of phases 16 and 17.  The
+#4-#6), and phase 18's commands (b, c, e, f: the same rule; its direct
+forwards, profiled steps and kernel checks are left out); the kernels line
+adds the #1-#3 launches of phases 16, 17 and 18.  The
 line before the last is one JSON object with the six kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -203,6 +226,7 @@ from item_alignment_torch.kge import evaluation as kev
 from item_alignment_torch.kge import sampling as ksamp
 from item_alignment_torch.models import encoder
 from item_alignment_torch.models.layers import take_rows
+from item_alignment_torch.models.multimodal import RobertaImageOneTower
 from item_alignment_torch.models.text import (
     PKGMOneTower,
     RobertaOneTower,
@@ -2148,10 +2172,9 @@ def _finetune_ms(log_dir: Path) -> tuple:
     return losses, 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1)
 
 
-def _pkgm_step_profile(model, trainer, batches, card) -> str:
-    """phase 8's timing of PKGM-large steps, with the entity table's share
-    measured alone at the same shapes: its lookup backward (80 ids into
-    258,211 rows) and its AdamW update."""
+def _step_profile(trainer, batches) -> tuple:
+    """phase 8's timing of train steps (the first one a warm-up) and one
+    more step under ``torch.profiler``: (ms/step, the profile's text)."""
     times = []
     for batch in batches:
         t0 = time.perf_counter()
@@ -2159,8 +2182,15 @@ def _pkgm_step_profile(model, trainer, batches, card) -> str:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     step_ms = 1e3 * sum(times[1:]) / (len(times) - 1)
-    profiled = profile_step(lambda: trainer.train_step(batches[-1]),
-                            step_ms)
+    return step_ms, profile_step(lambda: trainer.train_step(batches[-1]),
+                                 step_ms)
+
+
+def _pkgm_step_profile(model, trainer, batches, card) -> str:
+    """phase 8's timing of PKGM-large steps, with the entity table's share
+    measured alone at the same shapes: its lookup backward (80 ids into
+    258,211 rows) and its AdamW update."""
+    step_ms, profiled = _step_profile(trainer, batches)
     table = model.roberta.embeddings.ent_emb.weight
     ids = torch.as_tensor(batches[0]["input_ids"][:, [PKGM_LEN, 2 * PKGM_LEN
                                                       + PKGM_PVS + 1]],
@@ -2178,7 +2208,7 @@ def _pkgm_step_profile(model, trainer, batches, card) -> str:
     grad = {"e": torch.randn_like(leaf)}
     adam_ms = cuda_ms(lambda: adam.update(grad), 10)
     del leaf, g, adam, grad
-    return (f"{step_ms:.2f} ms/step over {len(times) - 1} timed steps "
+    return (f"{step_ms:.2f} ms/step over {len(batches) - 1} timed steps "
             f"({40 / step_ms * 1e3:.2f} train pairs/s); {profiled}; alone at "
             f"the same shapes: entity-table lookup backward "
             f"{lookup_ms:.3f} ms, its AdamW update {adam_ms:.3f} ms")
@@ -2394,6 +2424,321 @@ def _pkgm_repeat(mcfg: ModelConfig, seed: int, tcfg: TrainConfig,
             f"bit in all parameters")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the multimodal RobertaImage family and the aggregation
+# ---------------------------------------------------------------------------
+
+IMAGE_WIDTH = 3072  # configs/roberta_image_large.json's image_hidden_size
+MM_BATCH = 32       # scripts/train.sh's roberta_image_large batch
+MM_TOL = 2e-2       # bf16: kernels vs plain attention, probabilities
+
+
+def _multimodal_probs(cfg: ModelConfig, state: dict, ds) -> dict:
+    """The one-tower's probabilities on ``ds`` with ``state``, through the
+    kernels and through plain attention; returns them and the kernel
+    model."""
+    probs = {}
+    for name, flash in (("kernels", True), ("plain", False)):
+        model = RobertaImageOneTower(cfg.replace(use_flash_attention=flash),
+                                     seed=None).eval()
+        model.load_state_dict(state)
+        got = []
+        with torch.inference_mode():
+            for batch, meta in ds.batches(64):
+                feed = {k: torch.from_numpy(v).cuda() for k, v in
+                        batch.items() if k != "labels"}
+                feed = {k: v if v.is_floating_point() else v.long()
+                        for k, v in feed.items()}
+                got.append(model(**feed).probs.float().cpu().numpy()
+                           [: meta["n_valid"]])
+        probs[name] = np.concatenate(got)
+        if flash:
+            probs["model"] = model
+        else:
+            del model
+    return probs
+
+
+def phase_multimodal(seed: int, card: str) -> tuple:
+    """Phase 18: ``prepare --with_image``, RobertaImage-large
+    ``finetune-multimodal`` one-tower (``begin``, then ``end``) and
+    two-tower, #2's and #3's contracts at the multimodal training shapes,
+    ``ensemble`` of a text and a multimodal member and ``model-soup``, all
+    through ``cli.main`` at configs/roberta_image_large.json's width in bf16
+    with random weights.  Returns the launches of #1-#6 over the phase and
+    the worst errors of #2's and #3's contracts at B=32, S=510 and 255."""
+    from item_alignment_torch.aggregate.ensemble import (
+        ensemble_predictions,
+        read_prediction_file,
+    )
+    from item_alignment_torch.data.images import (
+        embedding_texts,
+        write_embedding_json,
+    )
+    from item_alignment_torch.data.prepare import read_tsv
+    from item_alignment_torch.data.tokenization import (
+        rows_to_image_one_tower_dataset,
+    )
+
+    with segmenter(), tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        files = write_smoke_corpus(root, seed)
+        tok = load_text_tokenizer(str(files["vocab"]))
+        check(tok.vocab.get("[unused99]") == 99,
+              "phase 18: [unused99] is not row 99 of the vocab")
+        # 18a: image_embedding.json of every item, then prepare --with_image
+        t0 = time.perf_counter()
+        ids = [json.loads(line)["item_id"] for line in
+               open(files["raw"] / "item_info.jsonl", encoding="utf-8")]
+        images = np.random.RandomState(seed).randn(
+            len(ids), IMAGE_WIDTH).astype(np.float32)
+        processed = root / "processed_image"
+        write_embedding_json(ids, embedding_texts(images),
+                             str(processed / "image_embedding.json"))
+        write_s = time.perf_counter() - t0
+        walls = {}
+        prep, walls["prepare --with_image"] = run_cli([
+            "prepare", "--data_dir", str(files["raw"]), "--output_dir",
+            str(processed), "--seed", str(seed), "--with_image"])
+        rows = {k: read_tsv(prep[-1][k]) for k in ("train", "valid", "test")}
+        check(all(len(r) == 9 for split in rows.values() for r in split),
+              "phase 18a: the --with_image TSVs do not have 9 columns")
+        column = np.asarray(rows["test"][0][4].split(","), np.float32)
+        check(np.array_equal(column, images[ids.index(rows["test"][0][1])]),
+              "phase 18a: a TSV image column differs from its vector")
+        for name, n in (("mm_step.tsv", MM_BATCH),
+                        ("mm_tt_train.tsv", 2 * MM_BATCH)):
+            (processed / name).write_text("".join(
+                "\t".join(r) + "\n" for r in rows["train"][:n]),
+                encoding="utf-8")
+        print(f"phase 18a prepare --with_image: {len(ids)} items x "
+              f"{IMAGE_WIDTH} floats written in {write_s:.3f} s, TSVs of 9 "
+              f"columns: {len(rows['train'])} train, {len(rows['valid'])} "
+              f"valid, {len(rows['test'])} test rows, command "
+              f"{walls['prepare --with_image']:.3f} s; {card}", flush=True)
+
+        raw_cfg = json.loads((ROOT / "configs" / "roberta_image_large.json"
+                              ).read_text())
+        cfg_json = root / "roberta_image_large_bf16.json"
+        cfg_json.write_text(json.dumps(dict(raw_cfg, dtype="bfloat16")))
+        out = root / "output"
+        mm = ["finetune-multimodal", "--data_dir", str(processed),
+              "--output_dir", str(out), "--vocab_path", str(files["vocab"]),
+              "--model_name", "roberta_image_large",
+              "--config_file", str(cfg_json), "--image_hidden_size",
+              str(IMAGE_WIDTH), "--max_seq_len", "50",
+              "--max_seq_len_pv", "205", "--train_batch_size",
+              str(MM_BATCH), "--eval_batch_size", "64", "--epochs", "1",
+              "--learning_rate", "5e-5", "--opt_state_dtype", "bfloat16",
+              "--bf16", "--log_steps", "1", "--total_steps", TOTAL_STEPS,
+              "--seed", str(seed)]
+        batches_v = -(-len(rows["valid"]) // 64)
+        batches_t = -(-len(rows["test"]) // 64)
+
+        # 18b: the one-tower, ensemble=begin, B=32, S=510
+        steps = len(rows["train"]) // MM_BATCH
+        zero_counters()  # the multimodal main path starts here
+        res, walls["one-tower begin"] = run_cli(mm + [
+            "--ensemble", "begin", "--do_train", "--do_eval", "--do_pred",
+            "--log_dir", str(root / "logs_b")])
+        one = counters()
+        expect = (LAYERS * (2 * batches_v + batches_t), LAYERS * steps,
+                  LAYERS * steps, 0, 0, 0)
+        check(one == expect, f"phase 18b: launches (#1..#6) {one}, "
+              f"expected {expect}")
+        losses, cli_ms = _finetune_ms(root / "logs_b")
+        check(len(losses) == steps and all(map(math.isfinite, losses)),
+              f"phase 18b: losses {losses} over {steps} steps")
+        pred_b = [o for o in res if "prediction_file" in o][-1]
+        check(pred_b["prediction_split"] == "test",
+              f"phase 18b: predicted on {pred_b['prediction_split']}")
+        run_b = Path(pred_b["prediction_file"]).parent
+        mcfg = ModelConfig.from_json(
+            str(cfg_json), vocab_size=len(tok), max_seq_len=50,
+            max_seq_len_pv=205, model_name="roberta_image_large",
+            ensemble="begin", image_hidden_size=IMAGE_WIDTH)
+        check(mcfg.num_hidden_layers == LAYERS and mcfg.hidden_size == 1024
+              and mcfg.pair_seq_len == 510, "phase 18: not RoBERTa-large")
+        test_ds = rows_to_image_one_tower_dataset(rows["test"], tok, 50, 205,
+                                                  IMAGE_WIDTH)
+        check(test_ds.arrays["input_ids"].shape[1] == 510
+              and (test_ds.arrays["input_ids"][:, 1] == 99).all()
+              and (test_ds.arrays["image_indices"] > 1).all(),
+              "phase 18b: the image tokens of the one-tower layout")
+        probs = _multimodal_probs(mcfg, load_params(str(run_b /
+                                                        "best_f1.pt")),
+                                  test_ds)
+        _, filed = _jsonl_probs(pred_b["prediction_file"])
+        diff = np.abs(probs["kernels"] - probs["plain"]).max()
+        diff_file = np.abs(probs["kernels"] - filed).max()
+        check(np.isfinite(probs["kernels"]).all() and diff <= MM_TOL
+              and diff_file <= MM_TOL, f"phase 18b: probs on the kernels vs "
+              f"plain attention {diff}, vs the prediction file {diff_file}")
+        tcfg = TrainConfig(seed=seed, train_batch_size=MM_BATCH,
+                           log_steps=10 ** 9, optimizer=OptimizerConfig(
+                               learning_rate=5e-5, total_steps=16000,
+                               fused=True, state_dtype="bfloat16"))
+        train_ds = rows_to_image_one_tower_dataset(rows["train"], tok, 50,
+                                                   205, IMAGE_WIDTH)
+        model = probs.pop("model").train()
+        trainer = Trainer(model, tcfg).setup()
+        step_ms, profiled = _step_profile(
+            trainer, [b for b, _ in train_ds.batches(MM_BATCH)][:4])
+        del model, trainer, probs
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 18b finetune-multimodal roberta_image_large one-tower "
+              f"begin: batch {MM_BATCH} S=510 bf16 dropout 0.1, image "
+              f"vectors of {IMAGE_WIDTH}, {steps} steps, losses "
+              f"{[round(x, 6) for x in losses]}, {cli_ms:.2f} ms/step "
+              f"through the CLI ({MM_BATCH / cli_ms * 1e3:.2f} train "
+              f"pairs/s), launches #1..#6 {one}, command "
+              f"{walls['one-tower begin']:.3f} s; {len(test_ds)} test pairs "
+              f"on the kernels vs plain attention max diff {diff:.3e}, vs "
+              f"the prediction file {diff_file:.3e} (limit {MM_TOL}); "
+              f"direct: {step_ms:.2f} ms/step over 3 timed steps, "
+              f"{profiled}; {card}", flush=True)
+
+        # 18c: the one-tower with ensemble=end, and the two-tower at S=255
+        zero_counters()  # 18b's direct forwards and profiled steps left out
+        before = counters()
+        _, walls["one-tower end"] = run_cli(mm + [
+            "--ensemble", "end", "--train_file", "mm_step.tsv", "--do_train",
+            "--do_eval", "--log_dir", str(root / "logs_e")])
+        mid = counters()
+        _, walls["two-tower"] = run_cli(mm + [
+            "--ensemble", "begin", "--interaction_type", "two_tower",
+            "--train_file", "mm_tt_train.tsv", "--do_train", "--do_eval",
+            "--log_dir", str(root / "logs_t")])
+        after = counters()
+        end = tuple(b - a for a, b in zip(before, mid))
+        two = tuple(b - a for a, b in zip(mid, after))
+        exp_end = (LAYERS * 2 * batches_v, LAYERS, LAYERS, 0, 0, 0)
+        exp_two = (2 * LAYERS * 2 * batches_v, 2 * LAYERS * 2,
+                   2 * LAYERS * 2, 0, 0, 0)
+        check(end == exp_end and two == exp_two,
+              f"phase 18c: launches (#1..#6) end {end} (expected "
+              f"{exp_end}), two-tower {two} (expected {exp_two})")
+        losses_e = [s["value"] for s in map(json.loads, open(
+            root / "logs_e" / "scalars.jsonl")) if s["tag"] == "train/loss"]
+        losses_t, ms_two = _finetune_ms(root / "logs_t")
+        state_e = load_params(str(out / "roberta_image_large-v1-one_tower-"
+                                  "cls-end-ce" / "best_f1.pt"))
+        check(len(losses_e) == 1 and len(losses_t) == 2
+              and all(map(math.isfinite, losses_e + losses_t))
+              and state_e["head.classifier.dense_img.weight"].shape
+              == (1024, 2 * IMAGE_WIDTH)
+              and "roberta.embeddings.img2txt.weight" not in state_e,
+              f"phase 18c: losses end {losses_e}, two-tower {losses_t}")
+        del state_e
+        print(f"phase 18c finetune-multimodal: one-tower end (the images at "
+              f"the head, dense_img {2 * IMAGE_WIDTH} -> 1024) 1 step at "
+              f"batch {MM_BATCH} S=510, loss {losses_e[0]:.6f}, launches "
+              f"#1..#6 {end}, command {walls['one-tower end']:.3f} s; "
+              f"two-tower begin 2 steps at batch {MM_BATCH} S=255 a tower, "
+              f"losses {[round(x, 6) for x in losses_t]}, {ms_two:.2f} "
+              f"ms/step through the CLI ({MM_BATCH / ms_two * 1e3:.2f} train "
+              f"pairs/s), launches #1..#6 {two}, command "
+              f"{walls['two-tower']:.3f} s; {card}", flush=True)
+
+        # 18d: #2's and #3's contracts at the multimodal training shapes
+        held = tuple(x + y + z for x, y, z in zip(one, end, two))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        errs = phase_train_kernels(gen, [
+            (f"bf16 S={S} B={MM_BATCH}", MM_BATCH, S, 16, 64, torch.bfloat16)
+            for S in (510, 255)],
+            SimpleNamespace(**dict(vars(TRAIN_FAMILY),
+                                   name="phase 18d train kernels")))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 18e: a text member on the same pairs, then ensemble
+        text = root / "processed_text"
+        run_cli(["prepare", "--data_dir", str(files["raw"]), "--output_dir",
+                 str(text), "--seed", str(seed)])
+        (text / "text_step.tsv").write_text("".join(open(
+            text / "finetune_train_train.tsv", encoding="utf-8"
+        ).readlines()[:MM_BATCH]), encoding="utf-8")
+        text_cfg = root / "roberta_large_bf16.json"
+        text_cfg.write_text(json.dumps(dict(json.loads(
+            (ROOT / "configs" / "roberta_large.json").read_text()),
+            dtype="bfloat16")))
+        zero_counters()
+        res, walls["finetune-text member"] = run_cli([
+            "finetune-text", "--data_dir", str(text), "--output_dir",
+            str(out), "--vocab_path", str(files["vocab"]),
+            "--model_name", "roberta_large", "--config_file", str(text_cfg),
+            "--max_seq_len", "50", "--max_seq_len_pv", "205",
+            "--train_batch_size", str(MM_BATCH), "--epochs", "1",
+            "--train_file", "text_step.tsv", "--bf16", "--total_steps",
+            TOTAL_STEPS, "--seed", str(seed), "--do_train", "--do_pred"])
+        pred_text = [o for o in res if "prediction_file" in o][-1]
+        members = [(Path(pred_text["prediction_file"]).parent.name, 0.5,
+                    0.8605), (run_b.name, 0.5, 0.8582)]
+        res, walls["ensemble"] = run_cli([
+            "ensemble", "--data_dir", str(root), "--ensemble_strategy",
+            "threshold", "--models", json.dumps(members)])
+        fused = read_prediction_file(res[-1]["output"])
+        member_rows = [read_prediction_file(str(out / m /
+                                                "deepAI_result_threshold="
+                                                "0.5.jsonl"))
+                       for m, _, _ in members]
+        pairs = {(r[1], r[5]) for r in rows["test"]}
+        check([len(m) for m in member_rows] == [len(rows["test"])] * 2
+              and len(fused) == len(pairs) and {(r["src_item_id"],
+                                                 r["tgt_item_id"])
+                                                for r in fused} == pairs,
+              f"phase 18e: {len(fused)} fused rows for {len(pairs)} pairs")
+        want = {}
+        for m_rows in member_rows:
+            for r in m_rows:
+                key = (r["src_item_id"], r["tgt_item_id"])
+                want[key] = want.get(key, 0.0) + (
+                    float(r["tgt_item_emb"].strip("[]").split(",")[0]) - 0.5)
+        same = ensemble_predictions([(m, 0.5, f1) for m, (_, _, f1) in
+                                     zip(member_rows, members)], "threshold")
+        check(fused == same and all(
+            float(r["tgt_item_emb"].strip("[]")) == want[
+                (r["src_item_id"], r["tgt_item_id"])] for r in fused),
+            "phase 18e: the fused probabilities differ from the members' "
+            "sums")
+
+        # 18f: model-soup of two epoch files of 18b's command
+        _, walls["one-tower begin, 1 step"] = run_cli(mm + [
+            "--ensemble", "begin", "--train_file", "mm_step.tsv",
+            "--data_version", "v2", "--do_train"])
+        epochs = [str(run_b / "multimodal_finetune_epoch-1.pt"),
+                  str(out / "roberta_image_large-v2-one_tower-cls-begin-ce" /
+                      "multimodal_finetune_epoch-1.pt")]
+        res, walls["model-soup"] = run_cli([
+            "model-soup", "--checkpoints", *epochs, "--output",
+            str(root / "soup.pt")])
+        text_launches = counters()
+        soup = load_params(str(root / "soup.pt"))
+        a, b = (load_params(p) for p in epochs)
+        worse = [k for k in a if not torch.equal(
+            soup[k].cuda(), (a[k].cuda() + b[k].cuda()) / 2.0)]
+        moved = not torch.equal(a["roberta.embeddings.img2txt.weight"],
+                                b["roberta.embeddings.img2txt.weight"])
+        check(soup.keys() == a.keys() and not worse and moved,
+              f"phase 18f: soup entries differing from (a + b) / 2: "
+              f"{worse[:4]} (img2txt moved: {moved})")
+        launches = tuple(h + t for h, t in zip(held, text_launches))
+        check(not any(launches[3:]), f"phase 18: launches (#1..#6) "
+              f"{launches}: #4-#6 counted")
+        print(f"phase 18e ensemble --ensemble_strategy threshold: the text "
+              f"member (finetune-text roberta_large, 1 step) and the "
+              f"multimodal member, {len(rows['test'])} test rows each, "
+              f"{len(fused)} fused rows, every fused score the sum of the "
+              f"members' prob - 0.5 and equal to ensemble_predictions; "
+              f"18f model-soup of two epoch files ({len(soup)} tensors) "
+              f"equal to (a + b) / 2 on the card; wall times " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in walls.items())
+              + f"; phase 18 launches #1..#6 {launches}; {card}",
+              flush=True)
+    return launches, errs
+
+
 def run(args) -> None:
     card = phase_card()
     phase_build()
@@ -2447,23 +2792,27 @@ def run(args) -> None:
     phase_sensitivity(cfg, long_cfg, args.seed, gen)
     entry = phase_entry_points(args.seed, card)  # the entry points' path
     pkgm, pkgm_err = phase_pkgm(args.seed, card)  # the PKGM family's path
+    mm, mm_err = phase_multimodal(args.seed, card)  # the multimodal path
 
     src, tpu = "item_alignment_torch/csrc/", "item_alignment_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         dict(name="fused_attention", source=src + "fused_attention.cu",
-             replaces=tpu + "63", launches=launches + entry[0] + pkgm[0],
+             replaces=tpu + "63",
+             launches=launches + entry[0] + pkgm[0] + mm[0],
              max_abs_err=max(kernel["max_abs_err"], pkgm_err["serving_err"]),
              **{k: kernel[k] for k in keys}),
         dict(name="fused_attention_dropout",
              source=src + "flash_blockwise_fwd.cu", replaces=tpu + "203",
-             launches=trained[1] + entry[1] + pkgm[1],
-             max_abs_err=max(train["fwd_err"], pkgm_err["fwd_err"]),
+             launches=trained[1] + entry[1] + pkgm[1] + mm[1],
+             max_abs_err=max(train["fwd_err"], pkgm_err["fwd_err"],
+                             mm_err["fwd_err"]),
              **train["fwd"]),
         dict(name="fused_attention_dropout_bwd",
              source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",
-             launches=trained[2] + entry[2] + pkgm[2],
-             max_abs_err=max(*train["bwd_err"], *pkgm_err["bwd_err"]),
+             launches=trained[2] + entry[2] + pkgm[2] + mm[2],
+             max_abs_err=max(*train["bwd_err"], *pkgm_err["bwd_err"],
+                             *mm_err["bwd_err"]),
              **train["bwd"]),
         dict(name="flash_blockwise_fwd", source=src + "flash_blockwise_fwd.cu",
              replaces=tpu + "458", launches=served_long + trained_long[3],

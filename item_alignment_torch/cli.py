@@ -4,21 +4,28 @@
 
 Port of ``item_alignment_tpu/cli.py`` for the main path:
 
-- ``prepare``        item_info / pair jsonl -> KG files and finetune TSVs
-  (text only);
+- ``prepare``        item_info / pair jsonl -> KG files and finetune TSVs;
+  with ``--with_image``, the 9-column TSVs from an existing
+  ``<output_dir>/image_embedding.json``;
 - ``finetune-text``  RoBERTa and PKGM, one-tower and two-tower: train,
   eval, predict (PKGM takes ``--entity2id``/``--relation2id`` and merges
   ``pkgm_model.bin`` beside ``pytorch_model.bin``);
+- ``finetune-multimodal``  RobertaImage one-tower and two-tower on the
+  9-column TSVs (``--ensemble begin|end|sum``): train, eval, predict;
 - ``mine``           encode each item once, score a candidate-pair list
   against the cache (``--quant int8``, ``--cache_quant int8``);
 - ``pred-text``      the pooled entity-feature matrix for the GCN;
 - ``pkgm-pretrain``  KGE pretraining on the KG files (``kge/``), writing
-  ``kge_final.npz``.
+  ``kge_final.npz``;
+- ``ensemble``       fuse the members' prediction files (threshold or f1
+  strategy, optional category split) into ``deepAI_result.jsonl``;
+- ``model-soup``     average ``.pt`` parameter files (``aggregate/soup.py``).
 
 Flags are the JAX CLI's, so the same command lines run, with one more:
 ``--device {cuda,cpu}`` (default ``cuda``; without a GPU the default
 raises).  The port writes and reads its own parameter files, ``.pt``
-state dicts (``best_f1.pt``, ``text_finetune_epoch-N.pt``); a ``.msgpack``
+state dicts (``best_f1.pt``, ``text_finetune_epoch-N.pt``,
+``multimodal_finetune_epoch-N.pt``); a ``.msgpack``
 file raises, pointing at ROADMAP Queue 1 #14.  ``--scan_steps`` and
 ``pred-text --scan_chunks/--xfer_guard`` steer XLA's dispatch and do nothing
 here.  The other commands and the model families not yet ported raise with
@@ -49,7 +56,8 @@ from item_alignment_torch.utils.retry import retry_transient
 
 MSGPACK_ITEM = "ROADMAP Queue 1 #14: Reading Flax msgpack files"
 PARALLEL_ITEM = "ROADMAP Queue 1 #4: Parallelism"
-IMAGE_ITEM = "ROADMAP Queue 1 #6: The multimodal RobertaImage one/two-tower"
+IMAGE_ITEM = "ROADMAP Queue 1 #9: The image towers"
+COCA_ITEM = "ROADMAP Queue 1 #11: CoCa"
 INERT = "accepted for the JAX CLI's command lines; no effect in the port"
 
 
@@ -247,11 +255,9 @@ def _dump_hyperparameters(args, out_dir: str) -> None:
             w.write(f"{k}={v}\n")
 
 
-def _load_param_file(path: str):
-    """A ``.pt`` state dict written by ``engine/checkpoint.py:save_params``;
-    a missing file or a Flax msgpack file raises."""
-    from item_alignment_torch.engine.checkpoint import load_params
-
+def _check_param_file(path: str) -> None:
+    """A missing file or a Flax msgpack file raises: the port reads the
+    ``.pt`` state dicts that ``engine/checkpoint.py:save_params`` writes."""
     if path.endswith(".msgpack"):
         raise ValueError(
             f"{path}: the port reads .pt parameter files; Flax msgpack files "
@@ -261,14 +267,22 @@ def _load_param_file(path: str):
             "save_params")
     if not os.path.exists(path):
         # predicting with random weights would hand garbage scores on
-        raise FileNotFoundError(f"--file_state_dict {path} does not exist")
+        raise FileNotFoundError(f"parameter file {path} does not exist")
+
+
+def _load_param_file(path: str):
+    from item_alignment_torch.engine.checkpoint import load_params
+
+    _check_param_file(path)
     return load_params(path)
 
 
 # ------------------------------------------------------------- commands
 def cmd_prepare(argv: List[str]) -> int:
-    """Offline preprocessing, text only: the KG files, ``cate2id.json`` and
-    the finetune TSVs (``data/prepare.py:prepare_all``)."""
+    """Offline preprocessing: the KG files, ``cate2id.json`` and the
+    finetune TSVs (``data/prepare.py:prepare_all``); with ``--with_image``,
+    the 9-column TSVs carry the vectors of ``<output_dir>/
+    image_embedding.json``."""
     p = argparse.ArgumentParser(prog="ia-torch prepare")
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", required=True)
@@ -277,22 +291,44 @@ def cmd_prepare(argv: List[str]) -> int:
     p.add_argument("--num_neg", type=int, default=5)
     p.add_argument("--prev_valid", default=None)
     p.add_argument("--seed", type=int, default=0)
-    for flag in ("--with_image", "--only_image", "--object_detection"):
+    p.add_argument("--with_image", action="store_true",
+                   help="thread <output_dir>/image_embedding.json into the "
+                        "finetune TSVs")
+    for flag in ("--only_image", "--object_detection"):
         p.add_argument(flag, action="store_true",
                        help=f"image pipeline; not ported ({IMAGE_ITEM})")
+    # the image-embedding dump's flags, accepted for the JAX CLI's command
+    # lines (scripts/train.sh passes them with --with_image)
+    for flag in ("--image_size", "--batch_size", "--cv_model_name",
+                 "--pretrained_model_path", "--file_state_dict",
+                 "--images_dir"):
+        p.add_argument(flag, default=None, help=INERT)
+    p.add_argument("--finetuned", action="store_true", help=INERT)
     args, _ = p.parse_known_args(argv)
-    if args.with_image or args.only_image or args.object_detection:
+    if args.only_image or args.object_detection:
         raise NotImplementedError(
             f"prepare's image pipeline is not ported yet ({IMAGE_ITEM})")
-    p.parse_args(argv)  # the image pipeline's flags are the only extras
+    p.parse_args(argv)  # that pipeline's own flags are the only extras
 
+    from item_alignment_torch.data.images import load_embedding_json
     from item_alignment_torch.data.prepare import prepare_all
 
+    img_emb = None
+    if args.with_image:
+        path = os.path.join(args.output_dir, "image_embedding.json")
+        if not os.path.isfile(path):
+            raise NotImplementedError(
+                f"prepare --with_image found no {path}; dumping image "
+                f"embeddings through an image tower is not ported yet "
+                f"({IMAGE_ITEM})")
+        img_emb = load_embedding_json(path)
+        logger.info(f"loaded image embeddings for {len(img_emb)} items")
     files = prepare_all(args.data_dir, args.output_dir,
                         valid_proportion=args.valid_proportion,
                         seed=args.seed,
                         num_train_augment=args.num_train_augment,
-                        num_neg=args.num_neg, prev_valid=args.prev_valid)
+                        num_neg=args.num_neg, prev_valid=args.prev_valid,
+                        img_emb=img_emb)
     print(json.dumps(files))
     return 0
 
@@ -328,14 +364,11 @@ def cmd_finetune_text(argv: List[str]) -> int:
         rows_to_pkgm_two_tower_dataset,
         rows_to_two_tower_dataset,
     )
-    from item_alignment_torch.engine.checkpoint import save_params
-    from item_alignment_torch.engine.observability import profile_trace
-    from item_alignment_torch.engine.train import Trainer
     from item_alignment_torch.models import build_model
 
     device = resolve_device(args.device)
     tok = load_text_tokenizer(args.vocab_path)
-    pkgm = "pkgm" in args.model_name
+    pkgm ="pkgm" in args.model_name
     extra = {}
     if pkgm:
         if not (args.entity2id and args.relation2id):
@@ -347,8 +380,6 @@ def cmd_finetune_text(argv: List[str]) -> int:
                      max_seq_len_pv=None)
     cfg = _model_config(args, vocab_size=len(tok), **extra)
     model = build_model(cfg, device=device, seed=args.seed)
-    train_rows = _load_tsv_rows(args, args.train_file)
-    valid_rows = _load_tsv_rows(args, args.valid_file)
 
     def build_ds(rows):
         if rows is None:
@@ -369,8 +400,23 @@ def cmd_finetune_text(argv: List[str]) -> int:
                                          cfg.auxiliary_task,
                                          cfg.max_pair_indices)
 
-    train_ds = build_ds(train_rows)
-    valid_ds = build_ds(valid_rows)
+    return _finetune(args, model, cfg, device, build_ds,
+                     lambda split: _load_tsv_rows(args, split))
+
+
+def _finetune(args, model, cfg, device, build_ds, read_rows,
+              kind: str = "text", pred_with_best: bool = True) -> int:
+    """The finetune commands' flow: train (from ``--pretrained_model_path``
+    when given) and save ``best_f1.pt`` and ``<kind>_finetune_epoch-N.pt``;
+    evaluate on the validation split; predict on the test split when its
+    TSV exists, else on the validation split.  Without ``--do_train`` the
+    weights come from ``--file_state_dict``."""
+    from item_alignment_torch.engine.checkpoint import save_params
+    from item_alignment_torch.engine.observability import profile_trace
+    from item_alignment_torch.engine.train import Trainer
+
+    train_ds = build_ds(read_rows(args.train_file))
+    valid_ds = build_ds(read_rows(args.valid_file))
     out_dir = os.path.join(args.output_dir, run_dir_name(args))
     _dump_hyperparameters(args, out_dir)
 
@@ -383,7 +429,7 @@ def cmd_finetune_text(argv: List[str]) -> int:
             _load_pretrained(model, cfg, args)
         with profile_trace(args.profile_dir):
             result = trainer.fit(train_ds, valid_ds)
-        _save_epoch_params(trainer, out_dir, args.epochs)
+        _save_epoch_params(trainer, out_dir, args.epochs, kind)
         best = trainer.best_params if trainer.best_params is not None \
             else trainer._host_params()
         save_params(os.path.join(out_dir, "best_f1.pt"), best)
@@ -400,12 +446,13 @@ def cmd_finetune_text(argv: List[str]) -> int:
     if args.do_pred:
         # the reference's submission flow: predict on the test pairs when
         # the prepared test TSV exists, otherwise on the validation split
-        test_rows = _load_tsv_rows(args, args.test_file)
+        test_rows = read_rows(args.test_file)
         pred_ds = build_ds(test_rows) if test_rows else valid_ds
         if pred_ds is not None and len(pred_ds) > 0:
             if not ready:
                 _maybe_restore(trainer, args)
-            if args.pred_with_best and trainer.best_params is not None:
+            if (pred_with_best and args.pred_with_best
+                    and trainer.best_params is not None):
                 model.load_state_dict(trainer.best_params)
             path = os.path.join(
                 out_dir, f"deepAI_result_threshold={args.threshold}.jsonl")
@@ -414,6 +461,66 @@ def cmd_finetune_text(argv: List[str]) -> int:
                               "prediction_split": "test" if test_rows
                               else "valid"}))
     return 0
+
+
+def cmd_finetune_multimodal(argv: List[str]) -> int:
+    """RobertaImage one-tower or two-tower on the 9-column TSVs that
+    ``prepare --with_image`` writes (the reference's
+    finetune_multimodal.py)."""
+    p = argparse.ArgumentParser(prog="ia-torch finetune-multimodal")
+    _common_train_flags(p)
+    p.add_argument("--vocab_path", required=True,
+                   help="dir containing vocab.txt")
+    p.add_argument("--train_file", default="finetune_train_train.tsv")
+    p.add_argument("--valid_file", default="finetune_train_valid.tsv")
+    p.add_argument("--test_file", default="finetune_test.tsv",
+                   help="--do_pred predicts on this when present, else on "
+                        "--valid_file")
+    p.add_argument("--image_hidden_size", type=int, default=3072)
+    p.add_argument("--ensemble", default="begin",
+                   choices=["begin", "end", "sum", "cross_attn"])
+    p.add_argument("--images_dir", default=None,
+                   help=f"item images for coca models ({COCA_ITEM})")
+    p.add_argument("--image_size", type=int, default=224)
+    args = p.parse_args(argv)
+    if "coca" in args.model_name:
+        raise NotImplementedError(
+            f"finetune-multimodal --model_name {args.model_name}: CoCa is "
+            f"not ported yet ({COCA_ITEM})")
+    if "roberta_image" not in args.model_name:
+        raise ValueError(f"finetune-multimodal trains roberta_image* models, "
+                         f"not {args.model_name!r}")
+
+    from item_alignment_torch.data.prepare import read_tsv
+    from item_alignment_torch.data.tokenization import (
+        load_text_tokenizer,
+        rows_to_image_one_tower_dataset,
+        rows_to_image_two_tower_dataset,
+    )
+    from item_alignment_torch.models import build_model
+
+    device = resolve_device(args.device)
+    tok = load_text_tokenizer(args.vocab_path)
+    cfg = _model_config(args, vocab_size=len(tok), ensemble=args.ensemble,
+                        image_hidden_size=args.image_hidden_size,
+                        image_size=args.image_size)
+    model = build_model(cfg, device=device, seed=args.seed)
+    layout = (rows_to_image_two_tower_dataset
+              if args.interaction_type == "two_tower"
+              else rows_to_image_one_tower_dataset)
+
+    def read_rows(split):
+        path = os.path.join(args.data_dir, split)
+        return read_tsv(path) if os.path.exists(path) else None
+
+    def build_ds(rows):
+        if rows is None:
+            return None
+        return layout(rows, tok, cfg.max_seq_len, cfg.max_seq_len_pv,
+                      args.image_hidden_size, ensemble=cfg.ensemble)
+
+    return _finetune(args, model, cfg, device, build_ds, read_rows,
+                     kind="multimodal", pred_with_best=False)
 
 
 def _load_pretrained(model, cfg, args) -> None:
@@ -792,6 +899,95 @@ def cmd_pkgm_pretrain(argv: List[str]) -> int:
     return 0
 
 
+def cmd_ensemble(argv: List[str]) -> int:
+    """Fuse the members' prediction files (``aggregate/ensemble.py``)
+    into ``<data_dir>/output/ensemble/deepAI_result.jsonl``."""
+    p = argparse.ArgumentParser(prog="ia-torch ensemble")
+    p.add_argument("--data_dir", required=True)
+    p.add_argument("--ensemble_strategy", required=True,
+                   choices=["threshold", "f1"])
+    p.add_argument("--models", required=True,
+                   help="JSON list of [model_dir, threshold, f1] triples")
+    p.add_argument("--models_unseen", default=None,
+                   help="JSON triples for unseen-category pairs")
+    p.add_argument("--item_info", default=None,
+                   help="item_info.jsonl for the category split")
+    p.add_argument("--input_file", default="deepAI_result_threshold=0.4.jsonl")
+    p.add_argument("--output_dir", default=None)
+    args = p.parse_args(argv)
+
+    from item_alignment_torch.aggregate.ensemble import (
+        ensemble_predictions,
+        make_unseen_checker,
+        read_prediction_file,
+        write_prediction_file,
+    )
+
+    def load(spec_json):
+        out = []
+        for model_dir, thr, f1 in json.loads(spec_json):
+            base = os.path.join(args.data_dir, "output", model_dir)
+            path = os.path.join(base, args.input_file)
+            if not os.path.exists(path):
+                # a member predicted at another --threshold wrote another
+                # file name; only the one of this member's own threshold is
+                # taken (any other could be a stale prediction)
+                cand = os.path.join(
+                    base, f"deepAI_result_threshold={float(thr)}.jsonl")
+                if not os.path.exists(cand):
+                    raise FileNotFoundError(
+                        f"neither {path} nor {cand} exists in {base}")
+                path = cand
+            out.append((read_prediction_file(path), float(thr), float(f1)))
+        return out
+
+    preds = load(args.models)
+    unseen_preds = load(args.models_unseen) if args.models_unseen else None
+    checker = None
+    if unseen_preds is not None:
+        if not args.item_info:
+            raise ValueError("--models_unseen needs --item_info for the "
+                             "category split")
+        id_dict = {}
+        with open(args.item_info, encoding="utf-8") as r:
+            for line in r:
+                d = json.loads(line)
+                id_dict[d["item_id"]] = d
+        checker = make_unseen_checker(id_dict)
+    fused = ensemble_predictions(preds, args.ensemble_strategy,
+                                 unseen_preds, checker)
+    out_dir = args.output_dir or os.path.join(args.data_dir, "output",
+                                              "ensemble")
+    path = write_prediction_file(fused, os.path.join(out_dir,
+                                                     "deepAI_result.jsonl"))
+    print(json.dumps({"output": path, "pairs": len(fused)}))
+    return 0
+
+
+def cmd_model_soup(argv: List[str]) -> int:
+    """The uniform soup of ``.pt`` parameter files, averaged on
+    ``--device`` and written as a ``.pt`` file."""
+    p = argparse.ArgumentParser(prog="ia-torch model-soup")
+    p.add_argument("--checkpoints", required=True, nargs="+",
+                   help=".pt parameter files to average")
+    p.add_argument("--output", required=True)
+    _device_flag(p)
+    args = p.parse_args(argv)
+
+    from item_alignment_torch.aggregate.soup import (
+        load_state_dicts,
+        uniform_soup,
+    )
+    from item_alignment_torch.engine.checkpoint import save_params
+
+    for path in args.checkpoints:
+        _check_param_file(path)
+    soup = uniform_soup(load_state_dicts(args.checkpoints, args.device))
+    save_params(args.output, {k: v.cpu() for k, v in soup.items()})
+    print(json.dumps({"output": args.output, "n": len(args.checkpoints)}))
+    return 0
+
+
 def _not_ported(name: str, item: str):
     def cmd(argv: List[str]) -> int:
         raise NotImplementedError(f"ia-torch {name} is not ported yet ({item})")
@@ -805,7 +1001,7 @@ COMMANDS = {
     "build-graph": _not_ported("build-graph", REST_OF_CLI),
     "finetune-text": cmd_finetune_text,
     "finetune-image": _not_ported("finetune-image", REST_OF_CLI),
-    "finetune-multimodal": _not_ported("finetune-multimodal", REST_OF_CLI),
+    "finetune-multimodal": cmd_finetune_multimodal,
     "finetune-graph": _not_ported("finetune-graph", REST_OF_CLI),
     "finetune-bert": _not_ported("finetune-bert",
                                  "ROADMAP Queue 1 #7: The legacy BERT model"),
@@ -815,8 +1011,8 @@ COMMANDS = {
     "pred-text": cmd_pred_text,
     "pred-bert": _not_ported("pred-bert", REST_OF_CLI),
     "mine": cmd_mine,
-    "model-soup": _not_ported("model-soup", REST_OF_CLI),
-    "ensemble": _not_ported("ensemble", REST_OF_CLI),
+    "model-soup": cmd_model_soup,
+    "ensemble": cmd_ensemble,
 }
 
 

@@ -5,8 +5,9 @@ port's state dicts.
 numpy arrays (as ``jax.tree_util.tree_map(np.asarray, variables)`` gives, or
 as a msgpack checkpoint restores) and returns the ``state_dict`` of the
 matching port model (``RobertaBackbone``, ``RobertaOneTower``,
-``RobertaTwoTower``, ``PKGMBackbone``, ``PKGMOneTower`` or
-``PKGMTwoTower``).  The port's module names follow the Flax tree, so the
+``RobertaTwoTower``, ``PKGMBackbone``, ``PKGMOneTower``, ``PKGMTwoTower``
+or the ``RobertaImage*`` models, whose ``img2txt`` and ``dense_img`` are
+Dense kernels).  The port's module names follow the Flax tree, so the
 mapping is the tree path joined with dots, plus three leaf renames:
 
 - Dense ``kernel [in, out]`` -> ``weight [out, in]``

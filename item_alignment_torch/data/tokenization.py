@@ -18,9 +18,16 @@ another segmentation gives other WordPiece ids (``商品`` -> ``商 ##品``).
 - PKGM: per item the text ids, then the entity id and the relation ids
   (the id space), with masks and token types over the embedded length
   ``max_seq_len + 2 * max_pvs`` and explicit positions (data.py:277-516).
+- RobertaImage: 9-column rows with the image-embedding text of each item;
+  with ``ensemble == "begin"`` each text gets an ``[unused99] [SEP]``
+  prefix, and the one-tower records the tgt image token's position per
+  pair (data.py:623-753).
 
-The image, multimodal and pv-pair layouts come with their model family
-(ROADMAP Queue 1 #6).
+The image token is ``[unused99]``, id 99, as the JAX package hard-codes it.
+The tokenizer does not treat it as special: it comes out as id 99 only when
+the vocab has ``[unused99]`` at row 99 (BERT-Chinese vocabs do).  With any
+other vocab no position holds id 99, ``image_indices`` falls back to 1 and
+both images land on position 1, in the port as in JAX.
 """
 
 from __future__ import annotations
@@ -36,8 +43,23 @@ from item_alignment_torch.data.datasets import ArrayDataset
 from item_alignment_torch.data.wordpiece import WordPieceTokenizer
 from item_alignment_torch.utils import BOS_TOKEN
 
+IMG_TOKEN = "[unused99]"
+IMG_TOKEN_ID = 99
 COLON_ID = 131
 SEMICOLON_ID = 132
+
+
+def _parse_embedding_column(s, image_hidden_size: int) -> np.ndarray:
+    """Comma-joined float text (one TSV image-embedding column,
+    data.py:650-656) -> fixed ``[image_hidden_size]`` fp32: cut to that
+    width or zero-padded; empty text gives zeros."""
+    out = np.zeros(image_hidden_size, np.float32)
+    if s:
+        parts = [p for p in s.split(",") if p.strip()]
+        if parts:
+            vals = np.asarray(parts[:image_hidden_size], dtype=np.float32)
+            out[: len(vals)] = vals
+    return out
 
 
 def load_text_tokenizer(path: str) -> WordPieceTokenizer:
@@ -227,6 +249,119 @@ def rows_to_two_tower_dataset(
         meta["src_item_id"].append(src_item_id)
         meta["tgt_item_id"].append(tgt_item_id)
     arrays = {k: np.asarray(v, dtype=np.int32) for k, v in feats.items()}
+    return ArrayDataset(arrays, meta)
+
+
+# ------------------------------------------------------------ image splice
+def _image_item_text(title: str, pvs: str, max_seq_len, max_seq_len_pv, tok):
+    """The reference's text gating (data.py:637-648, 697-708): the pvs
+    alone when ``max_seq_len`` is None, the title alone when
+    ``max_seq_len_pv`` is None, else ``title [SEP] jieba(pvs)``.  Returns
+    (text, max_length)."""
+    if max_seq_len is None:
+        return pvs, max_seq_len_pv
+    if max_seq_len_pv is None:
+        return title, max_seq_len
+    return (build_item_text(title, pvs, tok.sep_token),
+            max_seq_len + max_seq_len_pv)
+
+
+def encode_image_one_tower(tok, src_text: str, tgt_text: str, max_length: int,
+                           ensemble: str = "begin") -> Dict[str, list]:
+    """The RobertaImage one-tower layout (data.py:650-677).  With
+    ``ensemble == "begin"``: ``[CLS] [IMG] [SEP] src [SEP] [IMG] [SEP] tgt
+    [SEP]`` and the position of the second id 99 as ``image_indices`` (1
+    when there is none); otherwise the plain pair and ``image_indices`` 0."""
+    if ensemble == "begin":
+        src_text = " ".join((IMG_TOKEN, tok.sep_token, src_text))
+        tgt_text = " ".join((IMG_TOKEN, tok.sep_token, tgt_text))
+    enc = tok(text=src_text, text_pair=tgt_text, max_length=2 * max_length,
+              padding="max_length", truncation="longest_first")
+    ids = enc["input_ids"]
+    image_index = 0
+    if ensemble == "begin":
+        img_positions = [i for i, t in enumerate(ids) if t == IMG_TOKEN_ID]
+        image_index = img_positions[1] if len(img_positions) > 1 else 1
+    return {"input_ids": ids, "token_type_ids": enc["token_type_ids"],
+            "attention_mask": enc["attention_mask"],
+            "image_indices": image_index}
+
+
+def rows_to_image_one_tower_dataset(
+    rows: Sequence, tok, max_seq_len: Optional[int],
+    max_seq_len_pv: Optional[int], image_hidden_size: int = 3072,
+    ensemble: str = "begin",
+) -> ArrayDataset:
+    """9-column TSV rows (label, src_id, src_title, src_pvs, src_img_emb,
+    tgt_id, tgt_title, tgt_pvs, tgt_img_emb) -> RobertaImage one-tower
+    arrays: int32 ids, token types, masks, ``image_indices`` and labels,
+    fp32 ``src_image_embeds``/``tgt_image_embeds`` (data.py:623-680)."""
+    feats: Dict[str, list] = {"input_ids": [], "token_type_ids": [],
+                              "attention_mask": [], "image_indices": [],
+                              "labels": []}
+    img_feats = {"src_image_embeds": [], "tgt_image_embeds": []}
+    meta = {"src_item_id": [], "tgt_item_id": []}
+    for row in rows:
+        (label, src_item_id, src_title, src_pvs, src_emb,
+         tgt_item_id, tgt_title, tgt_pvs, tgt_emb) = row
+        src_text, max_length = _image_item_text(
+            src_title, src_pvs, max_seq_len, max_seq_len_pv, tok)
+        tgt_text, _ = _image_item_text(
+            tgt_title, tgt_pvs, max_seq_len, max_seq_len_pv, tok)
+        enc = encode_image_one_tower(tok, src_text, tgt_text, max_length,
+                                     ensemble)
+        for k in ("input_ids", "token_type_ids", "attention_mask",
+                  "image_indices"):
+            feats[k].append(enc[k])
+        feats["labels"].append(int(label))
+        img_feats["src_image_embeds"].append(
+            _parse_embedding_column(src_emb, image_hidden_size))
+        img_feats["tgt_image_embeds"].append(
+            _parse_embedding_column(tgt_emb, image_hidden_size))
+        meta["src_item_id"].append(src_item_id)
+        meta["tgt_item_id"].append(tgt_item_id)
+    arrays = {k: np.asarray(v, np.int32) for k, v in feats.items()}
+    arrays.update({k: np.stack(v) for k, v in img_feats.items()})
+    return ArrayDataset(arrays, meta)
+
+
+def rows_to_image_two_tower_dataset(
+    rows: Sequence, tok, max_seq_len: Optional[int],
+    max_seq_len_pv: Optional[int], image_hidden_size: int = 3072,
+    ensemble: str = "begin",
+) -> ArrayDataset:
+    """9-column TSV rows -> RobertaImage two-tower arrays, each item
+    encoded on its own (data.py:682-753): with ``ensemble == "begin"`` as
+    ``[CLS] [IMG] [SEP] title [SEP] pvs``, the image token at position 1
+    where the splice puts the image, plain text otherwise."""
+    feats: Dict[str, list] = {f"{k}_{i}": [] for k in
+                              ("input_ids", "attention_mask",
+                               "token_type_ids")
+                              for i in (1, 2)}
+    feats["labels"] = []
+    img_feats = {"image_embeds_1": [], "image_embeds_2": []}
+    meta = {"src_item_id": [], "tgt_item_id": []}
+    for row in rows:
+        (label, src_item_id, src_title, src_pvs, src_emb,
+         tgt_item_id, tgt_title, tgt_pvs, tgt_emb) = row
+        for i, (title, pvs, emb) in enumerate(
+                ((src_title, src_pvs, src_emb),
+                 (tgt_title, tgt_pvs, tgt_emb)), start=1):
+            text, max_length = _image_item_text(
+                title, pvs, max_seq_len, max_seq_len_pv, tok)
+            if ensemble == "begin":
+                text = " ".join((IMG_TOKEN, tok.sep_token, text))
+            enc = encode_two_tower_item(tok, text, max_length)
+            feats[f"input_ids_{i}"].append(enc["input_ids"])
+            feats[f"attention_mask_{i}"].append(enc["attention_mask"])
+            feats[f"token_type_ids_{i}"].append(enc["token_type_ids"])
+            img_feats[f"image_embeds_{i}"].append(
+                _parse_embedding_column(emb, image_hidden_size))
+        feats["labels"].append(int(label))
+        meta["src_item_id"].append(src_item_id)
+        meta["tgt_item_id"].append(tgt_item_id)
+    arrays = {k: np.asarray(v, np.int32) for k, v in feats.items()}
+    arrays.update({k: np.stack(v) for k, v in img_feats.items()})
     return ArrayDataset(arrays, meta)
 
 

@@ -1,5 +1,11 @@
-"""Model families ported so far: the RoBERTa and PKGM text models."""
+"""Model families ported so far: the RoBERTa and PKGM text models and the
+multimodal RobertaImage one-/two-tower."""
 
+from item_alignment_torch.models.multimodal import (  # noqa: F401
+    RobertaImageBackbone,
+    RobertaImageOneTower,
+    RobertaImageTwoTower,
+)
 from item_alignment_torch.models.outputs import PairClassifierOutput  # noqa: F401
 from item_alignment_torch.models.text import (  # noqa: F401
     PKGMBackbone,
@@ -14,8 +20,6 @@ from item_alignment_torch.models.text import (  # noqa: F401
 # dispatch order (item_alignment_tpu/models/__init__.py:build_model)
 NOT_PORTED = (
     ("textcnn", "ROADMAP Queue 1 #8: TextCNN"),
-    ("roberta_image", "ROADMAP Queue 1 #6: The multimodal RobertaImage "
-                      "one/two-tower"),
     ("coca", "ROADMAP Queue 1 #11: CoCa"),
     ("vit", "ROADMAP Queue 1 #9: The image towers"),
     ("resnet", "ROADMAP Queue 1 #9: The image towers"),
@@ -32,6 +36,9 @@ def build_model(config, device=None, seed=0):
     one_tower = config.interaction_type == "one_tower"
     if "pkgm" in name:
         cls = PKGMOneTower if one_tower else PKGMTwoTower
+        return cls(config, device=device, seed=seed)
+    if "roberta_image" in name:
+        cls = RobertaImageOneTower if one_tower else RobertaImageTwoTower
         return cls(config, device=device, seed=seed)
     for key, item in NOT_PORTED:
         if key in name:

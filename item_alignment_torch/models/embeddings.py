@@ -1,9 +1,10 @@
-"""RoBERTa and PKGM embeddings.
+"""RoBERTa, PKGM and image-splice embeddings.
 
 Port of ``item_alignment_tpu/models/embeddings.py``: ``create_position_ids``,
-``EmbedPostprocess``, ``RobertaEmbeddings`` (with the ``cate_ids`` hook) and
-``PKGMEmbeddings``.  The embedding LayerNorm has no compute dtype, so it runs
-and returns fp32, and so do PKGM's knowledge-graph queries.
+``EmbedPostprocess``, ``RobertaEmbeddings`` (with the ``cate_ids`` hook),
+``PKGMEmbeddings`` and ``ImageSpliceEmbeddings``.  The embedding LayerNorm
+has no compute dtype, so it runs and returns fp32, and so do PKGM's
+knowledge-graph queries and the image projection ``img2txt``.
 
 PKGM's two lengths: per item the ids hold ``max_seq_len`` text ids, one
 entity id and ``max_pvs`` relation ids (the id space), while the embedded
@@ -20,7 +21,7 @@ the CPU and a device-side assert on the card.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,6 +40,21 @@ def create_position_ids(input_ids: torch.Tensor, padding_idx: int
     """RoBERTa pad-aware position ids: cumsum(mask) * mask + pad id."""
     mask = (input_ids != padding_idx).long()
     return torch.cumsum(mask, dim=1) * mask + padding_idx
+
+
+def _checked_position_ids(ids: torch.Tensor, config: ModelConfig
+                          ) -> torch.Tensor:
+    """``create_position_ids`` of ``ids`` (token ids, or an attention mask),
+    refused where the last id would lie past the position table."""
+    last = ids.shape[1] + config.pad_token_id
+    if last >= config.max_position_embeddings:
+        raise ValueError(
+            f"a sequence of {ids.shape[1]} tokens needs position ids up to "
+            f"{last} (S + pad_token_id), but the position table has "
+            f"max_position_embeddings={config.max_position_embeddings} "
+            f"rows; grow the table (utils/hf_import.py copies the "
+            f"pretrained rows)")
+    return create_position_ids(ids, config.pad_token_id)
 
 
 class EmbedPostprocess(nn.Module):
@@ -86,15 +102,7 @@ class RobertaEmbeddings(nn.Module):
     ) -> torch.Tensor:
         cfg = self.config
         if position_ids is None:
-            last = input_ids.shape[1] + cfg.pad_token_id
-            if last >= cfg.max_position_embeddings:
-                raise ValueError(
-                    f"a sequence of {input_ids.shape[1]} tokens needs position "
-                    f"ids up to {last} (S + pad_token_id), but the position "
-                    f"table has max_position_embeddings="
-                    f"{cfg.max_position_embeddings} rows; grow the table "
-                    f"(utils/hf_import.py copies the pretrained rows)")
-            position_ids = create_position_ids(input_ids, cfg.pad_token_id)
+            position_ids = _checked_position_ids(input_ids, cfg)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         embeds = embedding_lookup(self.word_embeddings, input_ids)
@@ -182,4 +190,58 @@ class PKGMEmbeddings(nn.Module):
             token_type_ids = torch.zeros((B, S), dtype=torch.long,
                                          device=embeds.device)
         return self.post(embeds, token_type_ids, position_ids, deterministic,
+                         dropout_seed)
+
+
+class ImageSpliceEmbeddings(nn.Module):
+    """RoBERTa embeddings with projected image embeddings spliced over the
+    ``[unused99]`` image-token positions (``ensemble == "begin"``).
+
+    The src image, projected by ``img2txt``, overwrites position 1; in the
+    one-tower, the projected tgt image then overwrites position
+    ``image_indices[b]`` (so where that is 1 too, the tgt image wins).  The
+    JAX package blends with a one-hot mask, ``txt * (1 - oh) + oh * img``;
+    ``torch.where`` gives the same values for finite inputs.  Other
+    ensemble modes splice nothing and have no ``img2txt``."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.config = config
+        self.word_embeddings = nn.Embedding(config.vocab_size,
+                                            config.hidden_size)
+        if config.ensemble == "begin":
+            self.img2txt = Dense(config.image_hidden_size,
+                                 config.hidden_size)
+        self.post = EmbedPostprocess(config)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,                    # [B, S]
+        image_embeds: Tuple[torch.Tensor, torch.Tensor],  # each [B, I]
+        token_type_ids: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
+        attention_mask: Optional[torch.Tensor] = None,
+        image_indices: Optional[torch.Tensor] = None,  # [B] tgt position
+        deterministic: bool = True,
+        dropout_seed: Optional[int] = None,
+    ) -> torch.Tensor:
+        cfg = self.config
+        if position_ids is None:
+            # from the attention mask, as the reference derives them
+            position_ids = _checked_position_ids(
+                attention_mask if attention_mask is not None else input_ids,
+                cfg)
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        txt = embedding_lookup(self.word_embeddings, input_ids)
+        if cfg.ensemble == "begin":
+            pos = torch.arange(input_ids.shape[1],
+                               device=txt.device)[None, :, None]
+            txt = torch.where(pos == 1,
+                              self.img2txt(image_embeds[0])[:, None, :], txt)
+            if cfg.interaction_type == "one_tower":
+                txt = torch.where(pos == image_indices[:, None, None],
+                                  self.img2txt(image_embeds[1])[:, None, :],
+                                  txt)
+        return self.post(txt, token_type_ids, position_ids, deterministic,
                          dropout_seed)

@@ -111,27 +111,37 @@ class TwoTowerClassificationHead(nn.Module):
 
 
 class ClsClassificationHead(nn.Module):
-    """[CLS] -> dropout -> dense -> tanh -> dropout -> out_proj.  The
-    multimodal ``ensemble == "end"`` variant comes with the multimodal
-    models (ROADMAP Queue 1 #6: The multimodal RobertaImage one/two-tower)."""
+    """[CLS] -> dropout -> dense -> tanh -> dropout -> out_proj.
+
+    With ``ensemble == "end"`` the two raw image embeddings are concatenated,
+    projected by ``dense_img`` (dropout, dense, tanh, dropout) and joined to
+    the text features before ``out_proj``, whose input is then
+    ``2 * hidden_size`` wide."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.ensemble == "end":
-            raise NotImplementedError(
-                "ensemble='end' heads come with the multimodal models "
-                "(ROADMAP Queue 1 #6: The multimodal RobertaImage "
-                "one/two-tower)")
+        self.end = config.ensemble == "end"
         self.dense = Dense(config.num_cls_features, config.hidden_size)
-        self.out_proj = Dense(config.hidden_size, config.num_labels)
+        if self.end:
+            self.dense_img = Dense(2 * config.image_hidden_size,
+                                   config.hidden_size)
+        self.out_proj = Dense((1 + self.end) * config.hidden_size,
+                              config.num_labels)
         self.rate = _head_rate(config)
 
     def forward(self, features, deterministic: bool = True,
-                dropout_seed=None):
-        x = dropout(features[:, 0, :], self.rate,
-                    fold_seed(dropout_seed, 0), deterministic)
-        x = torch.tanh(self.dense(x))
-        x = dropout(x, self.rate, fold_seed(dropout_seed, 1), deterministic)
+                dropout_seed=None, image_embeds=None):
+        def proj(x, dense, site):
+            x = dropout(x, self.rate, fold_seed(dropout_seed, site),
+                        deterministic)
+            x = torch.tanh(dense(x))
+            return dropout(x, self.rate, fold_seed(dropout_seed, site + 1),
+                           deterministic)
+
+        x = proj(features[:, 0, :], self.dense, 0)
+        if self.end:
+            y = proj(torch.cat(image_embeds, dim=-1), self.dense_img, 2)
+            x = torch.cat((x, y), dim=-1)
         return self.out_proj(x)
 
 

@@ -109,7 +109,10 @@ class _OneTowerHead(nn.Module):
 
     def forward(self, states, labels=None, pair_spans=None,
                 deterministic: bool = True,
-                dropout_seed: Optional[int] = None) -> PairClassifierOutput:
+                dropout_seed: Optional[int] = None,
+                image_embeds=None) -> PairClassifierOutput:
+        """``image_embeds``, the (src, tgt) image vectors, reach the
+        classifier of an ``ensemble == "end"`` model."""
         cfg = self.config
         seq_out = combine_cls_layers(states, cfg.cls_layers, cfg.cls_pool)
         head_seed = fold_seed(dropout_seed, 0)
@@ -118,7 +121,8 @@ class _OneTowerHead(nn.Module):
                 seq_out[:, 0, :], seq_out[:, self.tgt_cls_position, :],
                 deterministic, head_seed)
         else:
-            logits = self.classifier(seq_out, deterministic, head_seed)
+            logits = self.classifier(seq_out, deterministic, head_seed,
+                                     image_embeds)
             full_probs = torch.softmax(logits, dim=-1)
             # reference quirk: the embeds are the two probability columns,
             # probs is P(label=1)

@@ -133,7 +133,8 @@ def import_hf_roberta(state: Mapping[str, torch.Tensor],
                       kg_sd: Optional[Mapping[str, np.ndarray]] = None
                       ) -> Dict[str, torch.Tensor]:
     """Overlay HF encoder weights onto the ``state_dict`` of an initialised
-    ``RobertaOneTower``/``RobertaTwoTower`` (backbone under ``roberta.``);
+    ``RobertaOneTower``/``RobertaTwoTower`` or RobertaImage model (backbone
+    under ``roberta.``; ``img2txt`` and the heads keep their values);
     with ``kg_sd`` (a ``pkgm_model.bin``), the PKGM tables too, onto a
     ``PKGMOneTower``/``PKGMTwoTower``.  Returns a new dict to
     ``load_state_dict``."""

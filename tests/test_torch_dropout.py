@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from item_alignment_torch.config import ModelConfig
-from item_alignment_torch.models.heads import TwoTowerClassificationHead
+from item_alignment_torch.models.heads import (
+    ClsClassificationHead,
+    TwoTowerClassificationHead,
+)
 from item_alignment_torch.models.text import RobertaOneTower
 from item_alignment_torch.ops.dropout import (
     ReplayDropout,
@@ -97,6 +100,19 @@ def test_head_dropout_exact_rate(rate):
         assert torch.equal(out[kept], x[kept] / (1.0 - rate))
     assert not torch.equal(hx != 0, hy != 0)  # each call site draws its own
     assert dropout(x, rate, None, deterministic=True) is x
+    # the ensemble="end" head's image branch: dropout on the concatenated
+    # image vectors before dense_img, at the exact rate as well
+    cls = ClsClassificationHead(ModelConfig(
+        hidden_size=8, image_hidden_size=128, ensemble="end",
+        classifier_dropout=rate))
+    seen = []
+    cls.dense_img.register_forward_hook(lambda m, args, out:
+                                        seen.append(args[0]))
+    cls(x[:, None, :8], deterministic=False, dropout_seed=4,
+        image_embeds=(x[:, :128], x[:, 128:]))
+    kept = seen[0] != 0
+    assert torch.equal(seen[0][kept], x[kept] / (1.0 - rate))
+    assert abs(kept.double().mean().item() - (1 - rate)) < 0.005
 
 
 def _grads(policy):

@@ -11,10 +11,15 @@ import re
 import pytest
 import torch
 
+from item_alignment_torch.aggregate.soup import load_state_dicts
 from item_alignment_torch.config import ModelConfig, TrainConfig
 from item_alignment_torch.engine.inference import TwoTowerInference
 from item_alignment_torch.engine.train import Trainer
 from item_alignment_torch.kge import KGETrainer, KnowledgeGraph, make_kge_model
+from item_alignment_torch.models.multimodal import (
+    RobertaImageOneTower,
+    RobertaImageTwoTower,
+)
 from item_alignment_torch.models.text import (
     PKGMOneTower,
     PKGMTwoTower,
@@ -33,6 +38,8 @@ SEGMENTERS = {"item_alignment_torch/data/tokenization.py": "segment_pvs",
 TINY = ModelConfig(vocab_size=50, hidden_size=32, num_hidden_layers=1,
                    num_attention_heads=1, intermediate_size=32,
                    max_position_embeddings=32)
+IMAGE_TINY = TINY.replace(model_name="roberta_image", ensemble="begin",
+                          image_hidden_size=8)
 PKGM_TINY = TINY.replace(model_name="pkgm", max_seq_len=4, max_seq_len_pv=None,
                          max_pvs=2, num_entities=8, num_relations=3,
                          kg_embedding_dim=16)
@@ -70,7 +77,12 @@ def test_port_imports_no_jax():
             "item_alignment_torch/engine/checkpoint.py",
             "item_alignment_torch/cli.py",
             "item_alignment_torch/data/wordpiece.py",
-            "item_alignment_torch/kge/train.py"} <= names
+            "item_alignment_torch/kge/train.py",
+            "item_alignment_torch/models/multimodal.py",
+            "item_alignment_torch/data/images.py",
+            "item_alignment_torch/aggregate/ensemble.py",
+            "item_alignment_torch/aggregate/soup.py",
+            "item_alignment_torch/aggregate/submit.py"} <= names
     bad = {f"{p.relative_to(ROOT)}: {name}" for p in files
            for name in _imported_roots(p) if name in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -166,8 +178,12 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
     items = _roadmap_items()
     calls = [[name] for name in sorted(cli.COMMANDS)
              if name not in ("prepare", "finetune-text", "mine", "pred-text",
-                             "pkgm-pretrain")]
-    calls += [["prepare", "--data_dir", "d", "--output_dir", "o", flag]
+                             "pkgm-pretrain", "finetune-multimodal",
+                             "ensemble", "model-soup")]
+    # --with_image with no image_embedding.json to read: dumping one needs
+    # an image tower
+    calls += [["prepare", "--data_dir", "d", "--output_dir",
+               str(tmp_path / "o"), flag]
               for flag in ("--with_image", "--only_image",
                            "--object_detection")]
     vocab = tmp_path / "vocab.txt"
@@ -175,8 +191,10 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
                                  "[MASK]"]))
     calls += [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
                str(tmp_path), "--device", "cpu", "--model_name", name]
-              for name in ("textcnn", "roberta_image_large", "vit_base",
-                           "gcn")]
+              for name in ("textcnn", "vit_base", "gcn")]
+    calls += [["finetune-multimodal", "--data_dir", str(tmp_path),
+               "--vocab_path", str(tmp_path), "--device", "cpu",
+               "--model_name", "coca_base"]]
     (tmp_path / "tiny.json").write_text(json.dumps(
         {"hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 1,
          "intermediate_size": 8, "max_position_embeddings": 16}))
@@ -184,7 +202,7 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
                str(tmp_path), "--device", "cpu", "--output_dir",
                str(tmp_path / "out"), "--config_file",
                str(tmp_path / "tiny.json"), "--do_train", "--distributed"]]
-    assert len(calls) == 10 + 3 + 4 + 1
+    assert len(calls) == 7 + 3 + 3 + 1 + 1
     for argv in calls:
         with pytest.raises(NotImplementedError) as e:
             cli.main(argv)
@@ -276,6 +294,10 @@ def _kge_npz(tmp: pathlib.Path) -> str:
     lambda tmp: KGETrainer(make_kge_model("pkgm", 8, 3, 4), KnowledgeGraph(
         [1, 2], [0, 1], [3, 4], 8, 3), batch_size=2, n_epochs=1),
     lambda tmp: KGETrainer.load(_kge_npz(tmp)),
+    lambda tmp: RobertaImageOneTower(IMAGE_TINY),
+    lambda tmp: RobertaImageTwoTower(IMAGE_TINY.replace(
+        interaction_type="two_tower")),
+    lambda tmp: load_state_dicts([]),
 ])
 def test_entry_points_default_to_cuda(build, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
