@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18:
+run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -160,6 +160,30 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18:
    sum of the members' prob - 0.5 and equal to ``ensemble_predictions``.
    (f) ``model-soup`` of two epoch files of (b)'s command: every tensor
    equal to (a + b) / 2 computed on the card.
+19. legacy BERT and TextCNN: on the phase 16 corpus (320 labelled pairs),
+   its items as 5-field rows (the first 20 key:value pairs, spaced into
+   words; pvs pairs of 113-293 real tokens padded to 512), at
+   configs/roberta_base.json's width (12 layers, hidden 768, 12 heads of
+   64, FFN 3072, vocab 21128) with random weights.  (a) ``bert-pretrain``
+   at S=256 (``--max_seq_len 254``), batch 16, bf16, on the first corpus
+   items whose structure-aware examples fill exactly 4 steps: losses
+   finite, five token types.  (b) ``finetune-bert --adversarial MIX`` in
+   fp32 (scripts/train.sh step 8) from (a)'s ``bert_pretrain.pt``, batch 8,
+   6 steps and an eval of 40 rows; then ``--bf16 --adversarial FREE`` 4
+   steps, and phase 8's timing of 3 steps and one profiled step through a
+   ``Trainer`` with FREE noise.  (f) rows whose row 3 holds a pvs pair of
+   512 real tokens: the data layer's build raises the ``ValueError`` on
+   the host, before any device work.  (c) ``pred-bert`` on the 40 test
+   pairs with (b)'s fp32 weights: one line a pair, the file equal to a
+   direct forward on the kernels, which is within 1e-5 of plain attention;
+   the same weights in bf16 within 2e-2.  (d) ``finetune-text --model_name
+   textcnn --interaction_type two_tower`` at configs/textcnn.json, S=50+205,
+   batch 64, lr 1e-3: 4 steps, eval and predict, no attention kernel.  (e)
+   #1, #2's forward and #3's dq, dk and dv (dropout 0 and 0.1, and their
+   keep bits) against their plain versions at N=12, H=64, B=8 and S=512,
+   150, 50 and 20, in bf16 and fp32, and #2's and #3's at (a)'s B=16,
+   S=256 in bf16, held as phases 3 and 6 hold them, and each timed at
+   B=8, S=512 beside SDPA and the bound.
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -170,8 +194,11 @@ training: 24 launches each of #4, #5 and #6 per step, no other kernel),
 each command of phase 16, and phase 17's finetune commands (b-c: #1 in
 every eval and prediction batch, #2 and #3 24 calls a step a tower, none of
 #4-#6), and phase 18's commands (b, c, e, f: the same rule; its direct
-forwards, profiled steps and kernel checks are left out); the kernels line
-adds the #1-#3 launches of phases 16, 17 and 18.  The
+forwards, profiled steps and kernel checks are left out), and phase 19's
+commands (``bert-pretrain``: #2 and #3 12 calls a step; ``finetune-bert``:
+60 a step, 12 layers x 5 fields, and #1 60 an eval batch; ``pred-bert``: #1
+60 a batch; TextCNN none; #4-#6 none anywhere); the kernels line adds the
+#1-#3 launches of phases 16-19.  The
 line before the last is one JSON object with the six kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -204,6 +231,11 @@ import numpy as np
 
 from item_alignment_torch import cli
 from item_alignment_torch.config import ModelConfig, OptimizerConfig, TrainConfig
+from item_alignment_torch.data.bert_data import (
+    align_kwargs,
+    build_pretrain_examples,
+    pairs_to_field_dataset,
+)
 from item_alignment_torch.data.datasets import ArrayDataset
 from item_alignment_torch.data.prepare import load_item_info, read_finetune_tsv
 from item_alignment_torch import kge
@@ -225,6 +257,7 @@ from item_alignment_torch.engine.train import Trainer
 from item_alignment_torch.kge import evaluation as kev
 from item_alignment_torch.kge import sampling as ksamp
 from item_alignment_torch.models import encoder
+from item_alignment_torch.models.bert_legacy import BertAlignModel
 from item_alignment_torch.models.layers import take_rows
 from item_alignment_torch.models.multimodal import RobertaImageOneTower
 from item_alignment_torch.models.text import (
@@ -934,14 +967,18 @@ def time_blockwise_kernels(gen: torch.Generator, B: int, S: int) -> dict:
     return dict(rows, fwd_err=e_out, bwd_err=e_grads)
 
 
-def time_train_kernels(gen: torch.Generator) -> dict:
-    """#2's contract (on #4) and #3's at the train shape against their plain
-    versions, SDPA with dropout 0.1 and the bound of the function: for #3
-    10*B*N*S^2*H FLOP (its five products) whatever runs it, beside the
-    route's own count (delta, then #5's three products and #6's four:
-    14*B*N*S^2*H), so that a route that repeats products reads further from
-    the bound.  The route's parts are timed alone too."""
-    B, S, N, H, dt, rate, seed = 40, 510, 16, 64, torch.bfloat16, 0.1, 7
+def time_train_kernels(gen: torch.Generator, B: int = 40, S: int = 510,
+                       N: int = 16, dt=torch.bfloat16,
+                       name: str = "phase 6 train kernels") -> dict:
+    """#2's contract (on #4) and #3's at a train shape (phase 6's: B=40,
+    S=510, N=16, bf16) against their plain versions, SDPA with dropout 0.1
+    and the bound of the function: for #3 10*B*N*S^2*H FLOP (its five
+    products) whatever runs it, beside the route's own count (delta, then
+    #5's three products and #6's four: 14*B*N*S^2*H), so that a route that
+    repeats products reads further from the bound.  The route's parts are
+    timed alone too."""
+    H, rate, seed = 64, 0.1, 7
+    dname = "bf16" if dt == torch.bfloat16 else "fp32"
     q, k, v, g, bias = _train_inputs(B, S, N, H, dt, gen)
     out, lse = cat.fused_attention_dropout_fwd(rate, seed, q, k, v, bias)
     fwd_ms = cuda_ms(lambda: cat.fused_attention_dropout_fwd(
@@ -970,25 +1007,25 @@ def time_train_kernels(gen: torch.Generator) -> dict:
     el = q.element_size()
     stats = B * N * S * 8 + B * S * 4  # lse (float64) and the key bias
     rows = {}
-    for name, ms, plain, lib, nbytes, flops in (
+    for what, ms, plain, lib, nbytes, flops in (
             ("fwd", fwd_ms, fwd_plain, sdpa_fwd,
              4 * B * S * N * H * el + stats, 4 * B * N * S * S * H),
             ("bwd", bwd_ms, bwd_plain, sdpa_bwd,
              8 * B * S * N * H * el + stats,
              10 * B * N * S * S * H)):
-        rows[name] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+        rows[what] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                           **_bound(nbytes, flops, dt))
-        print(f"phase 6 train kernels timing {name} (B={B} S={S} N={N} H={H} "
-              f"bf16, rate {rate}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        print(f"{name} timing {what} (B={B} S={S} N={N} H={H} "
+              f"{dname}, rate {rate}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"sdpa {lib:.4f} ms (kernel/sdpa {ms / lib:.3f}), bound "
-              f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}; "
+              f"{rows[what]['bound_ms']:.4f} ms ({rows[what]['bound_by']}; "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
     # the route: delta reads g, out and writes delta; #5 and #6 each read
     # q, k, v, g, lse, delta and the bias; #5 writes dq, #6 dk and dv
     tensor = B * S * N * H * el
     route = _bound(13 * tensor + 2 * stats + 3 * 4 * B * N * S,
                    14 * B * N * S * S * H, dt)
-    print(f"phase 6 train kernels timing bwd: #3's route #5 {parts[0]:.4f} ms, "
+    print(f"{name} timing bwd: #3's route #5 {parts[0]:.4f} ms, "
           f"#6 {parts[1]:.4f} ms, delta {parts[2]:.4f} ms; the route's own "
           f"products {14 * B * N * S * S * H / 1e9:.1f} GFLOP "
           f"({14 * B * N * S * S * H / bwd_ms / 1e9:.1f} TFLOP/s at "
@@ -2739,6 +2776,351 @@ def phase_multimodal(seed: int, card: str) -> tuple:
     return launches, errs
 
 
+BASE_LAYERS = 12    # configs/roberta_base.json: the legacy member's encoder
+LEGACY_PVS = 20     # key:value pairs an item in the 5-field rows
+LEGACY_BATCH = 8    # scripts/train.sh step 8
+# kernels vs plain attention, probabilities, by the model's dtype
+LEGACY_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+LEGACY_LENS = (512, 150, 50, 20)  # the distinct field widths, pvs first
+
+
+def legacy_fields(item: dict, n_pvs: int = LEGACY_PVS) -> dict:
+    """The five fields of a corpus item as the legacy rows hold them: the
+    first ``n_pvs`` key:value pairs spaced into words (``key : value ;``),
+    the title, the category as cate and cate_path, the industry."""
+    pvs = " ; ".join(p.replace("#:#", " : ")
+                     for p in item["item_pvs"].split("#;#")[:n_pvs])
+    return {"pvs": pvs, "title": item["title"], "cate": item["cate_name"],
+            "cate_path": item["cate_name"],
+            "industry_name": item["industry_name"]}
+
+
+def legacy_rows(raw: Path, pairs: str) -> list:
+    """``pairs`` (a pair jsonl of the smoke corpus) as 5-field rows with
+    src_/tgt_ fields, item ids and labels."""
+    items = {d["item_id"]: d for d in map(json.loads, open(
+        raw / "item_info.jsonl", encoding="utf-8"))}
+    rows = []
+    for pair in map(json.loads, open(raw / pairs, encoding="utf-8")):
+        row = {"src_item_id": pair["src_item_id"],
+               "tgt_item_id": pair["tgt_item_id"],
+               "item_label": pair["item_label"]}
+        for side in ("src", "tgt"):
+            for k, v in legacy_fields(items[pair[f"{side}_item_id"]]).items():
+                row[f"{side}_{k}"] = v
+        rows.append(row)
+    return rows
+
+
+def write_jsonl(path: Path, rows: list) -> str:
+    path.write_text("".join(json.dumps(r, ensure_ascii=False) + "\n"
+                            for r in rows), encoding="utf-8")
+    return str(path)
+
+
+def pretrain_items(raw: Path, tok, seed: int, batch: int = 16,
+                   steps: int = 4) -> list:
+    """The first items of the corpus (pvs spaced as in ``legacy_fields``)
+    whose structure-aware examples, built as ``bert-pretrain`` builds them
+    from ``seed``, fill exactly ``steps`` batches."""
+    items = []
+    for d in map(json.loads, open(raw / "item_info.jsonl", encoding="utf-8")):
+        f = legacy_fields(d)
+        items.append(dict(d, item_pvs=f["pvs"], cate_name_path=""))
+    for start in range(len(items)):
+        for n in range(1, 16):
+            chosen = items[start:start + n]
+            rng = random.Random(seed)
+            count = sum(len(build_pretrain_examples(it, tok, 254, chosen,
+                                                    rng)) for it in chosen)
+            if count // batch == steps:
+                return chosen
+            if count // batch > steps:
+                break
+    raise CheckFailed("phase 19a: no run of items fills exactly 4 batches")
+
+
+def _legacy_probs(cfg: ModelConfig, state: dict, ds) -> dict:
+    """``BertAlignModel``'s probabilities on ``ds`` in batches of 8 through
+    the kernels and through plain attention."""
+    probs = {}
+    for name, flash in (("kernels", True), ("plain", False)):
+        model = BertAlignModel(cfg.replace(use_flash_attention=flash),
+                               seed=None).eval()
+        model.load_state_dict(state)
+        got = []
+        with torch.inference_mode():
+            for batch, meta in ds.batches(LEGACY_BATCH):
+                batch.pop("labels")
+                feed = align_kwargs({k: torch.from_numpy(v).long().cuda()
+                                     for k, v in batch.items()})
+                got.append(model(**feed).probs.float().cpu().numpy()
+                           [: meta["n_valid"]])
+        probs[name] = np.concatenate(got)
+        del model
+    return probs
+
+
+def phase_legacy(seed: int, card: str) -> tuple:
+    """Phase 19: the legacy 5-field BERT member and TextCNN at
+    configs/roberta_base.json's width (12 layers, hidden 768, 12 heads of
+    64) with random weights, through ``cli.main``: ``bert-pretrain``,
+    ``finetune-bert`` (fp32 MIX, then bf16 FREE), ``pred-bert``,
+    ``finetune-text --model_name textcnn``; #1-#3 at N=12, B=8 and the
+    field widths; the position rule.  Returns the launches of #1-#6 over
+    the commands and the worst errors of #1 (``serving_err``) and of #2's
+    and #3's contracts (``fwd_err``, ``bwd_err``) against their plain
+    versions."""
+    with segmenter(), tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        files = write_smoke_corpus(root, seed, n_train=320)
+        tok = load_text_tokenizer(str(files["vocab"]))
+        cfg_json = ROOT / "configs" / "roberta_base.json"
+        mcfg = ModelConfig.from_json(str(cfg_json), vocab_size=len(tok),
+                                     model_name="bert_legacy")
+        check(mcfg.num_hidden_layers == BASE_LAYERS
+              and mcfg.hidden_size == 768 and mcfg.num_attention_heads == 12
+              and mcfg.head_dim == 64 and mcfg.intermediate_size == 3072
+              and len(tok) == mcfg.vocab_size == VOCAB_ROWS
+              and mcfg.max_position_embeddings == 512,
+              "phase 19: not roberta_base")
+        rows = legacy_rows(files["raw"], "item_train_pair.jsonl")
+        n_tr, n_va = 6 * LEGACY_BATCH, 5 * LEGACY_BATCH
+        data = {"train": write_jsonl(root / "train.jsonl", rows[:n_tr]),
+                "valid": write_jsonl(root / "valid.jsonl",
+                                     rows[n_tr:n_tr + n_va]),
+                "bf16": write_jsonl(root / "bf16.jsonl",
+                                    rows[n_tr + n_va:n_tr + n_va + 32]),
+                "test": write_jsonl(root / "test.jsonl", legacy_rows(
+                    files["raw"], "item_test_pair.jsonl"))}
+        valid_ds = pairs_to_field_dataset(rows[n_tr:n_tr + n_va], tok)
+        pvs_len = valid_ds.arrays["pvs_attention_mask"].sum(1)
+        check(valid_ds.arrays["pvs_input_ids"].shape[1] == 512
+              and pvs_len.max() < 511, "phase 19: the pvs pairs are not "
+              "shorter rows padded to 512")
+        vocab = ["--vocab_path", str(files["vocab"])]
+        common = vocab + ["--config_file", str(cfg_json), "--seed", str(seed)]
+        walls, launches = {}, [0] * 6
+
+        def command(argv, expect, what):
+            zero_counters()
+            res, walls[what] = run_cli(argv)
+            got = counters()
+            check(got == expect, f"phase 19 {what}: launches (#1..#6) "
+                  f"{got}, expected {expect}")
+            for k in range(6):
+                launches[k] += got[k]
+            return res
+
+        # 19a: bert-pretrain, S=256, batch 16, bf16, 4 steps
+        pre_items = write_jsonl(root / "pretrain_items.jsonl",
+                                pretrain_items(files["raw"], tok, seed))
+        res = command(["bert-pretrain", "--item_info", pre_items,
+                       "--output_dir", str(root / "pre"), "--max_seq_len",
+                       "254", "--batch_size", "16", "--epochs", "1", "--bf16",
+                       "--log_steps", "1", "--total_steps", TOTAL_STEPS,
+                       "--log_dir", str(root / "logs_pre")] + common,
+                      (0, 4 * BASE_LAYERS, 4 * BASE_LAYERS, 0, 0, 0),
+                      "bert-pretrain")
+        losses_pre, ms_pre = _finetune_ms(root / "logs_pre")
+        pre_state = load_params(str(root / "pre" / "bert_pretrain.pt"))
+        check(len(losses_pre) == 4 and all(map(math.isfinite, losses_pre))
+              and pre_state["bert.post.token_type_embeddings.weight"].shape
+              == (5, 768), f"phase 19a: losses {losses_pre}")
+        print(f"phase 19a bert-pretrain: {res[-1]['examples']} structure-"
+              f"aware examples, S=256 batch 16 bf16 dropout 0.1, 4 steps, "
+              f"losses {[round(x, 6) for x in losses_pre]}, {ms_pre:.2f} "
+              f"ms/step through the CLI, command "
+              f"{walls['bert-pretrain']:.3f} s; {card}", flush=True)
+        del pre_state
+
+        # 19b: finetune-bert, fp32 MIX as train.sh step 8, then bf16 FREE
+        ft = ["finetune-bert", "--batch_size", str(LEGACY_BATCH),
+              "--epochs", "1", "--log_steps", "1", "--total_steps",
+              TOTAL_STEPS, "--pretrained_model_path", str(root / "pre")]
+        res = command(ft + ["--train_file", data["train"], "--valid_file",
+                            data["valid"], "--adversarial", "MIX",
+                            "--output_dir", str(root / "ft32"), "--log_dir",
+                            str(root / "logs_ft32")] + common,
+                      (5 * 5 * BASE_LAYERS, 6 * 5 * BASE_LAYERS,
+                       6 * 5 * BASE_LAYERS, 0, 0, 0), "finetune-bert fp32 MIX")
+        losses_32, ms_32 = _finetune_ms(root / "logs_ft32")
+        check(len(losses_32) == 6 and all(map(math.isfinite, losses_32))
+              and (root / "ft32" / "sim_eval_weight.npz").exists(),
+              f"phase 19b: fp32 losses {losses_32}")
+        print(f"phase 19b finetune-bert --adversarial MIX fp32: batch 8, "
+              f"fields S=512/150/20/50/20, 6 steps, losses "
+              f"{[round(x, 6) for x in losses_32]}, {ms_32:.2f} ms/step "
+              f"through the CLI, eval best_f1 {res[-1]['best_f1']:.4f} on "
+              f"{n_va} rows, command "
+              f"{walls['finetune-bert fp32 MIX']:.3f} s; {card}", flush=True)
+        command(ft + ["--train_file", data["bf16"], "--adversarial", "FREE",
+                      "--bf16", "--output_dir", str(root / "ft16"),
+                      "--log_dir", str(root / "logs_ft16")] + common,
+                (0, 4 * 5 * BASE_LAYERS, 4 * 5 * BASE_LAYERS, 0, 0, 0),
+                "finetune-bert bf16 FREE")
+        losses_16, ms_16 = _finetune_ms(root / "logs_ft16")
+        check(len(losses_16) == 4 and all(map(math.isfinite, losses_16)),
+              f"phase 19b: bf16 losses {losses_16}")
+        bcfg = mcfg.replace(dtype="bfloat16")
+        H = bcfg.hidden_size
+        trainer = Trainer(
+            BertAlignModel(bcfg, seed=seed),
+            TrainConfig(seed=seed, train_batch_size=LEGACY_BATCH,
+                        log_steps=10 ** 9, optimizer=OptimizerConfig(
+                            learning_rate=2e-5, total_steps=16000)),
+            batch_transform=align_kwargs,
+            adversarial=("FREE", 1e-2, 1e-2),
+            noise_spec={"pvs_noise": (512, H), "title_noise": (150, H)}
+        ).setup()
+        bf16_ds = pairs_to_field_dataset(
+            rows[n_tr + n_va:n_tr + n_va + 32], tok)
+        step_ms, profiled = _step_profile(
+            trainer, [b for b, _ in bf16_ds.batches(LEGACY_BATCH)])
+        print(f"phase 19b finetune-bert --adversarial FREE --bf16: 4 steps "
+              f"at batch 8, losses {[round(x, 6) for x in losses_16]}, "
+              f"{ms_16:.2f} ms/step through the CLI "
+              f"({LEGACY_BATCH / ms_16 * 1e3:.2f} train pairs/s), command "
+              f"{walls['finetune-bert bf16 FREE']:.3f} s; direct: "
+              f"{step_ms:.2f} ms/step over 3 timed steps, {profiled}; {card}",
+              flush=True)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 19f: a pvs pair that fills all 512 tokens is refused on the host
+        full = [dict(r) for r in rows[:LEGACY_BATCH]]
+        full[3]["src_pvs"] = " ; ".join(
+            [legacy_fields(json.loads(line), 30)["pvs"] for line in open(
+                files["raw"] / "item_info.jsonl", encoding="utf-8")][:8])
+        full_ds = pairs_to_field_dataset(full, tok)
+        check(full_ds.arrays["pvs_attention_mask"][3].sum() == 512,
+              "phase 19f: the long pvs pair does not fill 512 tokens")
+        zero_counters()
+        refused = None
+        try:
+            pairs_to_field_dataset(full, tok, config=mcfg)
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "row 3 of pvs_input_ids" in refused
+              and not any(counters()),
+              f"phase 19f: the full row was not refused on the host "
+              f"({refused})")
+        print(f"phase 19f position rule: rows whose row 3 holds a 512-token "
+              f"pvs pair are refused where the data layer builds them "
+              f"({refused[:60]}...), no kernel launched; 19b trained padded "
+              f"width 512 with rows of {int(pvs_len.min())}-"
+              f"{int(pvs_len.max())} real tokens", flush=True)
+
+        # 19c: pred-bert on the test pairs with 19b's fp32 weights
+        n_test = len(open(data["test"]).readlines())
+        res = command(["pred-bert", "--test_file", data["test"], "--params",
+                       str(root / "ft32" / "bert_align.pt"), "--output",
+                       str(root / "pred.jsonl"), "--batch_size",
+                       str(LEGACY_BATCH), "--config_file", str(cfg_json)]
+                      + vocab,
+                      (-(-n_test // LEGACY_BATCH) * 5 * BASE_LAYERS, 0, 0, 0,
+                       0, 0), "pred-bert")
+        rows_p, filed = _jsonl_probs(str(root / "pred.jsonl"))
+        test_ds = pairs_to_field_dataset(
+            [dict(r, item_label=0) for r in map(json.loads, open(
+                data["test"], encoding="utf-8"))], tok)
+        state_32 = load_params(str(root / "ft32" / "bert_align.pt"))
+        probs = _legacy_probs(mcfg, state_32, test_ds)
+        probs_16 = _legacy_probs(mcfg.replace(dtype="bfloat16"), state_32,
+                                 test_ds)
+        diff = np.abs(probs["kernels"] - probs["plain"]).max()
+        diff_16 = np.abs(probs_16["kernels"] - probs_16["plain"]).max()
+        check(res[-1]["pairs"] == len(rows_p) == n_test
+              and np.isfinite(filed).all() and np.isfinite(diff_16)
+              and diff <= LEGACY_TOL["float32"]
+              and diff_16 <= LEGACY_TOL["bfloat16"]
+              and np.array_equal(probs["kernels"], filed.astype(np.float32)),
+              f"phase 19c: {len(rows_p)} lines for {n_test} pairs, kernels "
+              f"vs plain fp32 {diff}, bf16 {diff_16}, the file equal to the "
+              f"kernels: "
+              f"{np.array_equal(probs['kernels'], filed.astype(np.float32))}")
+        print(f"phase 19c pred-bert: {n_test} test pairs, one line each, "
+              f"fp32; probabilities on the kernels vs plain attention max "
+              f"diff {diff:.3e} (limit {LEGACY_TOL['float32']}), equal to "
+              f"the file; the same weights in bf16 {diff_16:.3e} (limit "
+              f"{LEGACY_TOL['bfloat16']}); command "
+              f"{walls['pred-bert']:.3f} s; {card}", flush=True)
+        del state_32
+
+        # 19d: TextCNN two-tower through finetune-text
+        processed = root / "processed"
+        prep, _ = run_cli(["prepare", "--data_dir", str(files["raw"]),
+                           "--output_dir", str(processed), "--seed",
+                           str(seed)])
+        n_train = len(read_finetune_tsv(prep[-1]["train"]))
+        res = command(["finetune-text", "--data_dir", str(processed),
+                       "--output_dir", str(root / "cnn"), "--model_name",
+                       "textcnn", "--config_file",
+                       str(ROOT / "configs" / "textcnn.json"),
+                       "--interaction_type", "two_tower", "--max_seq_len",
+                       "50", "--max_seq_len_pv", "205", "--train_batch_size",
+                       "64", "--eval_batch_size", "64", "--learning_rate",
+                       "1e-3", "--epochs", "1", "--log_steps", "1",
+                       "--log_dir", str(root / "logs_cnn"), "--do_train",
+                       "--do_eval", "--do_pred", "--seed", str(seed)]
+                      + vocab, (0,) * 6, "finetune-text textcnn")
+        losses_cnn, ms_cnn = _finetune_ms(root / "logs_cnn")
+        pred = [o for o in res if "prediction_file" in o][-1]
+        rows_c, probs_c = _jsonl_probs(pred["prediction_file"])
+        ev = [o for o in res if "sweep" in o][-1]
+        check(n_train // 64 == 4 and len(losses_cnn) == 4
+              and all(map(math.isfinite, losses_cnn))
+              and pred["prediction_split"] == "test" and len(rows_c) == n_test
+              and np.isfinite(probs_c).all(),
+              f"phase 19d: {n_train} train rows, losses {losses_cnn}, "
+              f"{len(rows_c)} predictions")
+        print(f"phase 19d finetune-text textcnn two-tower: configs/textcnn."
+              f"json (filters 1/2/3/5 x 128, embeddings 768), S=255 a "
+              f"tower, batch 64, lr 1e-3, 4 steps, losses "
+              f"{[round(x, 6) for x in losses_cnn]}, {ms_cnn:.2f} ms/step "
+              f"through the CLI, eval best_f1 {ev['best_f1']:.4f}, "
+              f"{len(rows_c)} test predictions, no attention kernel; "
+              f"command {walls['finetune-text textcnn']:.3f} s; {card}",
+              flush=True)
+
+    # 19e: #1, #2's and #3's contracts at N=12, B=8 and the field widths
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dtypes = (("bf16", torch.bfloat16), ("fp32", torch.float32))
+    serving, timed = 0.0, {}
+    for dname, dt in dtypes:
+        for S in LEGACY_LENS:
+            row, err = kernel_case(f"{dname} S={S} N=12", LEGACY_BATCH, S, 12,
+                                   64, dt, False, gen,
+                                   phase="phase 19e kernel")
+            serving = max(serving, err)
+            if S == LEGACY_LENS[0]:
+                timed[("#1", dname)] = row
+    # every shape the phase's commands train at: finetune-bert's fields at
+    # B=8 in both dtypes, bert-pretrain's S=256 at B=16 in bf16
+    errs = phase_train_kernels(gen, [
+        (f"{dname} S={S} N=12", LEGACY_BATCH, S, 12, 64, dt)
+        for dname, dt in dtypes for S in LEGACY_LENS]
+        + [("bf16 S=256 B=16 N=12", 16, 256, 12, 64, torch.bfloat16)],
+        SimpleNamespace(**dict(vars(TRAIN_FAMILY),
+                               name="phase 19e train kernels")))
+    for dname, dt in dtypes:
+        rows_t = time_train_kernels(gen, LEGACY_BATCH, LEGACY_LENS[0], 12, dt,
+                                    name="phase 19e train kernels")
+        timed[("#2", dname)], timed[("#3", dname)] = rows_t["fwd"], \
+            rows_t["bwd"]
+    check(not any(launches[3:]), f"phase 19: launches (#1..#6) "
+          f"{tuple(launches)}: #4-#6 counted")
+    print("phase 19e at B=8, S=512, N=12, H=64: " + "; ".join(
+        f"{k} {d} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, sdpa "
+        f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} {r['bound_by']})"
+        for (k, d), r in timed.items()) + f"; phase 19 launches #1..#6 "
+        f"{tuple(launches)}; wall times " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in walls.items()) + f"; {card}",
+        flush=True)
+    return tuple(launches), dict(errs, serving_err=serving)
+
+
 def run(args) -> None:
     card = phase_card()
     phase_build()
@@ -2793,26 +3175,28 @@ def run(args) -> None:
     entry = phase_entry_points(args.seed, card)  # the entry points' path
     pkgm, pkgm_err = phase_pkgm(args.seed, card)  # the PKGM family's path
     mm, mm_err = phase_multimodal(args.seed, card)  # the multimodal path
+    legacy, legacy_err = phase_legacy(args.seed, card)  # the legacy member
 
     src, tpu = "item_alignment_torch/csrc/", "item_alignment_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         dict(name="fused_attention", source=src + "fused_attention.cu",
              replaces=tpu + "63",
-             launches=launches + entry[0] + pkgm[0] + mm[0],
-             max_abs_err=max(kernel["max_abs_err"], pkgm_err["serving_err"]),
+             launches=launches + entry[0] + pkgm[0] + mm[0] + legacy[0],
+             max_abs_err=max(kernel["max_abs_err"], pkgm_err["serving_err"],
+                             legacy_err["serving_err"]),
              **{k: kernel[k] for k in keys}),
         dict(name="fused_attention_dropout",
              source=src + "flash_blockwise_fwd.cu", replaces=tpu + "203",
-             launches=trained[1] + entry[1] + pkgm[1] + mm[1],
+             launches=trained[1] + entry[1] + pkgm[1] + mm[1] + legacy[1],
              max_abs_err=max(train["fwd_err"], pkgm_err["fwd_err"],
-                             mm_err["fwd_err"]),
+                             mm_err["fwd_err"], legacy_err["fwd_err"]),
              **train["fwd"]),
         dict(name="fused_attention_dropout_bwd",
              source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",
-             launches=trained[2] + entry[2] + pkgm[2] + mm[2],
+             launches=trained[2] + entry[2] + pkgm[2] + mm[2] + legacy[2],
              max_abs_err=max(*train["bwd_err"], *pkgm_err["bwd_err"],
-                             *mm_err["bwd_err"]),
+                             *mm_err["bwd_err"], *legacy_err["bwd_err"]),
              **train["bwd"]),
         dict(name="flash_blockwise_fwd", source=src + "flash_blockwise_fwd.cu",
              replaces=tpu + "458", launches=served_long + trained_long[3],

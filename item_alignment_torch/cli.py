@@ -20,12 +20,25 @@ Port of ``item_alignment_tpu/cli.py`` for the main path:
 - ``ensemble``       fuse the members' prediction files (threshold or f1
   strategy, optional category split) into ``deepAI_result.jsonl``;
 - ``model-soup``     average ``.pt`` parameter files (``aggregate/soup.py``).
+- ``finetune-bert``  the legacy 5-field ``BertAlignModel`` from jsonl pair
+  rows, with FREE/PGD/MIX embedding noise (``--adversarial``), from
+  ``bert_pretrain.pt`` (``--pretrained_model_path``): writes
+  ``bert_align.pt``, ``sim_eval_weight.npz`` and ``best_f1.pt``;
+- ``bert-pretrain``  the structure-aware MLM + NSP pretrain of
+  ``BertForPretraining`` on ``item_info.jsonl``: writes
+  ``bert_pretrain.pt``;
+- ``pred-bert``      ``BertAlignModel``'s P(same) for jsonl pair rows, in
+  the submission format (no fallback: a failed kernel raises).
+
+``finetune-text --model_name textcnn`` trains the TextCNN two-tower on the
+two-tower layout.
 
 Flags are the JAX CLI's, so the same command lines run, with one more:
 ``--device {cuda,cpu}`` (default ``cuda``; without a GPU the default
 raises).  The port writes and reads its own parameter files, ``.pt``
 state dicts (``best_f1.pt``, ``text_finetune_epoch-N.pt``,
-``multimodal_finetune_epoch-N.pt``); a ``.msgpack``
+``multimodal_finetune_epoch-N.pt``, ``bert_align.pt``,
+``bert_pretrain.pt``); a ``.msgpack``
 file raises, pointing at ROADMAP Queue 1 #14.  ``--scan_steps`` and
 ``pred-text --scan_chunks/--xfer_guard`` steer XLA's dispatch and do nothing
 here.  The other commands and the model families not yet ported raise with
@@ -174,6 +187,44 @@ def _distributed_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--process_id", type=int, default=None)
 
 
+def _engine_flags(p: argparse.ArgumentParser) -> None:
+    """The engine flags of the commands without the finetune flag surface
+    (``finetune-bert``, ``bert-pretrain``), as the JAX CLI's."""
+    p.add_argument("--mesh", default="-1,1,1",
+                   help="data,fsdp,tensor axis sizes (-1 = rest); the port "
+                        "runs on one device")
+    _distributed_flags(p)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--log_dir", default=None)
+    p.add_argument("--log_steps", type=int, default=100)
+    p.add_argument("--seed", type=int, default=2345)
+    p.add_argument("--eval_every_steps", type=int, default=None)
+    p.add_argument("--scan_steps", type=int, default=8, help=INERT)
+    p.add_argument("--early_stopping_patience", type=int, default=None)
+    p.add_argument("--checkpoint_dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--weight_decay", type=float, default=0.01)
+    p.add_argument("--warmup_proportion", type=float, default=0.1)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--total_steps", type=int, default=None,
+                   help="LR-schedule horizon in optimizer updates")
+    _device_flag(p)
+
+
+def _legacy_config(args, **kw) -> ModelConfig:
+    """The legacy member's config: ``--config_file`` with ``kw`` over it,
+    else the defaults (roberta_base's widths)."""
+    kw = dict(model_name="bert_legacy", **kw)
+    if args.config_file:
+        return ModelConfig.from_json(args.config_file, **kw)
+    return ModelConfig(**kw)
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path, encoding="utf-8") as r:
+        return [json.loads(line) for line in r if line.strip()]
+
+
 def _model_config(args, **extra) -> ModelConfig:
     if getattr(args, "quant", None) and getattr(args, "do_train", False):
         raise SystemExit(
@@ -217,16 +268,26 @@ def _freeze_patterns(args) -> tuple:
     return tuple(json.loads(spec))
 
 
-def _train_config(args, steps_per_epoch: int) -> TrainConfig:
+def _refuse_distributed(args) -> None:
     if args.distributed:
         raise NotImplementedError(
             f"--distributed is not ported yet ({PARALLEL_ITEM})")
+
+
+def _train_config(args, steps_per_epoch: int,
+                  batch_size: Optional[int] = None) -> TrainConfig:
+    """The finetune flags' TrainConfig; with ``batch_size`` (the commands
+    of ``_engine_flags``, which have no batch-size, freeze or moment-dtype
+    flags of their own) that batch for training and evaluation, as in the
+    JAX CLI."""
+    _refuse_distributed(args)
     data, fsdp, tensor = (int(x) for x in args.mesh.split(","))
     return TrainConfig(
-        seed=args.seed, train_batch_size=args.train_batch_size,
-        eval_batch_size=args.eval_batch_size, num_epochs=args.epochs,
-        log_steps=args.log_steps, output_dir=args.output_dir,
-        threshold=args.threshold,
+        seed=args.seed,
+        train_batch_size=batch_size or args.train_batch_size,
+        eval_batch_size=batch_size or args.eval_batch_size,
+        num_epochs=args.epochs, log_steps=args.log_steps,
+        output_dir=args.output_dir, threshold=getattr(args, "threshold", 0.5),
         eval_every_steps=args.eval_every_steps,
         scan_steps=args.scan_steps,
         early_stopping_patience=args.early_stopping_patience,
@@ -243,7 +304,7 @@ def _train_config(args, steps_per_epoch: int) -> TrainConfig:
                    // max(args.gradient_accumulation_steps, 1), 1),
             grad_accumulation_steps=args.gradient_accumulation_steps,
             freeze_patterns=_freeze_patterns(args),
-            state_dtype=args.opt_state_dtype),
+            state_dtype=getattr(args, "opt_state_dtype", "float32")),
     )
 
 
@@ -391,7 +452,7 @@ def cmd_finetune_text(argv: List[str]) -> int:
             return rows_to_pkgm_dataset(rows, tok, kg_ent, kg_rel,
                                         cfg.max_seq_len, cfg.max_pvs,
                                         cfg.classification_method)
-        if args.interaction_type == "two_tower":
+        if args.interaction_type == "two_tower" or "textcnn" in args.model_name:
             return rows_to_two_tower_dataset(rows, tok, cfg.max_seq_len,
                                              cfg.max_seq_len_pv)
         return rows_to_one_tower_dataset(rows, tok, cfg.max_seq_len,
@@ -538,6 +599,9 @@ def _load_pretrained(model, cfg, args) -> None:
         load_torch_state_dict,
     )
 
+    if not hasattr(model, "roberta"):
+        raise ValueError(f"{cfg.model_name} has no RoBERTa encoder to load "
+                         f"{ROBERTA_WEIGHTS_NAME} into")
     rob = os.path.join(args.pretrained_model_path, ROBERTA_WEIGHTS_NAME)
     kg = os.path.join(args.pretrained_model_path, KG_WEIGHTS_NAME)
     if not os.path.exists(rob):
@@ -988,6 +1052,227 @@ def cmd_model_soup(argv: List[str]) -> int:
     return 0
 
 
+def cmd_finetune_bert(argv: List[str]) -> int:
+    """The legacy 5-field ``BertAlignModel`` finetune with optional
+    adversarial embedding noise on the pvs and title fields (the
+    reference's finetune_bert.py)."""
+    p = argparse.ArgumentParser(prog="ia-torch finetune-bert")
+    p.add_argument("--train_file", required=True,
+                   help="jsonl rows with src_/tgt_ fields + item_label")
+    p.add_argument("--valid_file", default=None)
+    p.add_argument("--vocab_path", required=True)
+    p.add_argument("--output_dir", default="output/bert_legacy")
+    p.add_argument("--config_file", default=None)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--epochs", type=int, default=3)
+    p.add_argument("--learning_rate", type=float, default=2e-5)
+    p.add_argument("--adversarial", default=None,
+                   choices=[None, "FREE", "PGD", "MIX"])
+    p.add_argument("--epsilon", type=float, default=1e-2)
+    p.add_argument("--alpha", type=float, default=1e-2)
+    p.add_argument("--threshold", type=float, default=0.4)
+    p.add_argument("--pretrained_model_path", default=None,
+                   help="bert_pretrain.pt (or its dir): the domain-"
+                        "pretrained backbone to start from")
+    _engine_flags(p)
+    args = p.parse_args(argv)
+    _refuse_distributed(args)
+
+    from item_alignment_torch.data.bert_data import (
+        align_kwargs,
+        pairs_to_field_dataset,
+    )
+    from item_alignment_torch.data.tokenization import load_text_tokenizer
+    from item_alignment_torch.engine.checkpoint import save_params
+    from item_alignment_torch.engine.train import Trainer
+    from item_alignment_torch.models.bert_legacy import (
+        FIELD_MAX_LENS,
+        BertAlignModel,
+        sim_eval_weight,
+    )
+
+    device = resolve_device(args.device)
+    tok = load_text_tokenizer(args.vocab_path)
+    cfg = _legacy_config(args, vocab_size=len(tok),
+                         dtype="bfloat16" if args.bf16 else "float32")
+    train_ds = pairs_to_field_dataset(_read_jsonl(args.train_file), tok,
+                                      config=cfg)
+    valid_ds = (pairs_to_field_dataset(_read_jsonl(args.valid_file), tok,
+                                       config=cfg)
+                if args.valid_file else None)
+    model = BertAlignModel(cfg, device=device, seed=args.seed)
+
+    bs = min(args.batch_size, len(train_ds))
+    adversarial = ((args.adversarial, args.epsilon, args.alpha)
+                   if args.adversarial else None)
+    noise_spec = {
+        "pvs_noise": (FIELD_MAX_LENS["pvs"], cfg.hidden_size),
+        "title_noise": (FIELD_MAX_LENS["title"], cfg.hidden_size),
+    } if args.adversarial else None
+    tcfg = _train_config(args, max(len(train_ds) // bs, 1), batch_size=bs)
+    trainer = Trainer(model, tcfg, device=device, batch_transform=align_kwargs,
+                      adversarial=adversarial, noise_spec=noise_spec,
+                      log_dir=args.log_dir)
+    if args.pretrained_model_path:
+        from item_alignment_torch.utils.hf_import import _overlay_rows
+
+        path = args.pretrained_model_path
+        if os.path.isdir(path):
+            path = os.path.join(path, "bert_pretrain.pt")
+        pre = {k: v for k, v in _load_param_file(path).items()
+               if k.startswith("bert.")}
+        if not pre:
+            raise ValueError(f"{path} has no 'bert' backbone parameters")
+        # row-tolerant: bert-pretrain has 5 token types (one a field), the
+        # align model fewer; the overlapping rows are copied
+        state = model.state_dict()
+        _overlay_rows(state, pre)
+        model.load_state_dict(state)
+        logger.info(f"loaded pretrained bert backbone from {path}")
+    result = trainer.fit(train_ds, valid_ds)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    params = trainer._host_params()
+    save_params(os.path.join(args.output_dir, "bert_align.pt"), params)
+    w, b = sim_eval_weight(params)
+    np.savez(os.path.join(args.output_dir, "sim_eval_weight.npz"),
+             weight=w.numpy(), bias=b.numpy())
+    if trainer.best_params is not None:
+        save_params(os.path.join(args.output_dir, "best_f1.pt"),
+                    trainer.best_params)
+
+    out = {"final_loss": result["history"][-1]["loss"] if result["history"]
+           else None}
+    if valid_ds is not None:
+        out.update(best_f1=result["best"]["best_f1"],
+                   best_threshold=result["best"].get("threshold"))
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_bert_pretrain(argv: List[str]) -> int:
+    """The structure-aware MLM + NSP domain pretrain (the reference's
+    bert_pretrain.py): whole-field, title-match and per-pv masked examples
+    and negative "next" examples from item_info.jsonl, trained on
+    ``BertForPretraining`` with one token type a field."""
+    p = argparse.ArgumentParser(prog="ia-torch bert-pretrain")
+    p.add_argument("--item_info", required=True)
+    p.add_argument("--vocab_path", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--config_file", default=None)
+    p.add_argument("--max_seq_len", type=int, default=254)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--learning_rate", type=float, default=5e-5)
+    p.add_argument("--n_negatives", type=int, default=1)
+    p.add_argument("--max_items", type=int, default=None)
+    _engine_flags(p)
+    args = p.parse_args(argv)
+    _refuse_distributed(args)
+
+    import random as pyrandom
+
+    from item_alignment_torch.data.bert_data import (
+        build_pretrain_examples,
+        pretrain_dataset,
+    )
+    from item_alignment_torch.data.tokenization import load_text_tokenizer
+    from item_alignment_torch.engine.checkpoint import save_params
+    from item_alignment_torch.engine.train import Trainer
+    from item_alignment_torch.models.bert_legacy import BertForPretraining
+
+    device = resolve_device(args.device)
+    tok = load_text_tokenizer(args.vocab_path)
+    items = []
+    with open(args.item_info, encoding="utf-8") as r:
+        for line in r:
+            d = json.loads(line)
+            d.setdefault("cate_name_path", d.get("cate_path", ""))
+            items.append(d)
+            if args.max_items and len(items) >= args.max_items:
+                break
+    rng = pyrandom.Random(args.seed)
+    examples = []
+    for item in items:
+        examples.extend(build_pretrain_examples(
+            item, tok, args.max_seq_len, items, rng, args.n_negatives))
+    logger.info(f"[bert-pretrain] {len(examples)} examples from "
+                f"{len(items)} items")
+    cfg = _legacy_config(args, vocab_size=len(tok), type_vocab_size=5,
+                         dtype="bfloat16" if args.bf16 else "float32")
+    ds = pretrain_dataset(examples, cfg)
+    model = BertForPretraining(cfg, device=device, seed=args.seed)
+    bs = min(args.batch_size, len(ds))
+    tcfg = _train_config(args, max(len(ds) // bs, 1), batch_size=bs)
+    trainer = Trainer(model, tcfg, device=device, log_dir=args.log_dir)
+    result = trainer.fit(ds)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    save_params(os.path.join(args.output_dir, "bert_pretrain.pt"),
+                trainer._host_params())
+    print(json.dumps({"final_loss": result["history"][-1]["loss"],
+                      "examples": len(examples)}))
+    return 0
+
+
+def cmd_pred_bert(argv: List[str]) -> int:
+    """The legacy member's scores for jsonl pair rows: P(same) =
+    softmax(logits)[:, 1] of ``BertAlignModel``, written in the submission
+    format (the JAX CLI's code; its docstring's sigmoid of the sim-eval
+    weight is not what it computes).  A failed kernel build or launch
+    raises: there is no fallback to plain attention."""
+    p = argparse.ArgumentParser(prog="ia-torch pred-bert")
+    p.add_argument("--test_file", required=True)
+    p.add_argument("--vocab_path", required=True)
+    p.add_argument("--params", required=True, help="bert_align.pt")
+    p.add_argument("--config_file", default=None)
+    p.add_argument("--output", required=True)
+    p.add_argument("--threshold", type=float, default=0.4)
+    p.add_argument("--batch_size", type=int, default=8)
+    _device_flag(p)
+    args = p.parse_args(argv)
+
+    from item_alignment_torch.data.bert_data import (
+        align_kwargs,
+        pairs_to_field_dataset,
+    )
+    from item_alignment_torch.data.tokenization import load_text_tokenizer
+    from item_alignment_torch.models.bert_legacy import BertAlignModel
+
+    device = resolve_device(args.device)
+    tok = load_text_tokenizer(args.vocab_path)
+    cfg = _legacy_config(args, vocab_size=len(tok))
+    model = BertAlignModel(cfg, device=device, seed=None).eval()
+    model.load_state_dict(_load_param_file(args.params))
+
+    rows = _read_jsonl(args.test_file)
+    for r in rows:
+        r.setdefault("item_label", 0)
+    ds = pairs_to_field_dataset(rows, tok, config=cfg)
+    bs = min(args.batch_size, len(ds))
+    os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
+    i = 0
+    with open(args.output, "w", encoding="utf-8") as w, \
+            torch.inference_mode():
+        for batch, meta in ds.batches(bs):
+            batch.pop("labels")
+            feed = align_kwargs({k: torch.from_numpy(v).long().to(device)
+                                 for k, v in batch.items()})
+            probs = retry_transient(
+                lambda f=feed: model(**f).probs.float().cpu().numpy())
+            for prob in probs[: meta["n_valid"]]:
+                row = rows[i]
+                w.write(json.dumps({
+                    "src_item_id": row.get("src_item_id", ""),
+                    "src_item_emb": "[0]",
+                    "tgt_item_id": row.get("tgt_item_id", ""),
+                    "tgt_item_emb": f"[{float(prob)}]",
+                    "threshold": args.threshold}) + "\n")
+                i += 1
+    print(json.dumps({"output": args.output, "pairs": i}))
+    return 0
+
+
 def _not_ported(name: str, item: str):
     def cmd(argv: List[str]) -> int:
         raise NotImplementedError(f"ia-torch {name} is not ported yet ({item})")
@@ -1003,13 +1288,12 @@ COMMANDS = {
     "finetune-image": _not_ported("finetune-image", REST_OF_CLI),
     "finetune-multimodal": cmd_finetune_multimodal,
     "finetune-graph": _not_ported("finetune-graph", REST_OF_CLI),
-    "finetune-bert": _not_ported("finetune-bert",
-                                 "ROADMAP Queue 1 #7: The legacy BERT model"),
-    "bert-pretrain": _not_ported("bert-pretrain", REST_OF_CLI),
+    "finetune-bert": cmd_finetune_bert,
+    "bert-pretrain": cmd_bert_pretrain,
     "coca-pretrain": _not_ported("coca-pretrain", REST_OF_CLI),
     "pkgm-pretrain": cmd_pkgm_pretrain,
     "pred-text": cmd_pred_text,
-    "pred-bert": _not_ported("pred-bert", REST_OF_CLI),
+    "pred-bert": cmd_pred_bert,
     "mine": cmd_mine,
     "model-soup": cmd_model_soup,
     "ensemble": cmd_ensemble,

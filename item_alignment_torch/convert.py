@@ -5,19 +5,27 @@ port's state dicts.
 numpy arrays (as ``jax.tree_util.tree_map(np.asarray, variables)`` gives, or
 as a msgpack checkpoint restores) and returns the ``state_dict`` of the
 matching port model (``RobertaBackbone``, ``RobertaOneTower``,
-``RobertaTwoTower``, ``PKGMBackbone``, ``PKGMOneTower``, ``PKGMTwoTower``
-or the ``RobertaImage*`` models, whose ``img2txt`` and ``dense_img`` are
-Dense kernels).  The port's module names follow the Flax tree, so the
-mapping is the tree path joined with dots, plus three leaf renames:
+``RobertaTwoTower``, ``PKGMBackbone``, ``PKGMOneTower``, ``PKGMTwoTower``,
+the ``RobertaImage*`` models, whose ``img2txt`` and ``dense_img`` are
+Dense kernels, the legacy ``BertAlignModel`` and ``BertForPretraining``, and
+``TextCNNTwoTower``).  The port's module names follow the Flax tree, so the
+mapping is the tree path joined with dots, plus these leaf renames:
 
-- Dense ``kernel [in, out]`` -> ``weight [out, in]``
-- LayerNorm ``scale``        -> ``weight``
-- Embed ``embedding``        -> ``weight``
+- Dense ``kernel [in, out]``   -> ``weight [out, in]``
+- Conv ``kernel [K, in, out]`` -> ``nn.Conv1d`` ``weight [out, in, K]``
+  (both are the reverse of all axes, so one transpose serves both)
+- LayerNorm ``scale``          -> ``weight``
+- Embed ``embedding``          -> ``weight``
+- a parameter of the module itself (``BertForPretraining``'s ``mlm_bias``)
+  keeps its name.
 
 ``flax_path`` maps a port parameter name back to its Flax path (a LayerNorm
-module's name contains ``layer_norm``; an embedding table's ends in
-``embeddings``, as RoBERTa's tables, or in ``_emb``, as PKGM's ``ent_emb``
-and ``rel_emb``), and ``flax_from_state_dict`` is the reverse conversion.
+module's name contains ``layer_norm`` or ends in ``_ln``, as the MLM head's
+``transform_ln``; an embedding table's ends in ``embeddings``, as RoBERTa's
+tables, or in ``_emb``, as PKGM's ``ent_emb`` and ``rel_emb``), and
+``flax_from_state_dict`` is the reverse conversion.  The MLM decoder of
+``BertForPretraining`` is the word-embedding table itself and has no entry
+of its own in either tree.
 """
 
 from __future__ import annotations
@@ -29,8 +37,11 @@ import torch
 
 # the module-name endings of the ported models' embedding tables
 EMBED_SUFFIXES = ("embeddings", "_emb")
+# parameters declared by a module itself (``self.param``), not a leaf of a
+# submodule
+OWN_PARAMS = ("mlm_bias",)
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias"}
+         "bias": "bias", **{name: name for name in OWN_PARAMS}}
 
 
 def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -46,7 +57,7 @@ def state_dict_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"unknown Flax leaf {prefix}{name}")
             arr = np.asarray(value, dtype=np.float32)
             if name == "kernel":
-                arr = arr.T
+                arr = arr.T  # Dense [in, out], Conv [K, in, out]
             out[prefix + _LEAF[name]] = torch.tensor(arr)
 
     walk(params, "")
@@ -57,8 +68,10 @@ def flax_path(name: str) -> Tuple[str, ...]:
     """``roberta.encoder.layer_0.attention.query.weight`` ->
     ``("roberta", "encoder", "layer_0", "attention", "query", "kernel")``."""
     *mods, leaf = name.split(".")
+    if leaf in OWN_PARAMS:
+        return tuple(mods) + (leaf,)
     if leaf == "weight":
-        if "layer_norm" in mods[-1]:
+        if "layer_norm" in mods[-1] or mods[-1].endswith("_ln"):
             leaf = "scale"
         elif mods[-1].endswith(EMBED_SUFFIXES):
             leaf = "embedding"

@@ -17,9 +17,17 @@ and with ``config.resume`` continues from the latest checkpoint.  With
 to ``scalars.jsonl`` and ``eval_results.csv`` there, as in the JAX
 ``Trainer``.
 
+``adversarial=(mode, epsilon, alpha)`` with ``noise_spec={kwarg: (L, H)}``
+trains with FREE/PGD/MIX embedding noise (``engine/adversarial.py``), as
+the JAX ``Trainer`` does: one delta ``[train_batch_size, L, H]`` per
+``noise_spec`` entry, zero at the start, is passed to the model as that
+keyword argument; it is a leaf tensor whose gradient comes from the step's
+one ``backward()``, it is not given to the optimizer, and after the step it
+is updated from that gradient with draws seeded from ``(config.seed,
+step)``.  The deltas are part of the train-state checkpoint.
+
 Not ported yet, and raising: a mesh of more than one device (ROADMAP Queue
-1 #4: Parallelism) and adversarial training (Queue 1 #7: The legacy BERT
-model).
+1 #4: Parallelism).
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +45,7 @@ from item_alignment_torch.config import TrainConfig
 from item_alignment_torch.data.datasets import ArrayDataset
 from item_alignment_torch.device import resolve_device
 from item_alignment_torch.engine import metrics as M
+from item_alignment_torch.engine.adversarial import MODES, update_deltas
 from item_alignment_torch.engine.checkpoint import (
     CheckpointManager,
     load_params,
@@ -46,6 +55,11 @@ from item_alignment_torch.engine.observability import EvalWriter, ScalarLogger
 from item_alignment_torch.engine.optim import Optimizer, make_optimizer
 from item_alignment_torch.ops.dropout import fold_seed
 from item_alignment_torch.utils import logger
+
+
+# the site of the adversarial noise draws under a step's seed, apart from
+# the model's dropout sites
+NOISE_SITE = 1 << 20
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -73,20 +87,30 @@ class Trainer:
 
     def __init__(self, model: nn.Module, config: TrainConfig, device=None,
                  batch_transform: Optional[Callable] = None,
-                 adversarial=None, log_dir: Optional[str] = None):
+                 adversarial: Optional[Tuple[str, float, float]] = None,
+                 noise_spec: Optional[Dict[str, Tuple[int, ...]]] = None,
+                 log_dir: Optional[str] = None):
         mesh = config.mesh
         if mesh.data not in (-1, 1) or mesh.fsdp > 1 or mesh.tensor > 1:
             raise NotImplementedError(
                 "the port's Trainer runs on one device; data/fsdp/tensor "
                 "meshes are (ROADMAP Queue 1 #4: Parallelism)")
         if adversarial:
-            raise NotImplementedError(
-                "adversarial training needs the port of engine/adversarial.py "
-                "(ROADMAP Queue 1 #7: The legacy BERT model)")
+            if adversarial[0] not in MODES:
+                raise ValueError(f"unknown adversarial mode {adversarial[0]}")
+            if not noise_spec:
+                raise ValueError("adversarial training needs a noise_spec")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
         self.batch_transform = batch_transform or (lambda b: b)
+        self.adversarial = adversarial
+        self.deltas: Optional[Dict[str, torch.Tensor]] = None
+        if adversarial:
+            self.deltas = {
+                name: torch.zeros((config.train_batch_size,) + tuple(shape),
+                                  device=self.device)
+                for name, shape in noise_spec.items()}
         self.optimizer: Optional[Optimizer] = None
         self.step = 0
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
@@ -118,12 +142,24 @@ class Trainer:
         device, so the host does not wait)."""
         if self.optimizer is None:
             self.setup()
-        out = self.model(**self._device_batch(batch), deterministic=False,
-                         dropout_seed=step_seed(self.config.seed, self.step))
+        seed = step_seed(self.config.seed, self.step)
+        deltas = {}
+        if self.deltas is not None:
+            deltas = {k: d.detach().requires_grad_()
+                      for k, d in self.deltas.items()}
+        out = self.model(**self._device_batch(batch), **deltas,
+                         deterministic=False, dropout_seed=seed)
         loss = _loss_of(out)
         loss.backward()
         self.optimizer.step()
         self.optimizer.zero_grad()
+        if deltas:
+            mode, epsilon, alpha = self.adversarial
+            with torch.no_grad():
+                self.deltas = update_deltas(
+                    mode, {k: d.detach() for k, d in deltas.items()},
+                    {k: d.grad for k, d in deltas.items()}, epsilon, alpha,
+                    seed=fold_seed(seed, NOISE_SITE))
         self.step += 1
         return loss.detach()
 
@@ -224,10 +260,11 @@ class Trainer:
                         stale_evals: int = 0) -> None:
         """Full train-state checkpoint: parameters, optimizer moments (in
         their storage dtype) and step count, ``step`` (which fixes every
-        later dropout seed) and the loop's bookkeeping."""
+        later dropout seed and noise draw), the adversarial deltas when
+        there are any, and the loop's bookkeeping."""
         if self.optimizer is None:
             self.setup()
-        manager.save(self.step, {
+        tree = {
             "params": self.model.state_dict(),
             "opt_state": self.optimizer.state_dict(),
             "step": self.step,
@@ -235,7 +272,12 @@ class Trainer:
                      "best_epoch": int(best_epoch),
                      "best_threshold": float(best_threshold),
                      "stale_evals": int(stale_evals)},
-        })
+        }
+        if self.deltas is not None:
+            # without them a resumed run restarts from zero noise and leaves
+            # the uninterrupted run's path
+            tree["deltas"] = self.deltas
+        manager.save(self.step, tree)
 
     def restore_checkpoint(self, manager: CheckpointManager,
                            step: Optional[int] = None) -> Dict[str, Any]:
@@ -247,6 +289,9 @@ class Trainer:
         self.model.load_state_dict(tree["params"])
         self.optimizer.load_state_dict(tree["opt_state"])
         self.step = int(tree["step"])
+        if self.deltas is not None:
+            self.deltas = {k: tree["deltas"][k].to(self.device)
+                           for k in self.deltas}
         meta = tree["meta"]
         logger.info(f"[resume] restored step {self.step} (epoch "
                     f"{meta['epoch']}, best_f1 {meta['best_f1']:.4f})")

@@ -1,6 +1,11 @@
-"""Model families ported so far: the RoBERTa and PKGM text models and the
-multimodal RobertaImage one-/two-tower."""
+"""Model families ported so far: the RoBERTa, PKGM and TextCNN text
+models, the legacy 5-field BERT and the multimodal RobertaImage
+one-/two-tower."""
 
+from item_alignment_torch.models.bert_legacy import (  # noqa: F401
+    BertAlignModel,
+    BertForPretraining,
+)
 from item_alignment_torch.models.multimodal import (  # noqa: F401
     RobertaImageBackbone,
     RobertaImageOneTower,
@@ -14,12 +19,13 @@ from item_alignment_torch.models.text import (  # noqa: F401
     RobertaBackbone,
     RobertaOneTower,
     RobertaTwoTower,
+    TextCNN,
+    TextCNNTwoTower,
 )
 
 # model-name substrings of the families still to port, in the JAX package's
 # dispatch order (item_alignment_tpu/models/__init__.py:build_model)
 NOT_PORTED = (
-    ("textcnn", "ROADMAP Queue 1 #8: TextCNN"),
     ("coca", "ROADMAP Queue 1 #11: CoCa"),
     ("vit", "ROADMAP Queue 1 #9: The image towers"),
     ("resnet", "ROADMAP Queue 1 #9: The image towers"),
@@ -37,6 +43,8 @@ def build_model(config, device=None, seed=0):
     if "pkgm" in name:
         cls = PKGMOneTower if one_tower else PKGMTwoTower
         return cls(config, device=device, seed=seed)
+    if "textcnn" in name:
+        return TextCNNTwoTower(config, device=device, seed=seed)
     if "roberta_image" in name:
         cls = RobertaImageOneTower if one_tower else RobertaImageTwoTower
         return cls(config, device=device, seed=seed)

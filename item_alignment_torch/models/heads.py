@@ -51,15 +51,17 @@ def _head_rate(cfg: ModelConfig) -> float:
 
 
 class VecSimClassificationHead(nn.Module):
-    """Shared dense+tanh on two summary vectors, then a similarity score.
+    """Shared dense+tanh on two summary vectors (``in_features`` wide,
+    by default ``config.num_cls_features``), then a similarity score.
 
     probs: inner_product -> sigmoid(sim); cosine -> (sim+1)/2;
     l1/l2 -> exp(-sim)."""
 
-    def __init__(self, config: ModelConfig):
+    def __init__(self, config: ModelConfig, in_features=None):
         super().__init__()
         self.config = config
-        self.dense = Dense(config.num_cls_features, config.hidden_size)
+        self.dense = Dense(in_features or config.num_cls_features,
+                           config.hidden_size)
         self.rate = _head_rate(config)
 
     def forward(self, features_1, features_2, deterministic: bool = True,

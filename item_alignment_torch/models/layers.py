@@ -120,7 +120,8 @@ def init_weights(module: nn.Module, std: float,
                  generator: torch.Generator) -> None:
     """Flax's initialisers: embeddings normal(std); Dense kernels
     normal(init_std) or LeCun normal (truncated at 2 sigma), biases 0;
-    LayerNorm scale 1, bias 0."""
+    ``nn.Conv1d`` kernels LeCun normal over a fan-in of in_channels x
+    kernel size, biases 0; LayerNorm scale 1, bias 0."""
     for m in module.modules():
         if isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, std, generator=generator)
@@ -132,6 +133,13 @@ def init_weights(module: nn.Module, std: float,
                 dev = (1.0 / m.weight.shape[1]) ** 0.5 / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, 0.0, dev, -2.0 * dev,
                                       2.0 * dev, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Conv1d):
+            fan_in = m.weight.shape[1] * m.weight.shape[2]
+            dev = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, dev, -2.0 * dev, 2.0 * dev,
+                                  generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, LayerNorm):

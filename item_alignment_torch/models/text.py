@@ -1,9 +1,10 @@
-"""RoBERTa and PKGM text models: backbone, one-tower cross-encoder,
-two-tower.
+"""RoBERTa, PKGM and TextCNN text models: backbone, one-tower
+cross-encoder, two-tower.
 
 Port of ``item_alignment_tpu/models/text.py`` (``combine_cls_layers``,
 ``RobertaBackbone``, ``RobertaOneTower``, ``RobertaTwoTower``,
-``PKGMBackbone``, ``PKGMOneTower``, ``PKGMTwoTower``).  The model
+``PKGMBackbone``, ``PKGMOneTower``, ``PKGMTwoTower``, ``TextCNN``,
+``TextCNNTwoTower``).  The model
 classes take ``device`` (None means ``"cuda"``) and ``seed``, the seed of
 the ``torch.Generator`` that draws the initial weights; ``seed=None`` skips
 the draw for callers that load a state dict next.  Module and parameter
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from item_alignment_torch.config import ModelConfig
@@ -37,7 +39,7 @@ from item_alignment_torch.models.heads import (
 from item_alignment_torch.models.layers import init_weights
 from item_alignment_torch.models.losses import pair_loss
 from item_alignment_torch.models.outputs import PairClassifierOutput
-from item_alignment_torch.ops.dropout import fold_seed
+from item_alignment_torch.ops.dropout import dropout, fold_seed
 
 Device = Optional[Union[str, torch.device]]
 
@@ -297,3 +299,91 @@ class PKGMTwoTower(nn.Module):
                              fold_seed(dropout_seed, 1))[-1]
         return _two_tower_output(self, out_1, out_2, labels, deterministic,
                                  dropout_seed)
+
+
+class TextCNN(nn.Module):
+    """Two-channel TextCNN: a trainable and a frozen ``RobertaEmbeddings``
+    (the second detached, so its table gets no gradient; AdamW still
+    decays it, as it does JAX's zero gradient), concatenated to ``[B, S,
+    2H]``; for each filter size K a VALID ``Conv1d`` of ``num_filters``
+    channels, ReLU and a max over all ``S - K + 1`` windows (padding
+    included); the pooled features concatenated, then dropout.  Runs in
+    fp32 whatever ``dtype`` says, as JAX's does."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.config = config
+        self.embedding1 = RobertaEmbeddings(config)
+        self.embedding2 = RobertaEmbeddings(config)
+        for k in config.filter_sizes:
+            self.add_module(f"conv_{k}", nn.Conv1d(
+                2 * config.hidden_size, config.num_filters, k))
+
+    @property
+    def num_features(self) -> int:
+        return self.config.num_filters * len(self.config.filter_sizes)
+
+    def forward(self, input_ids, deterministic: bool = True,
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        cfg = self.config
+        emb1 = self.embedding1(input_ids, deterministic=deterministic,
+                               dropout_seed=fold_seed(dropout_seed, 0))
+        emb2 = self.embedding2(input_ids, deterministic=deterministic,
+                               dropout_seed=fold_seed(dropout_seed, 1))
+        x = torch.cat((emb1, emb2.detach()), dim=-1).transpose(1, 2)
+        feat = torch.cat([F.relu(getattr(self, f"conv_{k}")(x)).amax(dim=2)
+                          for k in cfg.filter_sizes], dim=-1)
+        return dropout(feat, cfg.hidden_dropout_prob,
+                       fold_seed(dropout_seed, 2), deterministic)
+
+
+class TextCNNTwoTower(nn.Module):
+    """One shared ``TextCNN`` over both items; the ``vec_sim`` or the
+    two-tower ``cls`` head.  Under ``cls`` the embeds are the two
+    probability columns (the reference's quirk, as the one-tower's).  The
+    masks and token types are accepted and unused: the reference's TextCNN
+    reads input ids only."""
+
+    def __init__(self, config: ModelConfig, device: Device = None,
+                 seed: Optional[int] = 0):
+        super().__init__()
+        self.config = config
+        dev = resolve_device(device)
+        with torch.device(dev):
+            self.textcnn = TextCNN(config)
+            width = self.textcnn.num_features
+            if config.classification_method == "vec_sim":
+                self.classifier = VecSimClassificationHead(config, width)
+            else:
+                self.classifier = TwoTowerClassificationHead(
+                    width, dropout_rate=config.hidden_dropout_prob,
+                    num_labels=config.num_labels)
+        _initialise(self, config, dev, seed)
+
+    def forward(self, input_ids_1, input_ids_2, attention_mask_1=None,
+                attention_mask_2=None, token_type_ids_1=None,
+                token_type_ids_2=None, labels=None,
+                deterministic: bool = True,
+                dropout_seed: Optional[int] = None) -> PairClassifierOutput:
+        cfg = self.config
+        f1 = self.textcnn(input_ids_1, deterministic,
+                          fold_seed(dropout_seed, 0))
+        f2 = self.textcnn(input_ids_2, deterministic,
+                          fold_seed(dropout_seed, 1))
+        head_seed = fold_seed(dropout_seed, 2)
+        if cfg.classification_method == "vec_sim":
+            src_embeds, tgt_embeds, logits, probs = self.classifier(
+                f1, f2, deterministic, head_seed)
+        else:
+            _, _, logits, full_probs = self.classifier(f1, f2, deterministic,
+                                                       head_seed)
+            src_embeds = full_probs[:, 0]
+            tgt_embeds = full_probs[:, 1]
+            probs = full_probs[:, 1]
+        loss = None
+        if labels is not None:
+            loss = pair_loss(cfg.loss_type, logits, probs, labels, src_embeds,
+                             tgt_embeds, cfg.loss_margin, cfg.num_labels)
+        return PairClassifierOutput(loss=loss, logits=logits, probs=probs,
+                                    src_embeds=src_embeds,
+                                    tgt_embeds=tgt_embeds)

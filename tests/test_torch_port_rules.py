@@ -16,6 +16,10 @@ from item_alignment_torch.config import ModelConfig, TrainConfig
 from item_alignment_torch.engine.inference import TwoTowerInference
 from item_alignment_torch.engine.train import Trainer
 from item_alignment_torch.kge import KGETrainer, KnowledgeGraph, make_kge_model
+from item_alignment_torch.models.bert_legacy import (
+    BertAlignModel,
+    BertForPretraining,
+)
 from item_alignment_torch.models.multimodal import (
     RobertaImageOneTower,
     RobertaImageTwoTower,
@@ -26,6 +30,7 @@ from item_alignment_torch.models.text import (
     RobertaBackbone,
     RobertaOneTower,
     RobertaTwoTower,
+    TextCNNTwoTower,
 )
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -82,7 +87,10 @@ def test_port_imports_no_jax():
             "item_alignment_torch/data/images.py",
             "item_alignment_torch/aggregate/ensemble.py",
             "item_alignment_torch/aggregate/soup.py",
-            "item_alignment_torch/aggregate/submit.py"} <= names
+            "item_alignment_torch/aggregate/submit.py",
+            "item_alignment_torch/models/bert_legacy.py",
+            "item_alignment_torch/engine/adversarial.py",
+            "item_alignment_torch/data/bert_data.py"} <= names
     bad = {f"{p.relative_to(ROOT)}: {name}" for p in files
            for name in _imported_roots(p) if name in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -179,7 +187,8 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
     calls = [[name] for name in sorted(cli.COMMANDS)
              if name not in ("prepare", "finetune-text", "mine", "pred-text",
                              "pkgm-pretrain", "finetune-multimodal",
-                             "ensemble", "model-soup")]
+                             "ensemble", "model-soup", "finetune-bert",
+                             "bert-pretrain", "pred-bert")]
     # --with_image with no image_embedding.json to read: dumping one needs
     # an image tower
     calls += [["prepare", "--data_dir", "d", "--output_dir",
@@ -191,7 +200,7 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
                                  "[MASK]"]))
     calls += [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
                str(tmp_path), "--device", "cpu", "--model_name", name]
-              for name in ("textcnn", "vit_base", "gcn")]
+              for name in ("resnetv2_50", "nfnet_l0", "vit_base", "gcn")]
     calls += [["finetune-multimodal", "--data_dir", str(tmp_path),
                "--vocab_path", str(tmp_path), "--device", "cpu",
                "--model_name", "coca_base"]]
@@ -202,7 +211,14 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
                str(tmp_path), "--device", "cpu", "--output_dir",
                str(tmp_path / "out"), "--config_file",
                str(tmp_path / "tiny.json"), "--do_train", "--distributed"]]
-    assert len(calls) == 7 + 3 + 3 + 1 + 1
+    # the legacy member's trainers on a mesh
+    calls += [["finetune-bert", "--train_file", str(tmp_path / "t.jsonl"),
+               "--vocab_path", str(tmp_path), "--device", "cpu",
+               "--distributed"],
+              ["bert-pretrain", "--item_info", str(tmp_path / "i.jsonl"),
+               "--vocab_path", str(tmp_path), "--output_dir",
+               str(tmp_path / "pre"), "--device", "cpu", "--distributed"]]
+    assert len(calls) == 4 + 3 + 4 + 1 + 1 + 2
     for argv in calls:
         with pytest.raises(NotImplementedError) as e:
             cli.main(argv)
@@ -298,6 +314,11 @@ def _kge_npz(tmp: pathlib.Path) -> str:
     lambda tmp: RobertaImageTwoTower(IMAGE_TINY.replace(
         interaction_type="two_tower")),
     lambda tmp: load_state_dicts([]),
+    lambda tmp: BertAlignModel(TINY.replace(model_name="bert_legacy")),
+    lambda tmp: BertForPretraining(TINY.replace(model_name="bert_legacy",
+                                                type_vocab_size=5)),
+    lambda tmp: TextCNNTwoTower(TINY.replace(model_name="textcnn",
+                                             num_filters=4)),
 ])
 def test_entry_points_default_to_cuda(build, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -238,9 +238,13 @@ def test_trainer_raises_on_what_is_not_ported(kw, match):
     model = ttext.RobertaOneTower(TModel(**TINY), device="cpu", seed=0)
     with pytest.raises(NotImplementedError, match=match):
         TTrainer(model, TTrain(**kw), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 #7: The legacy BERT model"):
-        TTrainer(model, TTrain(), device="cpu", adversarial=("free", 1.0, 1.0))
+    # adversarial training is ported (engine/adversarial.py): it builds,
+    # with zero deltas of the noise spec's shapes
+    trainer = TTrainer(model, TTrain(train_batch_size=2), device="cpu",
+                       adversarial=("FREE", 1.0, 1.0),
+                       noise_spec={"noise": (3, 32)})
+    assert trainer.deltas["noise"].shape == (2, 3, 32)
+    assert not trainer.deltas["noise"].any()
 
 
 def test_metrics_match_jax():
