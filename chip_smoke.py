@@ -13,7 +13,13 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19:
    ``cuobjdump -sass``, the branches in each stretch between two batches of
    products that holds exponentials (the per-score work) of #1's bf16
    kernels and of #4's (with and without dropout, every head dim): there
-   must be none, and #4's bf16 kernels must spill no register.
+   must be none, and #4's bf16 kernels must spill no register.  The fp32
+   dQ and dK/dV kernels (``flash_dq_f32``, ``flash_dkv_f32``: #3's fp32
+   route, #5/#6 in fp32), every head dim with and without dropout: their
+   dynamic shared memory, and from the SASS their TF32 tensor-core
+   products (HMMA.1688.F32.TF32) and scalar FMAs: each must hold TF32
+   products and fewer than a third as many FFMAs (no scalar-FMA product
+   loop), and none may spill.
 3. kernel: the serving kernel (#1) against its plain PyTorch version on the
    card at the serving shapes (B=64, S=510 and S=255, N=16, H=64, bf16), at
    S=510 on the split views of a fused QKV projection, and at small fp32
@@ -38,7 +44,14 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19:
    per batch row and head against that slice's max|ref|, the large-norm
    row as a whole against its own); the keep bits read back from the three
    CUDA kernels (#4, #6, #5) equal the plain hash bit for bit, and the
-   dropped fraction is near 26/256.
+   dropped fraction is near 26/256.  fp32 off the 1/8 grid (randn q, k,
+   v and g, no x30 row, a fully masked row) at B=4, S=510, N=16, H=64 and
+   B=2, S=300, N=4, H=128, and on views whose rows are not 16-byte
+   aligned (4-byte copies), rate 0 and 0.1: dq, dk and dv within 1e-4 of
+   each slice's max|ref| against the plain version on float64-upcast
+   inputs (the fully masked row against the plain version in fp32), and
+   the same plain version in fp32 with TF32 products must read above that
+   limit (the witness that the inputs tell fp32 from TF32).
    Times at the train shape B=40, S=510 beside the plain versions,
    ``scaled_dot_product_attention`` with dropout 0.1 (forward, and its
    backward alone; a yardstick only) and the least time the card could
@@ -67,7 +80,8 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19:
 11. blockwise kernels: the long-sequence forward (#4), dQ (#5) and dK/dV (#6)
    kernels against their plain versions at B=2, S=1024 and S=2048, N=16,
    H=64 in bf16, at S=1020 (a ragged last tile), and at small fp32 and
-   H=32/128 shapes, held as in phase 6; keep bits of all three kernels
+   H=32/128 shapes, held as in phase 6, and fp32 off the grid at B=2,
+   S=600, N=4, H=64 as in phase 6; keep bits of all three kernels
    against the plain hash; at B=4, S=510, rate 0 and 0.1, #4's out and lse
    against a full-tile softmax in float64 computed on the card
    (``torch.logsumexp`` of the scores, the keep bits of
@@ -171,7 +185,8 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19:
    fp32 (scripts/train.sh step 8) from (a)'s ``bert_pretrain.pt``, batch 8,
    6 steps and an eval of 40 rows; then ``--bf16 --adversarial FREE`` 4
    steps, and phase 8's timing of 3 steps and one profiled step through a
-   ``Trainer`` with FREE noise.  (f) rows whose row 3 holds a pvs pair of
+   ``Trainer`` with FREE noise, then the same in fp32 with MIX noise (the
+   attention kernels' device time one by one).  (f) rows whose row 3 holds a pvs pair of
    512 real tokens: the data layer's build raises the ``ValueError`` on
    the host, before any device work.  (c) ``pred-bert`` on the 40 test
    pairs with (b)'s fp32 weights: one line a pair, the file equal to a
@@ -182,8 +197,10 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19:
    #1, #2's forward and #3's dq, dk and dv (dropout 0 and 0.1, and their
    keep bits) against their plain versions at N=12, H=64, B=8 and S=512,
    150, 50 and 20, in bf16 and fp32, and #2's and #3's at (a)'s B=16,
-   S=256 in bf16, held as phases 3 and 6 hold them, and each timed at
-   B=8, S=512 beside SDPA and the bound.
+   S=256 in bf16, held as phases 3 and 6 hold them, fp32 off the grid
+   at B=8, S=512 as in phase 6, and each timed at B=8, S=512 beside SDPA
+   and the bound, #3's route with dQ and dK/dV alone (TFLOP/s and the
+   ratio to their bounds: in fp32 those of 3xTF32).
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -207,6 +224,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -275,6 +293,10 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, fp32 without them, HBM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# TF32 tensor cores (dense): an fp32-accurate product there costs three
+# TF32 products (3xTF32), so an fp32 function's least time is the lesser of
+# FLOP / 67 TFLOP/s and 3 FLOP / 495 TFLOP/s
+PEAK_TF32 = 495e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 KERNEL_CASES = [  # (label, B, S, N, H, dtype, q/k/v split from one fused
     # QKV projection); the first is the main shape
@@ -336,7 +358,7 @@ def phase_card() -> str:
 def _ptxas_summary(log: str) -> str:
     """kernel<template integers>: registers and spill bytes, from nvcc
     -Xptxas -v."""
-    out, name, spill = [], "?", ""
+    out, name, spill, stack = [], "?", "", ""
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) "
                       r"'?(\w+)", ln)
@@ -348,14 +370,15 @@ def _ptxas_summary(log: str) -> str:
                 k.group(2), "") if k else ""
             ints = ",".join(re.findall(r"L[ib](\d+)E", k.group(3))) if k else ""
             name = f"{k.group(1)}{dtype}<{ints}>" if k else m.group(1)
-        m = re.search(r"(\d+) bytes spill stores", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
         if m:
-            spill = m.group(1)
+            stack, spill = m.group(1), m.group(2)
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out.append(f"{name} {m.group(1)} regs"
-                       + (f" spill {spill} B" if spill not in ("", "0") else ""))
-            spill = ""
+                       + (f" spill {spill} B" if spill not in ("", "0") else "")
+                       + (f" stack {stack} B" if stack not in ("", "0") else ""))
+            spill = stack = ""
     return "; ".join(out)
 
 
@@ -392,6 +415,31 @@ def phase_build() -> None:
         _build.BUILD_INFO["flash_blockwise_fwd"]["log"]).split("; ")
         if k.startswith("flash_fwd_bf16") and "spill" in k]
     check(not spills, f"#4's bf16 kernels spill registers: {spills}")
+    # the fp32 backward kernels (#3's fp32 route, #5 and #6 in fp32): TF32
+    # products on the tensor cores at every head dim, with and without
+    # dropout, no scalar-FMA product loop and no spill
+    bwd = _build.BUILD_INFO["flash_blockwise_bwd"]
+    smem = _build.load("flash_blockwise_bwd").ia_flash_bwd_smem_bytes
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.restype = ctypes.c_int
+    print("  flash_blockwise_bwd.cu fp32 dynamic shared memory a block: "
+          + ", ".join(f"{name}<{h}> {smem(i, h)} B" for i, name in
+                      ((2, "dq"), (3, "dkv")) for h in _launch.HEAD_DIMS),
+          flush=True)
+    found = {}
+    for kernel in ("flash_dq_f32", "flash_dkv_f32"):
+        counts = tf32_products(bwd["path"], kernel)
+        found.update(counts)
+        print(f"  {kernel} sass: " + ", ".join(
+            f"<{name.split('<')[1]} {hmma} HMMA.1688.F32.TF32, {ffma} FFMA"
+            for name, (hmma, ffma) in counts.items()), flush=True)
+    check(len(found) == 12 and all(hmma > 0 and 3 * ffma < hmma
+                                   for hmma, ffma in found.values()),
+          f"the fp32 backward kernels: TF32 products and FFMAs {found}")
+    spills = [k for k in _ptxas_summary(bwd["log"]).split("; ")
+              if k.startswith(("flash_dq_f32", "flash_dkv_f32"))
+              and ("spill" in k or "stack" in k)]
+    check(not spills, f"the fp32 backward kernels spill: {spills}")
 
 
 def _cuobjdump() -> str:
@@ -432,6 +480,33 @@ def score_branches(lib: str, kernel: str) -> dict:
         elif re.search(r"\b(BRA|BSSY)\b", ln):
             stretch[1] += 1
     return out
+
+
+def tf32_products(lib: str, kernel: str) -> dict:
+    """For each instantiation of the template ``kernel`` in ``lib``: the
+    TF32 tensor-core products (HMMA.1688.F32.TF32, one mma.sync m16n8k8)
+    and the scalar FMAs (FFMA) in its SASS.  A product on the tensor cores
+    is three HMMA (3xTF32); a scalar-FMA product loop would show as FFMAs
+    beside few or no HMMA."""
+    sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            k = re.search(kernel + r"I((?:L[ib]\d+E)+)E", m.group(1))
+            name = (f"{kernel}<{','.join(re.findall(r'L[ib](\d+)E', k.group(1)))}>"
+                    if k else None)
+            if name:
+                out[name] = [0, 0]
+            continue
+        if name is None:
+            continue
+        if "HMMA.1688.F32.TF32" in ln:
+            out[name][0] += 1
+        elif re.search(r"\bFFMA\b", ln):
+            out[name][1] += 1
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def _kernel_inputs(B, S, N, H, dt, fused, gen):
@@ -684,14 +759,16 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
             / b.float().abs().max().clamp_min(1e-30)).item()
 
 
-def _slice_rel(a: torch.Tensor, b: torch.Tensor, big: int):
+def _slice_rel(a: torch.Tensor, b: torch.Tensor, big=None):
     """max|a - b| / max|b| over each (batch row, head) slice of two
     ``[B, S, N, H]`` tensors, and over the whole of batch row ``big`` (the
-    x30 row): the worst value and its (b, n), n "all" for row ``big``."""
+    x30 row, if any): the worst value and its (b, n), n "all" for row
+    ``big``."""
     err = (a.float() - b.float()).abs().amax(dim=(1, 3))
     ref = b.float().abs().amax(dim=(1, 3))
     rel = err / ref.clamp_min(1e-30)
-    rel[big] = err[big].max() / ref[big].max().clamp_min(1e-30)
+    if big is not None:
+        rel[big] = err[big].max() / ref[big].max().clamp_min(1e-30)
     row, n = divmod(int(rel.argmax()), rel.shape[1])
     return rel[row, n].item(), (row, "all" if row == big else n)
 
@@ -845,6 +922,85 @@ def phase_train_kernels(gen: torch.Generator, cases=TRAIN_CASES,
     return dict(fwd_err=err["fwd"], bwd_err=err["bwd"])
 
 
+# fp32 cases off the 1/8 grid (label, B, S, N, H, views whose rows are not
+# 16-byte aligned): phases 6, 11 and 19e's fp32 shapes at H=64, and in
+# phase 6 one H=128 case and one of views that the kernels load by 4-byte
+# copies
+OFFGRID_TRAIN = [("fp32 off-grid S=510", 4, 510, 16, 64, False),
+                 ("fp32 off-grid H=128", 2, 300, 4, 128, False),
+                 ("fp32 off-grid unaligned views", 2, 130, 4, 64, True)]
+OFFGRID_BLOCKWISE = [("fp32 off-grid S=600", 2, 600, 4, 64, False)]
+OFFGRID_LEGACY = [("fp32 off-grid S=512 N=12", 8, 512, 12, 64, False)]  # 19e
+
+
+def _offgrid_inputs(B, S, N, H, unaligned, gen):
+    """fp32 q, k, v and g from ``randn`` as they come: off the 1/8 grid of
+    ``_train_inputs``, so most q.k products are not exact in TF32; no x30
+    row; a ragged mask with a fully masked batch row (1).  ``unaligned``:
+    each a view of H columns at an offset of one in rows of H + 1."""
+    q, k, v, g = (torch.randn(B, S, N, H + unaligned, device="cuda",
+                              generator=gen)[..., int(unaligned):]
+                  for _ in range(4))
+    mask = ragged_mask(B, S, gen, lo=8)
+    mask[1] = 0
+    return q, k, v, g, make_attention_bias(mask)
+
+
+def phase_offgrid_fp32(gen: torch.Generator, fam, cases) -> list:
+    """A family's fp32 dq, dk and dv on ``_offgrid_inputs`` against its
+    plain version run on float64-upcast inputs (with the kernels' own lse
+    and delta), within ``GRAD_TOL[float32]`` of each (batch row, head)
+    slice's max|ref|, at rate 0 and 0.1.  The fully masked batch row is
+    held against the plain version in fp32 (TF32 off) instead: in fp32 the
+    -1e9 bias swallows q.k, so the contract gives that row uniform
+    attention, while float64 keeps q.k and computes another function there.
+    The TF32 witness: the same plain version in fp32 with TF32 matrix
+    products must read above that limit, or these inputs could not tell an
+    fp32-accurate kernel from a TF32 one.  TF32 is off again afterwards.
+    Returns the worst absolute errors of (dq, dk, dv)."""
+    tol = GRAD_TOL[torch.float32]
+    worst = [0.0, 0.0, 0.0]
+    for label, B, S, N, H, unaligned in cases:
+        q, k, v, g, bias = _offgrid_inputs(B, S, N, H, unaligned, gen)
+        for rate in (0.0, 0.1):
+            seed = 4321 + S
+            out, lse = fam.fwd(rate, seed, q, k, v, bias)
+            grads = fam.bwd(rate, seed, q, k, v, bias, g, out, lse)
+            delta = cat.attention_delta(g, out)
+            ref = fam.bwd_ref(rate, seed, q.double(), k.double(), v.double(),
+                              bias, g.double(), lse, delta.double())
+            plain = fam.bwd_ref(rate, seed, q, k, v, bias, g, lse, delta)
+            for r, p32 in zip(ref, plain):
+                r[1] = p32[1]  # the fully masked row
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = fam.bwd_ref(rate, seed, q, k, v, bias, g, lse, delta)
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tag = f"{fam.name} {label} rate {rate}"
+            err, at, what = max((*_slice_rel(a, b), name) for name, a, b in
+                                zip(("dq", "dk", "dv"), grads, ref))
+            wit, wat, wwhat = max((*_slice_rel(a, b), name) for name, a, b
+                                  in zip(("dq", "dk", "dv"), tf32, ref))
+            check(all(bool(torch.isfinite(x).all()) for x in grads),
+                  f"{tag}: non-finite")
+            check(err <= tol, f"{tag}: {what} err {err} > {tol} of max|ref| "
+                  f"in the slice (b, n) = {at}")
+            check(wit > tol, f"{tag}: the TF32 plain version reads {wit} <= "
+                  f"{tol}: these inputs do not tell fp32 from TF32")
+            worst = [max(w, (a.double() - b).abs().max().item())
+                     for w, a, b in zip(worst, grads, ref)]
+            print(f"{tag} (B={B} S={S} N={N} H={H}, randn inputs, a fully "
+                  f"masked row) vs the plain version in float64: dq/dk/dv "
+                  f"worst slice err {err:.3e} of its max|ref| ({what} at "
+                  f"(b, n) = {at}; tol {tol:g}); the TF32 witness (plain "
+                  f"fp32 with TF32 products) {wit:.3e} ({wwhat} at {wat}), "
+                  f"above the limit", flush=True)
+        del q, k, v, g, out, grads, ref, plain, tf32
+    return worst
+
+
 def full_tile_reference(rate: float, seed: int, q, k, v, bias):
     """Attention with inverted dropout as one full-tile softmax in float64,
     sharing no code with the kernels or their plain versions: the scores
@@ -894,6 +1050,8 @@ def phase_blockwise_vs_full_tile(gen: torch.Generator) -> None:
 
 def _bound(nbytes: int, flops: int, dt) -> dict:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    if dt == torch.float32:
+        t_ops = min(t_ops, 3 * flops / PEAK_TF32 * 1e3)
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -1032,7 +1190,22 @@ def time_train_kernels(gen: torch.Generator, B: int = 40, S: int = 510,
           f"{bwd_ms:.4f} ms), its bound {route['bound_ms']:.4f} ms "
           f"({route['bound_by']}) against the function's "
           f"{rows['bwd']['bound_ms']:.4f} ms", flush=True)
-    return rows
+    # dQ (three products) and dK/dV (four) alone, against their own bounds
+    # and the function's; in fp32 the bounds are those of 3xTF32
+    for what, ms, products, n_tensors in (("#5 dQ", parts[0], 3, 5),
+                                          ("#6 dK/dV", parts[1], 4, 6)):
+        flops = 2 * products * B * N * S * S * H
+        own = _bound(n_tensors * tensor + stats + 4 * B * N * S, flops, dt)
+        print(f"{name} timing bwd {what} alone ({dname}): {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {ms / own['bound_ms']:.2f} x "
+              f"its bound {own['bound_ms']:.4f} ms ({own['bound_by']}), "
+              f"{ms / rows['bwd']['bound_ms']:.2f} x the function's "
+              f"{rows['bwd']['bound_ms']:.4f} ms", flush=True)
+    print(f"{name} timing bwd route (delta + dQ + dK/dV, one call) "
+          f"{bwd_ms:.4f} ms = {bwd_ms / sdpa_bwd:.3f} x sdpa's backward "
+          f"{sdpa_bwd:.4f} ms, {bwd_ms / rows['bwd']['bound_ms']:.2f} x the "
+          f"function's bound", flush=True)
+    return dict(rows, parts=parts)
 
 
 def zero_counters() -> None:
@@ -1323,6 +1496,11 @@ def phase_remat_check(cfg: ModelConfig, seed: int, gen: torch.Generator) -> None
 # device kernels by what they compute, from their names
 KERNEL_GROUPS = (("attention kernels", ("attn_", "flash_")),
                  ("matrix products", ("gemm", "xmma", "nvjet", "cutlass")))
+# the attention kernels one by one: #1, #4 (which runs #2's contract), the
+# delta kernel, #5 and #6 (which run #3's), by dtype
+ATTENTION_KERNELS = ("attn_fwd_bf16", "attn_fwd_f32", "flash_fwd_bf16",
+                     "flash_fwd_f32", "attn_delta", "flash_dq_bf16",
+                     "flash_dq_f32", "flash_dkv_bf16", "flash_dkv_f32")
 
 
 def profile_step(step, step_ms: float) -> str:
@@ -1339,13 +1517,18 @@ def profile_step(step, step_ms: float) -> str:
         step()
         torch.cuda.synchronize()
     groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    attention = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), "other")
-        groups[group] += e.time_range.elapsed_us() / 1e3
+        ms = e.time_range.elapsed_us() / 1e3
+        groups[group] += ms
+        kernel = next((k for k in ATTENTION_KERNELS if k in name), None)
+        if kernel:
+            attention[kernel] = attention.get(kernel, 0.0) + ms
     busy = sum(groups.values())
     if busy == 0.0:
         return "device time not measured (the profiler recorded no kernels)"
@@ -1355,6 +1538,9 @@ def profile_step(step, step_ms: float) -> str:
     return (f"device busy {busy:.2f} ms of {step_ms:.2f} ms/step (idle share "
             f"{1 - busy / step_ms:.3f}): " + ", ".join(
                 f"{g} {ms:.2f} ms" for g, ms in groups.items())
+            + "; attention by kernel: " + ", ".join(
+                f"{k} {ms:.3f} ms ({ms / busy:.1%})"
+                for k, ms in sorted(attention.items(), key=lambda x: -x[1]))
             + "; host ops by own device time: "
             + ", ".join(f"{name} {ms:.2f} ms" for ms, name in ops))
 
@@ -2861,6 +3047,28 @@ def _legacy_probs(cfg: ModelConfig, state: dict, ds) -> dict:
     return probs
 
 
+def legacy_step_profile(cfg: ModelConfig, seed: int, mode: str, ds) -> tuple:
+    """phase 8's timing of ``finetune-bert`` steps through a ``Trainer`` at
+    batch 8 in ``cfg``'s dtype with ``mode`` noise (FREE, PGD or MIX) on
+    the batches of ``ds``, the first a warm-up, then one step under
+    ``torch.profiler``: (ms/step, the profile's text)."""
+    H = cfg.hidden_size
+    trainer = Trainer(
+        BertAlignModel(cfg, seed=seed),
+        TrainConfig(seed=seed, train_batch_size=LEGACY_BATCH,
+                    log_steps=10 ** 9, optimizer=OptimizerConfig(
+                        learning_rate=2e-5, total_steps=16000)),
+        batch_transform=align_kwargs,
+        adversarial=(mode, 1e-2, 1e-2),
+        noise_spec={"pvs_noise": (512, H), "title_noise": (150, H)}
+    ).setup()
+    out = _step_profile(trainer, [b for b, _ in ds.batches(LEGACY_BATCH)])
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_legacy(seed: int, card: str) -> tuple:
     """Phase 19: the legacy 5-field BERT member and TextCNN at
     configs/roberta_base.json's width (12 layers, hidden 768, 12 heads of
@@ -2962,21 +3170,10 @@ def phase_legacy(seed: int, card: str) -> tuple:
         losses_16, ms_16 = _finetune_ms(root / "logs_ft16")
         check(len(losses_16) == 4 and all(map(math.isfinite, losses_16)),
               f"phase 19b: bf16 losses {losses_16}")
-        bcfg = mcfg.replace(dtype="bfloat16")
-        H = bcfg.hidden_size
-        trainer = Trainer(
-            BertAlignModel(bcfg, seed=seed),
-            TrainConfig(seed=seed, train_batch_size=LEGACY_BATCH,
-                        log_steps=10 ** 9, optimizer=OptimizerConfig(
-                            learning_rate=2e-5, total_steps=16000)),
-            batch_transform=align_kwargs,
-            adversarial=("FREE", 1e-2, 1e-2),
-            noise_spec={"pvs_noise": (512, H), "title_noise": (150, H)}
-        ).setup()
         bf16_ds = pairs_to_field_dataset(
             rows[n_tr + n_va:n_tr + n_va + 32], tok)
-        step_ms, profiled = _step_profile(
-            trainer, [b for b, _ in bf16_ds.batches(LEGACY_BATCH)])
+        step_ms, profiled = legacy_step_profile(
+            mcfg.replace(dtype="bfloat16"), seed, "FREE", bf16_ds)
         print(f"phase 19b finetune-bert --adversarial FREE --bf16: 4 steps "
               f"at batch 8, losses {[round(x, 6) for x in losses_16]}, "
               f"{ms_16:.2f} ms/step through the CLI "
@@ -2984,9 +3181,10 @@ def phase_legacy(seed: int, card: str) -> tuple:
               f"{walls['finetune-bert bf16 FREE']:.3f} s; direct: "
               f"{step_ms:.2f} ms/step over 3 timed steps, {profiled}; {card}",
               flush=True)
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
+        step_ms, profiled = legacy_step_profile(mcfg, seed, "MIX", bf16_ds)
+        print(f"phase 19b finetune-bert --adversarial MIX fp32 direct: "
+              f"{step_ms:.2f} ms/step over 3 timed steps at batch 8, "
+              f"{profiled}; {card}", flush=True)
 
         # 19f: a pvs pair that fills all 512 tokens is refused on the host
         full = [dict(r) for r in rows[:LEGACY_BATCH]]
@@ -3104,6 +3302,9 @@ def phase_legacy(seed: int, card: str) -> tuple:
         + [("bf16 S=256 B=16 N=12", 16, 256, 12, 64, torch.bfloat16)],
         SimpleNamespace(**dict(vars(TRAIN_FAMILY),
                                name="phase 19e train kernels")))
+    off = phase_offgrid_fp32(gen, SimpleNamespace(**dict(
+        vars(TRAIN_FAMILY), name="phase 19e train kernels")), OFFGRID_LEGACY)
+    errs["bwd_err"] = [max(a, b) for a, b in zip(errs["bwd_err"], off)]
     for dname, dt in dtypes:
         rows_t = time_train_kernels(gen, LEGACY_BATCH, LEGACY_LENS[0], 12, dt,
                                     name="phase 19e train kernels")
@@ -3147,11 +3348,15 @@ def run(args) -> None:
           f"serving: launches (#1..#6) {counters()}")
 
     train = phase_train_kernels(gen)
+    off = phase_offgrid_fp32(gen, TRAIN_FAMILY, OFFGRID_TRAIN)
+    train["bwd_err"] = [max(a, b) for a, b in zip(train["bwd_err"], off)]
     train.update(time_train_kernels(gen))
     block = phase_train_kernels(gen, BLOCKWISE_CASES, BLOCKWISE_FAMILY)
+    off = phase_offgrid_fp32(gen, BLOCKWISE_FAMILY, OFFGRID_BLOCKWISE)
     phase_blockwise_vs_full_tile(gen)
     timed = time_blockwise_kernels(gen, 16, 1024)  # the kernels line's rows
-    runs = (block, timed, time_blockwise_kernels(gen, 4, 2048))
+    runs = (block, timed, time_blockwise_kernels(gen, 4, 2048),
+            dict(fwd_err=0.0, bwd_err=off))
     block = dict(timed, fwd_err=max(r["fwd_err"] for r in runs),
                  bwd_err=[max(e) for e in zip(*(r["bwd_err"] for r in runs))])
     phase_grad_check(cfg, args.seed, gen)

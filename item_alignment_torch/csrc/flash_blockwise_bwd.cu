@@ -4,8 +4,10 @@
 //
 // Replaces the TPU kernels `_flash_dq_kernel` and `_flash_dkv_kernel` in
 // item_alignment_tpu/ops/pallas_attention.py (both launched by
-// `_flash_blockwise_bwd_impl`, the backward of
-// `fused_attention_blockwise_dropout`).  From the forward's float64 lse,
+// `_flash_blockwise_bwd_impl`, :708 and :734, the backward of
+// `fused_attention_blockwise_dropout`) and, with the delta kernel, serves
+// the contract of `_attn_dropout_bwd_kernel` (`_fused_attention_dropout_bwd`,
+// :402), the backward at S <= 512.  From the forward's float64 lse,
 // delta = rowsum(g * out) and x = q.k / sqrt(H) + bias:
 //
 //   p_r = exp(x - (lse + ln keep_p))                  (= probs / keep_p)
@@ -19,8 +21,8 @@
 // attention_common.cuh, a function of (seed, b, n, i, j) alone, so both
 // kernels draw the forward's bits (flash_blockwise_fwd.cu) whatever their
 // tiling; the TPU kernels get there by reseeding per (q tile, kv tile).
-// x - lse keeps the float64 lse's precision (float-float in bf16, float64 in
-// fp32), so a fully masked row gets the uniform 1/S back.  delta is computed
+// x - lse keeps the float64 lse's precision (lse + ln keep_p as a
+// float-float pair), so a fully masked row gets the uniform 1/S back.  delta is computed
 // outside the TPU kernels (:699-700); here ia_flash_delta launches the delta
 // kernel of attention_common.cuh.  The TPU kernels assert S % block == 0;
 // these mask a ragged last tile and take any S.  Offsets are held in 64 bits.
@@ -37,7 +39,11 @@
 // dropout, its keep bit: one hash (two multiplies, six shifts and xors) per
 // two scores in dQ and per score in dK/dV.  On this card those issue slots,
 // not the tensor cores, set the pace, so the design keeps them few and
-// interleaved.
+// interleaved.  In fp32 the same products at fp32 accuracy take three TF32
+// tensor-core products each (3xTF32, hopper_common.cuh), so the bound is the
+// lesser of FLOP / 67 TFLOP/s (the fp32 pipe) and 3 FLOP / 495 TFLOP/s
+// (dense TF32): at B=8, S=512, N=12, H=64, #3's 10*B*N*S^2*H = 16.1 GFLOP
+// take 0.0976 ms, dQ's 9.7 GFLOP 0.0586 and dK/dV's 12.9 GFLOP 0.0781.
 //
 // Design (bf16).  Three entry points, so each kernel is launched, counted
 // and timed alone.  No atomics and no cross-block reduction: a dQ block owns
@@ -70,10 +76,51 @@
 // dK/dV scores keys as rows (transposed), so keep * p_r and ds are the A
 // operands of dv and dk as they stand; it holds dk, dv and the two score
 // tiles (4 x 32 fp32 registers a thread at H = 64), and at H = 128 loops
-// over 32-query tiles to stay in registers.  fp32 is a scalar-FMA
-// correctness path on 32 x 32 tiles.
+// over 32-query tiles to stay in registers.
+//
+// Design (fp32: flash_dq_f32 and flash_dkv_f32, the fp32 route of #3's
+// contract and #5/#6 in fp32).  What held the earlier fp32 kernels (scalar
+// FMAs on 32 x 32 tiles, both operands read from shared memory, synchronous
+// loads, no tensor cores, a float64 subtraction per score) at 5x SDPA and
+// 13.7x the fp32-pipe bound was the FMA pipe fed from shared memory.  Now:
+//   - every product runs on the tensor cores as mma.sync m16n8k8 TF32 with
+//     fp32 accumulate, three per fp32 product (small*big, big*small,
+//     big*big, as CUTLASS's OpMultiplyAddFastF32 orders them), which keeps
+//     fp32 accuracy to the dropped small*small term (2^-22 relative);
+//     g v^T sums each 8-deep step in a fresh accumulator and adds it in
+//     fp32 (mma_3xtf32_rn): held in the tensor cores' truncating
+//     accumulator through 3 H / 8 mma, dp drifted far enough that a
+//     one-hot row's ds = p (dp - delta) missed chip_smoke.py's fp32 limit
+//     of 1e-4;
+//   - a block is four warps and owns 64 rows (16 a warp: queries in dQ,
+//     keys in dK/dV); it loops over 32-row tiles (keys in dQ, queries in
+//     dK/dV), double-buffered by 16-byte cp.async (4-byte copies where a
+//     view's alignment or strides do not allow 16), with the next tile's
+//     statistics loaded into registers under the current tile's work; at
+//     H = 128 dK/dV makes two passes over the query tiles, dv then dk, as
+//     both accumulators at once (128 registers a thread) spilled;
+//   - each looped tile is split into TF32 big and small halves once, in
+//     shared memory, for all four warps; the block's own rows are split as
+//     each warp loads them (once per 8-deep step and tile);
+//   - the tiles keep a row pitch of H + 4 floats, so that a warp's fragment
+//     loads (row g, column t; or rows 2t, 2t + 1, column g) hit 32 banks;
+//   - ds and keep * p_r feed the next products from the accumulators with
+//     no lane exchange: the contraction takes logical k = t, t + 4 to be
+//     columns 2t, 2t + 1, which lane 4g + t holds (acc_a_split), and the B
+//     operand's lane loads rows 2t, 2t + 1 of its 8-row group;
+//   - the per-score work is the bf16 kernels': float-float x - lse,
+//     exp2_ftz, branch-free selects of the ragged tail and dropped scores,
+//     no hash without dropout; a fully masked row keeps its uniform 1/S.
+// 87-88 KB of shared memory a block at H = 64 (two blocks an SM), 169-170
+// KB at H = 128 (one).  Looped tiles of 64 rows spilled registers and ran
+// slower, and so did splitting the looped tiles in each warp instead of
+// once a block.  Three TF32 mma.sync per product, the shared-memory loads
+// of their operands and the split set the pace now; wgmma would double the
+// tensor rate but wants K-major copies of k, q and g for the contractions
+// over rows.
 
 #include <cmath>
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
@@ -93,7 +140,6 @@ constexpr int STAGES = 3;                   // the looped tiles' ring
 // 256 x 240 = 384 x 168)
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
-constexpr int FBLOCK = 32;  // fp32 tiles
 
 // rows of a looped tile: keys in dQ; queries in dK/dV, fewer at H = 128
 constexpr int DQ_LOOP = 64;
@@ -526,196 +572,439 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: scalar FMAs on 32 x 32 tiles in shared memory (a correctness path)
+// fp32: 3xTF32 products on the tensor cores (mma.sync m16n8k8)
 // ---------------------------------------------------------------------------
 
-template <int HD>
-struct F32Layout {
-  static constexpr int LDT = HD + 1;      // Q/K/V/G rows: odd pitch
-  static constexpr int LDP = FBLOCK + 1;  // score tiles
-  static constexpr int A_OFF = 0;         // the block's own rows (2 tiles)
-  static constexpr int B_OFF = A_OFF + 2 * FBLOCK * LDT;  // the looped rows (2 tiles)
-  static constexpr int P_OFF = B_OFF + 2 * FBLOCK * LDT;  // keep * p_r and ds
-  static constexpr int ACC_OFF = P_OFF + 2 * FBLOCK * LDP;  // 2 accumulators
-  static constexpr int F_STAT_OFF = ACC_OFF + 2 * FBLOCK * HD;  // dkp, bias, row key
-  static constexpr int BYTES = (F_STAT_OFF + 3 * FBLOCK) * 4 + FBLOCK * 8;  // + double lse
-};
+constexpr int F_ROWS = 64;  // rows an fp32 block owns: 4 warps x 16
+constexpr int F_LOOP = 32;  // rows a looped tile: keys in dQ, queries in dK/dV
+// what a pass of flash_dkv_f32 over the query tiles accumulates: both at
+// H <= 64; at H = 128 dv, then dk, as dk and dv together (128 registers a
+// thread) spilled
+constexpr int F_DV = 1, F_DK = 2;
 
-// what both fp32 kernels carve out of shared memory
-template <int HD>
-struct F32Smem {
-  using L = F32Layout<HD>;
-  float *own0, *own1, *loop0, *loop1, *Ps, *Ds, *acc0, *acc1, *dkp_s, *kb_s;
-  uint32_t* rk_s;
-  double* lse_s;
-  __device__ explicit F32Smem(unsigned char* smem) {
-    float* sm = reinterpret_cast<float*>(smem);
-    own0 = sm + L::A_OFF;
-    own1 = own0 + FBLOCK * L::LDT;
-    loop0 = sm + L::B_OFF;
-    loop1 = loop0 + FBLOCK * L::LDT;
-    Ps = sm + L::P_OFF;
-    Ds = Ps + FBLOCK * L::LDP;
-    acc0 = sm + L::ACC_OFF;
-    acc1 = acc0 + FBLOCK * HD;
-    dkp_s = sm + L::F_STAT_OFF;
-    kb_s = dkp_s + FBLOCK;
-    rk_s = reinterpret_cast<uint32_t*>(kb_s + FBLOCK);
-    lse_s = reinterpret_cast<double*>(rk_s + FBLOCK);
+// Shared memory of an fp32 block: the own pair (F_ROWS rows each), two
+// stages of the looped pair (LOOP rows each), all with a row pitch of HD + 4
+// floats, so that the fragment loads of a warp (lane 4g + t at row g and
+// column t, or at rows 2t, 2t + 1 and column g) hit 32 different banks; the
+// looped pair's small halves (the stage being worked on holds the big ones
+// in place of its fp32 values); then STAT_WORDS 4-byte words of statistics
+// per looped row and stage.
+template <int HD, int LOOP, int STAT_WORDS>
+struct F32Tiles {
+  static constexpr int LD = HD + 4;
+  static constexpr int OWN = F_ROWS * LD;  // floats
+  static constexpr int TILE = LOOP * LD;
+  static constexpr int SMALL = 2 * TILE;
+  static constexpr int STAT = STAT_WORDS * LOOP;
+  static constexpr int BYTES = (2 * OWN + 4 * TILE + SMALL + 2 * STAT) * 4;
+
+  float* own0;
+  float* own1;
+  float* loop;
+  float* small;
+  uint32_t* stat;
+
+  __device__ explicit F32Tiles(unsigned char* smem) {
+    own0 = reinterpret_cast<float*>(smem);
+    own1 = own0 + OWN;
+    loop = own1 + OWN;
+    small = loop + 4 * TILE;
+    stat = reinterpret_cast<uint32_t*>(small + SMALL);
+  }
+  __device__ float* loop0(int s) const { return loop + 2 * s * TILE; }
+  __device__ float* loop1(int s) const { return loop + (2 * s + 1) * TILE; }
+  __device__ const float* small0() const { return small; }
+  __device__ const float* small1() const { return small + TILE; }
+  __device__ uint32_t* stats(int s) const { return stat + s * STAT; }
+
+  // a looped pair (rows row0..) into stage s, or the own pair
+  __device__ void load_loop(int s, const float* src0, long long ss0, const float* src1,
+                            long long ss1, int row0, int S, bool vec) const {
+    f32_tile_async<LOOP, HD, LD, THREADS>(loop0(s), src0, ss0, row0, S, vec);
+    f32_tile_async<LOOP, HD, LD, THREADS>(loop1(s), src1, ss1, row0, S, vec);
+  }
+  __device__ void load_own(const float* src0, long long ss0, const float* src1, long long ss1,
+                           int row0, int S, bool vec) const {
+    f32_tile_async<F_ROWS, HD, LD, THREADS>(own0, src0, ss0, row0, S, vec);
+    f32_tile_async<F_ROWS, HD, LD, THREADS>(own1, src1, ss1, row0, S, vec);
+  }
+
+  // stage s's pair split once for every warp: big in place, small beside
+  __device__ void split_loop(int s) const {
+    static_assert(2 * LOOP * HD % (4 * THREADS) == 0, "whole float4s a thread");
+    float* raw = loop0(s);  // loop1(s) follows with the same pitch
+#pragma unroll
+    for (int u = 0; u < 2 * LOOP * HD / (4 * THREADS); ++u) {
+      const int c = (threadIdx.x + u * THREADS) * 4;
+      const int off = (c / HD) * LD + c % HD;
+      float4 x = *reinterpret_cast<float4*>(raw + off);
+      uint32_t b[4], sm[4];
+      split_tf32(x.x, b[0], sm[0]);
+      split_tf32(x.y, b[1], sm[1]);
+      split_tf32(x.z, b[2], sm[2]);
+      split_tf32(x.w, b[3], sm[3]);
+      *reinterpret_cast<uint4*>(raw + off) = make_uint4(b[0], b[1], b[2], b[3]);
+      *reinterpret_cast<uint4*>(small + off) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+    }
+  }
+
+  // the B operand at offsets off and off + step of a looped tile (stage
+  // tile `t`, its small half `ts`), split
+  __device__ static void b_frag(const float* t, const float* ts, int off, int step,
+                                uint32_t (&big)[2], uint32_t (&sm)[2]) {
+    big[0] = __float_as_uint(t[off]);
+    big[1] = __float_as_uint(t[off + step]);
+    sm[0] = __float_as_uint(ts[off]);
+    sm[1] = __float_as_uint(ts[off + step]);
   }
 };
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS) flash_dq_f32(Params p) {
-  using L = F32Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const F32Smem<HD> sh(smem);
-  float *Qs = sh.own0, *Gs = sh.own1, *Ks = sh.loop0, *Vs = sh.loop1, *Ds = sh.Ds, *dQ = sh.acc0;
+// 16-byte copies need every input 16-byte aligned with its strides in
+// multiples of 4 floats; other layouts take 4-byte copies
+__device__ __forceinline__ bool f32_vec16(const Params& p) {
+  const unsigned long long ptrs =
+      reinterpret_cast<unsigned long long>(p.q) | reinterpret_cast<unsigned long long>(p.k) |
+      reinterpret_cast<unsigned long long>(p.v) | reinterpret_cast<unsigned long long>(p.g);
+  const long long st = p.q_sb | p.q_ss | p.q_sn | p.k_sb | p.k_ss | p.k_sn | p.v_sb | p.v_ss |
+                       p.v_sn | p.g_sb | p.g_ss | p.g_sn;
+  return (ptrs & 15) == 0 && (st & 3) == 0;
+}
 
-  const int S = p.S;
-  const int m0 = blockIdx.x * FBLOCK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-  const double* lse = p.lse + ((long long)b * p.N + h) * S;
-  const float* delta = p.delta + ((long long)b * p.N + h) * S;
-  const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
-  const double log_keep = log(double(p.keep_p));
-
-  load_tile_f32<FBLOCK, HD, L::LDT>(Qs, slice<float>(p.q, b, h, p.q_sb, p.q_sn), p.q_ss, m0, S);
-  load_tile_f32<FBLOCK, HD, L::LDT>(Gs, slice<float>(p.g, b, h, p.g_sb, p.g_sn), p.g_ss, m0, S);
-  for (int c = tid; c < FBLOCK * HD; c += THREADS) dQ[c] = 0.f;
-  if (tid < FBLOCK) {
-    const int i = m0 + tid;
-    const bool ok = i < S;
-    sh.lse_s[tid] = ok ? lse[i] + log_keep : 0.0;
-    sh.dkp_s[tid] = ok ? delta[i] * p.keep_p : 0.f;
-    sh.rk_s[tid] = row_key(hk, uint32_t(i));
+// s = own0 loop0^T, then (DP) dp = own1 loop1^T, over the head dim for the
+// warp's 16 rows (from row w0) and the stage's LOOP rows; dp through fresh
+// accumulators (mma_3xtf32_rn), as ds = p (dp - delta) cancels
+template <typename T, int HD, int LOOP, bool DP>
+__device__ __forceinline__ void f32_scores(const T& sh, const float* l0, const float* s0,
+                                           const float* l1, const float* s1, int w0, int g,
+                                           int t, float (&s)[LOOP / 8][4],
+                                           float (&dp)[LOOP / 8][4]) {
+  constexpr int LD = T::LD;
+#pragma unroll
+  for (int nt = 0; nt < LOOP / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < HD / 8; ++kd) {
+    uint32_t ab[4], as[4];
+    a_split<LD>(sh.own0, w0 + g, kd * 8 + t, ab, as);
+#pragma unroll
+    for (int nt = 0; nt < LOOP / 8; ++nt) {
+      uint32_t bb[2], bs[2];
+      T::b_frag(l0, s0, (nt * 8 + g) * LD + kd * 8 + t, 4, bb, bs);
+      mma_3xtf32(s[nt], ab, as, bb, bs);
+    }
   }
-
-  for (int k0 = 0; k0 < S; k0 += FBLOCK) {
-    __syncthreads();
-    load_tile_f32<FBLOCK, HD, L::LDT>(Ks, slice<float>(p.k, b, h, p.k_sb, p.k_sn), p.k_ss, k0, S);
-    load_tile_f32<FBLOCK, HD, L::LDT>(Vs, slice<float>(p.v, b, h, p.v_sb, p.v_sn), p.v_ss, k0, S);
-    if (tid < FBLOCK) sh.kb_s[tid] = (bias && k0 + tid < S) ? bias[k0 + tid] : 0.f;
-    __syncthreads();
-    for (int c = tid; c < FBLOCK * FBLOCK; c += THREADS) {
-      const int il = c / FBLOCK;  // query
-      const int jl = c - il * FBLOCK;  // key
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < HD; ++d) {
-        s = fmaf(Qs[il * L::LDT + d], Ks[jl * L::LDT + d], s);
-        dp = fmaf(Gs[il * L::LDT + d], Vs[jl * L::LDT + d], dp);
+  if constexpr (DP) {
+#pragma unroll
+    for (int kd = 0; kd < HD / 8; ++kd) {
+      uint32_t ab[4], as[4];
+      a_split<LD>(sh.own1, w0 + g, kd * 8 + t, ab, as);
+#pragma unroll
+      for (int nt = 0; nt < LOOP / 8; ++nt) {
+        uint32_t bb[2], bs[2];
+        T::b_frag(l1, s1, (nt * 8 + g) * LD + kd * 8 + t, 4, bb, bs);
+        mma_3xtf32_rn(dp[nt], ab, as, bb, bs);
       }
-      const uint32_t j = k0 + jl;
-      float pr = 0.f;
-      if (int(j) < S)
-        pr = exp2f(float(double(fmaf(s, p.scale, sh.kb_s[jl])) - sh.lse_s[il]) * LOG2E);
-      const bool kp = !p.threshold || keep_bit(key_word(sh.rk_s[il], j), j, p.threshold);
-      Ds[il * L::LDP + jl] = pr * ((kp ? dp : 0.f) - sh.dkp_s[il]);
     }
-    __syncthreads();
-    for (int c = tid; c < FBLOCK * HD; c += THREADS) {
-      const int il = c / HD;
-      const int d = c - il * HD;
-      float acc = dQ[c];
-      for (int jl = 0; jl < FBLOCK; ++jl) acc = fmaf(Ds[il * L::LDP + jl], Ks[jl * L::LDT + d], acc);
-      dQ[c] = acc;
-    }
-  }
-  __syncthreads();
-  float* dqp = static_cast<float*>(p.dq) + b * p.o_sb + h * p.o_sn;
-  for (int c = tid; c < FBLOCK * HD; c += THREADS) {
-    const int il = c / HD;
-    const int d = c - il * HD;
-    if (m0 + il < S) dqp[(long long)(m0 + il) * p.o_ss + d] = dQ[c] * p.scale;
   }
 }
 
-template <int HD>
-__global__ void __launch_bounds__(THREADS) flash_dkv_f32(Params p) {
-  using L = F32Layout<HD>;
+// acc += a l over the stage's LOOP rows, a an accumulator of the warp's 16
+// rows x LOOP (acc_a_split's order: the lane's rows 8 kk + 2t, 8 kk + 2t + 1
+// of l, small halves in ls)
+template <typename T, int HD, int LOOP>
+__device__ __forceinline__ void f32_contract(float (&acc)[HD / 8][4], const float (&a)[LOOP / 8][4],
+                                             const float* l, const float* ls, int g, int t) {
+  constexpr int LD = T::LD;
+#pragma unroll
+  for (int kk = 0; kk < LOOP / 8; ++kk) {
+    uint32_t ab[4], as[4];
+    acc_a_split(a[kk], ab, as);
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) {
+      uint32_t bb[2], bs[2];
+      T::b_frag(l, ls, (kk * 8 + 2 * t) * LD + nd * 8 + g, LD, bb, bs);
+      mma_3xtf32(acc[nd], ab, as, bb, bs);
+    }
+  }
+}
+
+// The loop both fp32 kernels share: the own pair and looped tile 0 go in
+// one cp.async group; each step issues the next tile into the other stage,
+// lets `prefetch(row0)` start the loads of its statistics, waits for the
+// current tile, splits it, runs `body(stage, row0)`, then `commit(stage,
+// row0)` writes the prefetched statistics into the other stage.  Barriers:
+// after the wait (the tile and its statistics are there), after the split,
+// and after the body (the stage and the small halves are free again).
+template <typename T, typename Prefetch, typename Commit, typename Body>
+__device__ __forceinline__ void f32_loop(const T& sh, int n_tiles, int loop_rows,
+                                         const float* l0, long long ss0, const float* l1,
+                                         long long ss1, int S, bool vec, Prefetch prefetch,
+                                         Commit commit, Body body) {
+  for (int it = 0; it < n_tiles; ++it) {
+    const int cur = it & 1;
+    if (it + 1 < n_tiles) {
+      sh.load_loop(cur ^ 1, l0, ss0, l1, ss1, (it + 1) * loop_rows, S, vec);
+      cp_async_commit();
+      prefetch((it + 1) * loop_rows);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    sh.split_loop(cur);
+    __syncthreads();
+    body(cur, it * loop_rows);
+    if (it + 1 < n_tiles) commit(cur ^ 1, (it + 1) * loop_rows);
+    __syncthreads();
+  }
+}
+
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(THREADS) flash_dq_f32(const Params p) {
+  constexpr int LOOP = F_LOOP;
+  using T = F32Tiles<HD, LOOP, 1>;  // the key bias
   extern __shared__ __align__(128) unsigned char smem[];
-  const F32Smem<HD> sh(smem);
-  float *Ks = sh.own0, *Vs = sh.own1, *Qs = sh.loop0, *Gs = sh.loop1, *Ps = sh.Ps, *Ds = sh.Ds;
-  float *dK = sh.acc0, *dV = sh.acc1;
+  const T sh(smem);
 
   const int S = p.S;
-  const int n0 = blockIdx.x * FBLOCK;
+  const int m0 = blockIdx.x * F_ROWS;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int w0 = (tid / 32) * 16;  // the warp's first row in the block
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bool vec = f32_vec16(p);
+  const float* ks = slice<float>(p.k, b, h, p.k_sb, p.k_sn);
+  const float* vs = slice<float>(p.v, b, h, p.v_sb, p.v_sn);
   const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+
+  sh.load_own(slice<float>(p.q, b, h, p.q_sb, p.q_sn), p.q_ss,
+              slice<float>(p.g, b, h, p.g_sb, p.g_sn), p.g_ss, m0, S, vec);
+  sh.load_loop(0, ks, p.k_ss, vs, p.v_ss, 0, S, vec);
+  cp_async_commit();
+  const auto key_bias = [&](int k0) {
+    return tid < LOOP && bias && k0 + tid < S ? bias[k0 + tid] : 0.f;
+  };
+  if (tid < LOOP) reinterpret_cast<float*>(sh.stats(0))[tid] = key_bias(0);
+
   const double* lse = p.lse + ((long long)b * p.N + h) * S;
   const float* delta = p.delta + ((long long)b * p.N + h) * S;
   const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
   const double log_keep = log(double(p.keep_p));
-
-  load_tile_f32<FBLOCK, HD, L::LDT>(Ks, slice<float>(p.k, b, h, p.k_sb, p.k_sn), p.k_ss, n0, S);
-  load_tile_f32<FBLOCK, HD, L::LDT>(Vs, slice<float>(p.v, b, h, p.v_sb, p.v_sn), p.v_ss, n0, S);
-  for (int c = tid; c < 2 * FBLOCK * HD; c += THREADS) dK[c] = 0.f;  // dK and dV
-  if (tid < FBLOCK) sh.kb_s[tid] = (bias && n0 + tid < S) ? bias[n0 + tid] : 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += FBLOCK) {
-    __syncthreads();
-    load_tile_f32<FBLOCK, HD, L::LDT>(Qs, slice<float>(p.q, b, h, p.q_sb, p.q_sn), p.q_ss, q0, S);
-    load_tile_f32<FBLOCK, HD, L::LDT>(Gs, slice<float>(p.g, b, h, p.g_sb, p.g_sn), p.g_ss, q0, S);
-    if (tid < FBLOCK) {
-      const int i = q0 + tid;
-      const bool ok = i < S;
-      sh.lse_s[tid] = ok ? lse[i] + log_keep : 0.0;
-      sh.dkp_s[tid] = ok ? delta[i] * p.keep_p : 0.f;
-      sh.rk_s[tid] = row_key(hk, uint32_t(i));
-    }
-    __syncthreads();
-    for (int c = tid; c < FBLOCK * FBLOCK; c += THREADS) {
-      const int jl = c / FBLOCK;  // key
-      const int il = c - jl * FBLOCK;  // query
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < HD; ++d) {
-        s = fmaf(Ks[jl * L::LDT + d], Qs[il * L::LDT + d], s);
-        dp = fmaf(Vs[jl * L::LDT + d], Gs[il * L::LDT + d], dp);
-      }
-      const uint32_t j = n0 + jl;
-      float pr = 0.f;
-      if (q0 + il < S)
-        pr = exp2f(float(double(fmaf(s, p.scale, sh.kb_s[jl])) - sh.lse_s[il]) * LOG2E);
-      const bool kp = !p.threshold || keep_bit(key_word(sh.rk_s[il], j), j, p.threshold);
-      Ps[jl * L::LDP + il] = kp ? pr : 0.f;
-      Ds[jl * L::LDP + il] = pr * ((kp ? dp : 0.f) - sh.dkp_s[il]);
-    }
-    __syncthreads();
-    for (int c = tid; c < FBLOCK * HD; c += THREADS) {
-      const int jl = c / HD;
-      const int d = c - jl * HD;
-      float av = dV[c], ak = dK[c];
-      for (int il = 0; il < FBLOCK; ++il) {
-        av = fmaf(Ps[jl * L::LDP + il], Gs[il * L::LDT + d], av);
-        ak = fmaf(Ds[jl * L::LDP + il], Qs[il * L::LDT + d], ak);
-      }
-      dV[c] = av;
-      dK[c] = ak;
-    }
+  float lse_hi[2], lse_lo[2], dkp[2];
+  uint32_t rk[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = m0 + w0 + g + 8 * r;
+    const bool ok = i < S;
+    split_lse(ok ? lse[i] + log_keep : 0.0, lse_hi[r], lse_lo[r]);
+    dkp[r] = ok ? delta[i] * p.keep_p : 0.f;
+    rk[r] = row_key(hk, uint32_t(i));
   }
-  __syncthreads();
-  float* dkp = static_cast<float*>(p.dk) + b * p.o_sb + h * p.o_sn;
-  float* dvp = static_cast<float*>(p.dv) + b * p.o_sb + h * p.o_sn;
-  for (int c = tid; c < FBLOCK * HD; c += THREADS) {
-    const int jl = c / HD;
-    const int d = c - jl * HD;
-    if (n0 + jl >= S) continue;
-    const long long off = (long long)(n0 + jl) * p.o_ss + d;
-    dkp[off] = dK[c] * p.scale;
-    dvp[off] = dV[c];
+
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+  float kb_next = 0.f;
+
+  f32_loop(
+      sh, (S + LOOP - 1) / LOOP, LOOP, ks, p.k_ss, vs, p.v_ss, S, vec,
+      [&](int k0) { kb_next = key_bias(k0); },
+      [&](int st, int) {
+        if (tid < LOOP) reinterpret_cast<float*>(sh.stats(st))[tid] = kb_next;
+      },
+      [&](int st, int k0) {
+        const float* Kt = sh.loop0(st);
+        const float* Vt = sh.loop1(st);
+        const float* Ks = sh.small0();
+        const float* Vs = sh.small1();
+        const float* bt = reinterpret_cast<const float*>(sh.stats(st));
+
+        // s = Q K^T and dp = G V^T: the warp's 16 queries x LOOP keys
+        float s[LOOP / 8][4], dp[LOOP / 8][4];
+        f32_scores<T, HD, LOOP, true>(sh, Kt, Ks, Vt, Vs, w0, g, t, s, dp);
+
+        // s <- ds, branch-free; keys 2t, 2t + 1 of a group of 8 share one
+        // hashed word per row.  Keys past S read zero rows and a zero bias
+        // (finite or inf, then selected away).
+#pragma unroll
+        for (int nt = 0; nt < LOOP / 8; ++nt) {
+          const int cj = nt * 8 + 2 * t;
+          const uint32_t col = k0 + cj;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t word = DROP ? key_word(rk[r], col) : 0u;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 2 * r + c;
+              const float x = fmaf(s[nt][e], p.scale, bt[cj + c]);
+              const float pe = exp2_ftz(((x - lse_hi[r]) - lse_lo[r]) * LOG2E);
+              const float pr = int(col) + c < S ? pe : 0.f;
+              const bool kp = !DROP || keep_bit(word, col + c, p.threshold);
+              s[nt][e] = pr * ((kp ? dp[nt][e] : 0.f) - dkp[r]);
+            }
+          }
+        }
+
+        // dq += ds K over the tile's keys
+        f32_contract<T, HD, LOOP>(dq, s, Kt, Ks, g, t);
+      });
+
+  float* dqp = static_cast<float*>(p.dq) + b * p.o_sb + h * p.o_sn;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = m0 + w0 + g + 8 * r;
+    if (i >= S) continue;
+    float* row = dqp + (long long)i * p.o_ss + 2 * t;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+      *reinterpret_cast<float2*>(row + nd * 8) =
+          make_float2(dq[nd][2 * r] * p.scale, dq[nd][2 * r + 1] * p.scale);
+  }
+}
+
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(THREADS) flash_dkv_f32(const Params p) {
+  constexpr int LOOP = F_LOOP;
+  using T = F32Tiles<HD, LOOP, 4>;  // lse hi, lse lo, delta * keep_p, row key
+  extern __shared__ __align__(128) unsigned char smem[];
+  const T sh(smem);
+
+  const int S = p.S;
+  const int n0 = blockIdx.x * F_ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int w0 = (tid / 32) * 16;  // the warp's first row in the block
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bool vec = f32_vec16(p);
+  const float* qs = slice<float>(p.q, b, h, p.q_sb, p.q_sn);
+  const float* gs = slice<float>(p.g, b, h, p.g_sb, p.g_sn);
+
+  // the statistics of query q0 + tid (threads tid < LOOP)
+  const double* lse = p.lse + ((long long)b * p.N + h) * S;
+  const float* delta = p.delta + ((long long)b * p.N + h) * S;
+  const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+  const double log_keep = log(double(p.keep_p));
+  double lse_next = 0.0;
+  float dkp_next = 0.f;
+  const auto prefetch = [&](int q0) {
+    const int i = q0 + tid;
+    const bool ok = tid < LOOP && i < S;
+    lse_next = ok ? lse[i] + log_keep : 0.0;
+    dkp_next = ok ? delta[i] * p.keep_p : 0.f;
+  };
+  const auto commit = [&](int st, int q0) {
+    if (tid >= LOOP) return;
+    uint32_t* words = sh.stats(st);
+    float* f = reinterpret_cast<float*>(words);
+    split_lse(lse_next, f[tid], f[LOOP + tid]);
+    f[2 * LOOP + tid] = dkp_next;
+    words[3 * LOOP + tid] = row_key(hk, uint32_t(q0 + tid));
+  };
+
+  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
+  float kb[2];  // key bias of the thread's two key rows
+  uint32_t j[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    j[r] = n0 + w0 + g + 8 * r;
+    kb[r] = (bias && int(j[r]) < S) ? bias[j[r]] : 0.f;
+  }
+
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nd][e] = dv[nd][e] = 0.f;
+
+  // one pass over the query tiles, accumulating what WHAT names
+  const auto pass = [&](auto what) {
+    constexpr int WHAT = decltype(what)::value;
+    sh.load_loop(0, qs, p.q_ss, gs, p.g_ss, 0, S, vec);
+    cp_async_commit();
+    prefetch(0);
+    commit(0, 0);
+    f32_loop(
+        sh, (S + LOOP - 1) / LOOP, LOOP, qs, p.q_ss, gs, p.g_ss, S, vec, prefetch, commit,
+        [&](int st, int q0) {
+          const float* Qt = sh.loop0(st);
+          const float* Gt = sh.loop1(st);
+          const float* Qs = sh.small0();
+          const float* Gs = sh.small1();
+          const float* st_f = reinterpret_cast<const float*>(sh.stats(st));
+          const uint32_t* st_rk = sh.stats(st) + 3 * LOOP;
+
+          // s = K Q^T and dp = V G^T: the warp's 16 keys x LOOP queries
+          float s[LOOP / 8][4], dp[LOOP / 8][4];
+          f32_scores<T, HD, LOOP, (WHAT & F_DK) != 0>(sh, Qt, Qs, Gt, Gs, w0, g, t, s, dp);
+
+          // s <- keep * p_r, dp <- ds, branch-free (queries past S read zero
+          // rows and zero statistics, then are selected away)
+#pragma unroll
+          for (int nt = 0; nt < LOOP / 8; ++nt) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int ci = nt * 8 + 2 * t + c;
+              const float hi = st_f[ci], lo = st_f[LOOP + ci], dkq = st_f[2 * LOOP + ci];
+              const bool valid = q0 + ci < S;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int e = 2 * r + c;
+                const float x = fmaf(s[nt][e], p.scale, kb[r]);
+                const float pe = exp2_ftz(((x - hi) - lo) * LOG2E);
+                const float pr = valid ? pe : 0.f;
+                const bool kp = !DROP || keep_bit(key_word(st_rk[ci], j[r]), j[r], p.threshold);
+                dp[nt][e] = pr * ((kp ? dp[nt][e] : 0.f) - dkq);
+                s[nt][e] = kp ? pr : 0.f;
+              }
+            }
+          }
+
+          // dv += (keep * p_r) G, dk += ds Q over the tile's queries, one
+          // after the other (in one pass a 4-byte spill appeared)
+          if constexpr ((WHAT & F_DV) != 0) f32_contract<T, HD, LOOP>(dv, s, Gt, Gs, g, t);
+          if constexpr ((WHAT & F_DK) != 0) f32_contract<T, HD, LOOP>(dk, dp, Qt, Qs, g, t);
+        });
+  };
+  // rows j of the thread, times `scale`, into out
+  const auto store = [&](void* out, const float (&acc)[HD / 8][4], float scale) {
+    float* base = static_cast<float*>(out) + b * p.o_sb + h * p.o_sn;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (int(j[r]) >= S) continue;
+      float* row = base + (long long)j[r] * p.o_ss + 2 * t;
+#pragma unroll
+      for (int nd = 0; nd < HD / 8; ++nd)
+        *reinterpret_cast<float2*>(row + nd * 8) =
+            make_float2(acc[nd][2 * r] * scale, acc[nd][2 * r + 1] * scale);
+    }
+  };
+
+  sh.load_own(slice<float>(p.k, b, h, p.k_sb, p.k_sn), p.k_ss,
+              slice<float>(p.v, b, h, p.v_sb, p.v_sn), p.v_ss, n0, S, vec);
+  if constexpr (HD == 128) {
+    pass(std::integral_constant<int, F_DV>{});
+    store(p.dv, dv, 1.f);
+    pass(std::integral_constant<int, F_DK>{});
+    store(p.dk, dk, p.scale);
+  } else {
+    pass(std::integral_constant<int, F_DV | F_DK>{});
+    store(p.dv, dv, 1.f);
+    store(p.dk, dk, p.scale);
   }
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, int block, const Params& p, int B, cudaStream_t st) {
+cudaError_t launch(Kernel kernel, int smem, const Params& p, int B, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + block - 1) / block, p.N, B);
+  const dim3 grid((p.S + F_ROWS - 1) / F_ROWS, p.N, B);
   kernel<<<grid, THREADS, smem, st>>>(p);
   return cudaGetLastError();
 }
@@ -749,7 +1038,8 @@ cudaError_t launch_dq(int dtype, const Params& p, int B, cudaStream_t st) {
     return launch_ws<HD>(p.threshold ? flash_dq_bf16<HD, true> : flash_dq_bf16<HD, false>,
                          DqRing<HD>::BYTES, DQ_LOOP, src, strides, p, B, st);
   }
-  return launch(flash_dq_f32<HD>, F32Layout<HD>::BYTES, FBLOCK, p, B, st);
+  return launch(p.threshold ? flash_dq_f32<HD, true> : flash_dq_f32<HD, false>,
+                F32Tiles<HD, F_LOOP, 1>::BYTES, p, B, st);
 }
 
 template <int HD>
@@ -761,7 +1051,8 @@ cudaError_t launch_dkv(int dtype, const Params& p, int B, cudaStream_t st) {
     return launch_ws<HD>(p.threshold ? flash_dkv_bf16<HD, true> : flash_dkv_bf16<HD, false>,
                          DkvRing<HD>::BYTES, DKV_LOOP<HD>, src, strides, p, B, st);
   }
-  return launch(flash_dkv_f32<HD>, F32Layout<HD>::BYTES, FBLOCK, p, B, st);
+  return launch(p.threshold ? flash_dkv_f32<HD, true> : flash_dkv_f32<HD, false>,
+                F32Tiles<HD, F_LOOP, 4>::BYTES, p, B, st);
 }
 
 template <int HD>
@@ -837,14 +1128,20 @@ int ia_flash_delta(int dtype, int head_dim, const void* g, const void* out, void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bytes of dynamic shared memory a block of the bf16 dQ (kernel 0) or dK/dV
-// (kernel 1) kernel takes at this head dim; -1 for another kernel or head dim
+// bytes of dynamic shared memory a block takes at this head dim: the bf16
+// dQ (kernel 0) or dK/dV (1) kernel, the fp32 dQ (2) or dK/dV (3) kernel;
+// -1 for another kernel or head dim
 int ia_flash_bwd_smem_bytes(int kernel, int head_dim) {
-  const int dq[3] = {DqRing<32>::BYTES, DqRing<64>::BYTES, DqRing<128>::BYTES};
-  const int dkv[3] = {DkvRing<32>::BYTES, DkvRing<64>::BYTES, DkvRing<128>::BYTES};
+  const int bytes[4][3] = {
+      {DqRing<32>::BYTES, DqRing<64>::BYTES, DqRing<128>::BYTES},
+      {DkvRing<32>::BYTES, DkvRing<64>::BYTES, DkvRing<128>::BYTES},
+      {F32Tiles<32, F_LOOP, 1>::BYTES, F32Tiles<64, F_LOOP, 1>::BYTES,
+       F32Tiles<128, F_LOOP, 1>::BYTES},
+      {F32Tiles<32, F_LOOP, 4>::BYTES, F32Tiles<64, F_LOOP, 4>::BYTES,
+       F32Tiles<128, F_LOOP, 4>::BYTES}};
   const int i = head_dim == 32 ? 0 : head_dim == 64 ? 1 : head_dim == 128 ? 2 : -1;
-  if (i < 0 || (kernel != 0 && kernel != 1)) return -1;
-  return kernel == 0 ? dq[i] : dkv[i];
+  if (i < 0 || kernel < 0 || kernel > 3) return -1;
+  return bytes[kernel][i];
 }
 
 const char* ia_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -4,7 +4,9 @@
 // descriptors and products, setmaxnreg, a flushing exp2, a byte permute,
 // and a forward block's registers, shared memory, producer and launch
 // (FwdRegs, FwdRing, launch_fwd_block: kernel #4's; fused_attention.cu
-// keeps its own copy of the same block, #1's).
+// keeps its own copy of the same block, #1's); and for the fp32 kernels,
+// 16-byte `cp.async` copies and fp32-accurate products on the tensor cores
+// ("3xTF32" on mma.sync m16n8k8, below).
 //
 // Tiles in shared memory.  A tile of R rows by HD bf16 columns (one row of
 // q, k, v or g per sequence position) is stored as HD / W column blocks of
@@ -127,6 +129,141 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---------------------------------------------------------------------------
+// fp32 products on the tensor cores: 3xTF32
+// ---------------------------------------------------------------------------
+//
+// TF32 keeps 11 significant bits.  x = big + small, with big = x rounded to
+// TF32 (cvt.rna) and small = the exact rest x - big rounded to TF32 again,
+// holds x to 2^-22 of |x|; a b = big_a big_b + big_a small_b + small_a
+// big_b + (small_a small_b, below 2^-22 |a b|, dropped).  Each TF32 product
+// is exact and the tensor cores accumulate in fp32, so three mma.sync per
+// product give fp32 accuracy: CUTLASS's OpMultiplyAddFastF32, in the order
+// it issues them (the small terms first).  The tensor cores' fp32
+// accumulation truncates, though: a sum held in their accumulator through
+// 3 H / 8 mma drifts several times further than fp32's rounded adds, which
+// shows where the sum then cancels.  mma_3xtf32_rn takes each 8-deep step
+// into a fresh accumulator and adds it in fp32, rounding to nearest.
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// d += a b on one m16n8k8 tile.  Lane 4g + t holds A (16 x 8) as (row g,
+// col t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) as (row t, col
+// g), (t + 4, g); d as (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in fp32 accuracy from split operands
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4], const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big[0], b_big[1]);
+  mma_tf32(d, a_big, b_small[0], b_small[1]);
+  mma_tf32(d, a_big, b_big[0], b_big[1]);
+}
+
+// the same through a fresh accumulator, added to d with rounding to nearest
+__device__ __forceinline__ void mma_3xtf32_rn(float (&d)[4], const uint32_t (&a_big)[4],
+                                              const uint32_t (&a_small)[4],
+                                              const uint32_t (&b_big)[2],
+                                              const uint32_t (&b_small)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(t, a_big, a_small, b_big, b_small);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += t[e];
+}
+
+// the A operand at rows row, row + 8 and columns col, col + 4 of an fp32
+// tile in shared memory (row pitch LD floats), split
+template <int LD>
+__device__ __forceinline__ void a_split(const float* tile, int row, int col, uint32_t (&big)[4],
+                                        uint32_t (&small)[4]) {
+  const float* at = tile + row * LD + col;
+  split_tf32(at[0], big[0], small[0]);
+  split_tf32(at[8 * LD], big[1], small[1]);
+  split_tf32(at[4], big[2], small[2]);
+  split_tf32(at[8 * LD + 4], big[3], small[3]);
+}
+
+// An accumulator tile (16 rows x 8 columns) as the A operand of a product
+// that contracts over its columns, split.  The contraction takes logical k
+// = t and t + 4 to be columns 2t and 2t + 1, which lane 4g + t already
+// holds, so no lane exchanges a value; the B operand's lane then loads rows
+// 2t and 2t + 1 of its 8-row group (b0, b1).
+__device__ __forceinline__ void acc_a_split(const float (&c)[4], uint32_t (&big)[4],
+                                            uint32_t (&small)[4]) {
+  split_tf32(c[0], big[0], small[0]);
+  split_tf32(c[2], big[1], small[1]);
+  split_tf32(c[1], big[2], small[2]);
+  split_tf32(c[3], big[3], small[3]);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: asynchronous global -> shared copies, zero-filled where !ok
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS rows of HD fp32 values from row0 of a [S, HD] slice (row stride
+// s_stride elements) into a tile of pitch LD; rows past S are zeros.  vec:
+// the slice and its stride allow 16-byte copies, else 4-byte ones.
+template <int ROWS, int HD, int LD, int NTHREADS>
+__device__ __forceinline__ void f32_tile_async(float* dst, const float* src, long long s_stride,
+                                               int row0, int S, bool vec) {
+  static_assert(ROWS * HD % (4 * NTHREADS) == 0, "whole 16-byte chunks a thread");
+  if (vec) {
+#pragma unroll
+    for (int u = 0; u < ROWS * HD / (4 * NTHREADS); ++u) {
+      const int c = threadIdx.x + u * NTHREADS;
+      const int r = c / (HD / 4);
+      const int d = (c - r * (HD / 4)) * 4;
+      const bool ok = row0 + r < S;
+      cp_async16(dst + r * LD + d, ok ? src + (long long)(row0 + r) * s_stride + d : src, ok);
+    }
+  } else {
+    for (int c = threadIdx.x; c < ROWS * HD; c += NTHREADS) {
+      const int r = c / HD;
+      const int d = c - r * HD;
+      const bool ok = row0 + r < S;
+      cp_async4(dst + r * LD + d, ok ? src + (long long)(row0 + r) * s_stride + d : src, ok);
+    }
+  }
 }
 
 // byte n of the result is byte (sel >> 4n) & 7 of {b, a} (a: bytes 0-3),
