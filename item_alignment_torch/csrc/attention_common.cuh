@@ -132,6 +132,29 @@ __device__ __forceinline__ const T* slice(const void* base, int b, int h, long l
   return static_cast<const T*>(base) + b * sb + h * sn;
 }
 
+// The arguments of a forward launch (#1's and #4's, bf16 and fp32): q, k,
+// v and out (o) [B, S, N, H] with strides in elements, the [B, S] fp32 key
+// bias rows (stride bias_sb) or nullptr, and for #4 the float64 lse
+// [B, N, S] and the dropout constants (#1 has no lse and takes threshold 0
+// and keep_p 1).
+struct FwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;
+  void* o;
+  double* lse;
+  int S, N;
+  long long q_sb, q_ss, q_sn;
+  long long k_sb, k_ss, k_sn;
+  long long v_sb, v_ss, v_sn;
+  long long o_sb, o_ss, o_sn;
+  long long bias_sb;
+  float scale;
+  uint32_t seed, threshold;
+  float keep_p;
+};
+
 // delta[b, n, i] = sum over h of g[b, i, n, h] * out[b, i, n, h] in fp32,
 // the row term of both backward passes; one thread per (b, i, n) row
 struct DeltaParams {

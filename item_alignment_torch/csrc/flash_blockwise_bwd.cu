@@ -630,32 +630,9 @@ struct F32Tiles {
   }
 
   // stage s's pair split once for every warp: big in place, small beside
+  // (loop1(s) follows loop0(s) with the same pitch)
   __device__ void split_loop(int s) const {
-    static_assert(2 * LOOP * HD % (4 * THREADS) == 0, "whole float4s a thread");
-    float* raw = loop0(s);  // loop1(s) follows with the same pitch
-#pragma unroll
-    for (int u = 0; u < 2 * LOOP * HD / (4 * THREADS); ++u) {
-      const int c = (threadIdx.x + u * THREADS) * 4;
-      const int off = (c / HD) * LD + c % HD;
-      float4 x = *reinterpret_cast<float4*>(raw + off);
-      uint32_t b[4], sm[4];
-      split_tf32(x.x, b[0], sm[0]);
-      split_tf32(x.y, b[1], sm[1]);
-      split_tf32(x.z, b[2], sm[2]);
-      split_tf32(x.w, b[3], sm[3]);
-      *reinterpret_cast<uint4*>(raw + off) = make_uint4(b[0], b[1], b[2], b[3]);
-      *reinterpret_cast<uint4*>(small + off) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
-    }
-  }
-
-  // the B operand at offsets off and off + step of a looped tile (stage
-  // tile `t`, its small half `ts`), split
-  __device__ static void b_frag(const float* t, const float* ts, int off, int step,
-                                uint32_t (&big)[2], uint32_t (&sm)[2]) {
-    big[0] = __float_as_uint(t[off]);
-    big[1] = __float_as_uint(t[off + step]);
-    sm[0] = __float_as_uint(ts[off]);
-    sm[1] = __float_as_uint(ts[off + step]);
+    split_tile_tf32<2 * LOOP, HD, LD, THREADS>(loop0(s), small);
   }
 };
 
@@ -690,7 +667,7 @@ __device__ __forceinline__ void f32_scores(const T& sh, const float* l0, const f
 #pragma unroll
     for (int nt = 0; nt < LOOP / 8; ++nt) {
       uint32_t bb[2], bs[2];
-      T::b_frag(l0, s0, (nt * 8 + g) * LD + kd * 8 + t, 4, bb, bs);
+      b_frag(l0, s0, (nt * 8 + g) * LD + kd * 8 + t, 4, bb, bs);
       mma_3xtf32(s[nt], ab, as, bb, bs);
     }
   }
@@ -702,7 +679,7 @@ __device__ __forceinline__ void f32_scores(const T& sh, const float* l0, const f
 #pragma unroll
       for (int nt = 0; nt < LOOP / 8; ++nt) {
         uint32_t bb[2], bs[2];
-        T::b_frag(l1, s1, (nt * 8 + g) * LD + kd * 8 + t, 4, bb, bs);
+        b_frag(l1, s1, (nt * 8 + g) * LD + kd * 8 + t, 4, bb, bs);
         mma_3xtf32_rn(dp[nt], ab, as, bb, bs);
       }
     }
@@ -723,7 +700,7 @@ __device__ __forceinline__ void f32_contract(float (&acc)[HD / 8][4], const floa
 #pragma unroll
     for (int nd = 0; nd < HD / 8; ++nd) {
       uint32_t bb[2], bs[2];
-      T::b_frag(l, ls, (kk * 8 + 2 * t) * LD + nd * 8 + g, LD, bb, bs);
+      b_frag(l, ls, (kk * 8 + 2 * t) * LD + nd * 8 + g, LD, bb, bs);
       mma_3xtf32(acc[nd], ab, as, bb, bs);
     }
   }

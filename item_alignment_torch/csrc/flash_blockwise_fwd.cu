@@ -94,11 +94,14 @@
 //     consumers at 104 with dropout too), two at H = 128.  Timed in turns,
 //     three blocks an SM at H = 64 ran behind four at both train shapes,
 //     with dropout and without (PERF.md).
-// fp32 is a scalar-FMA correctness path on 64 x 64 tiles.
+// fp32 runs the fp32 forward block of attention_f32.cuh, which #1 shares:
+// both products on the tensor cores in 3xTF32 (mma.sync m16n8k8), dropout
+// a template parameter as here.
 
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "attention_f32.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -107,25 +110,8 @@ using namespace ia;
 
 constexpr int BQ = 64;   // queries per block
 constexpr int BKV = 64;  // keys per tile
-constexpr int ROWS_PER_WARP = 16;
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* bias;  // [B, S] key bias rows (stride bias_sb), or nullptr
-  void* o;
-  double* lse;  // [B, N, S]
-  int S, N;
-  long long q_sb, q_ss, q_sn;
-  long long k_sb, k_ss, k_sn;
-  long long v_sb, v_ss, v_sn;
-  long long o_sb, o_ss, o_sn;
-  long long bias_sb;
-  float scale;
-  uint32_t seed, threshold;
-  float keep_p;
-};
+using Params = FwdParams;
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, a TMA ring and a producer warpgroup
@@ -312,142 +298,12 @@ __global__ void __launch_bounds__(Fwd<HD>::Regs::THREADS, Fwd<HD>::MIN_BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: scalar FMAs, shared memory, 64 queries x 64 keys on 4 warps (a
-// correctness path)
+// fp32: the fp32 forward block of attention_f32.cuh, with lse
 // ---------------------------------------------------------------------------
 
-template <int HD>
-struct F32Layout {
-  static constexpr int LDT = HD + 1;   // Q/K/V rows: odd pitch
-  static constexpr int LDP = BKV + 1;  // P rows
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + BQ * LDT;
-  static constexpr int V_OFF = K_OFF + BKV * LDT;
-  static constexpr int P_OFF = V_OFF + BKV * LDT;
-  static constexpr int O_OFF = P_OFF + BQ * LDP;
-  static constexpr int STAT_OFF = O_OFF + BQ * HD;
-  static constexpr int BYTES = (STAT_OFF + 3 * BQ) * 4;  // + m, l, alpha
-};
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32(Params p) {
-  using L = F32Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sm = reinterpret_cast<float*>(smem);
-  float* Qs = sm + L::Q_OFF;
-  float* Ks = sm + L::K_OFF;
-  float* Vs = sm + L::V_OFF;
-  float* Ps = sm + L::P_OFF;
-  float* Os = sm + L::O_OFF;
-  float* m_s = sm + L::STAT_OFF;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int S = p.S;
-  const int m0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * ROWS_PER_WARP;
-
-  const float* q = slice<float>(p.q, b, h, p.q_sb, p.q_sn);
-  const float* k = slice<float>(p.k, b, h, p.k_sb, p.k_sn);
-  const float* v = slice<float>(p.v, b, h, p.v_sb, p.v_sn);
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-  const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
-
-  load_tile_f32<BQ, HD, L::LDT>(Qs, q, p.q_ss, m0, S);
-  for (int i = threadIdx.x; i < BQ * HD; i += THREADS) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    m_s[i] = INIT_MAX;
-    l_s[i] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < S; kv0 += BKV) {
-    __syncthreads();
-    load_tile_f32<BKV, HD, L::LDT>(Ks, k, p.k_ss, kv0, S);
-    load_tile_f32<BKV, HD, L::LDT>(Vs, v, p.v_ss, kv0, S);
-    __syncthreads();
-
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int row = r0 + r;
-      // each lane owns keys `lane` and `lane + 32` of the tile
-      float s[2] = {0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const float qd = Qs[row * L::LDT + d];
-        s[0] = fmaf(qd, Ks[lane * L::LDT + d], s[0]);
-        s[1] = fmaf(qd, Ks[(lane + 32) * L::LDT + d], s[1]);
-      }
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = kv0 + lane + 32 * half;
-        float x = -INFINITY;
-        if (j < S) {
-          x = fmaf(s[half], p.scale, bias ? bias[j] : 0.f);
-          tile_max = fmaxf(tile_max, x);
-        }
-        s[half] = x;
-      }
-      tile_max = warp_max(tile_max);
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, tile_max);
-      const float alpha = exp2f((m_old - m_new) * LOG2E);
-      const uint32_t rkey = row_key(hk, uint32_t(m0 + row));
-      float psum = 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const uint32_t j = kv0 + c;
-        float pv = (int(j) < S) ? exp2f((s[half] - m_new) * LOG2E) : 0.f;
-        psum += pv;
-        if (p.threshold && !keep_bit(key_word(rkey, j), j, p.threshold)) pv = 0.f;
-        Ps[row * L::LDP + c] = pv;
-      }
-      psum = warp_sum(psum);
-      __syncwarp();
-      if (lane == 0) {
-        m_s[row] = m_new;
-        l_s[row] = l_s[row] * alpha + psum;
-        a_s[row] = alpha;
-      }
-    }
-    __syncwarp();
-
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const float alpha = a_s[r0 + r];
-      const float* prow = Ps + (r0 + r) * L::LDP;
-      float* orow = Os + (r0 + r) * HD;
-      for (int d = lane; d < HD; d += 32) {
-        float acc = orow[d] * alpha;
-#pragma unroll 8
-        for (int j = 0; j < BKV; ++j) acc = fmaf(prow[j], Vs[j * L::LDT + d], acc);
-        orow[d] = acc;
-      }
-    }
-  }
-  __syncwarp();
-
-  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sn;
-  double* lse = p.lse + ((long long)b * p.N + h) * S;
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int row = m0 + r0 + r;
-    if (row >= S) break;
-    const float denom = fmaxf(l_s[r0 + r], MIN_DENOM);
-    if (lane == 0) lse[row] = double(m_s[r0 + r]) + log(double(denom));
-    const float div = denom * p.keep_p;
-    for (int d = lane; d < HD; d += 32) o[(long long)row * p.o_ss + d] = Os[(r0 + r) * HD + d] / div;
-  }
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const Params& p, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BQ - 1) / BQ, p.N, B);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(THREADS, F32FwdTiles<HD>::MIN_BLOCKS) flash_fwd_f32(const Params p) {
+  f32_fwd_block<HD, DROP, true>(p);
 }
 
 template <int HD>
@@ -461,7 +317,8 @@ cudaError_t launch_hd(int dtype, const Params& p, int B, cudaStream_t st) {
         p.threshold ? flash_fwd_bf16<HD, true> : flash_fwd_bf16<HD, false>, F::Ring::BYTES, p,
         src, strides, B, p.S, p.N, HD, st);
   }
-  return launch(flash_fwd_f32<HD>, F32Layout<HD>::BYTES, p, B, st);
+  return launch_f32_fwd<HD>(p.threshold ? flash_fwd_f32<HD, true> : flash_fwd_f32<HD, false>, p,
+                            B, st);
 }
 
 }  // namespace
@@ -500,6 +357,14 @@ int ia_flash_fwd_smem_bytes(int head_dim) {
   if (head_dim == 32) return Fwd<32>::Ring::BYTES;
   if (head_dim == 64) return Fwd<64>::Ring::BYTES;
   if (head_dim == 128) return Fwd<128>::Ring::BYTES;
+  return -1;
+}
+
+// the same for an fp32 block (attention_f32.cuh)
+int ia_flash_fwd_f32_smem_bytes(int head_dim) {
+  if (head_dim == 32) return F32FwdTiles<32>::BYTES;
+  if (head_dim == 64) return F32FwdTiles<64>::BYTES;
+  if (head_dim == 128) return F32FwdTiles<128>::BYTES;
   return -1;
 }
 

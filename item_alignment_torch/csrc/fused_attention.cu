@@ -68,35 +68,24 @@
 //     S = 510 and 255, each added block ran ahead of fewer, and 128
 //     queries a block (two consumer warpgroups, one block an SM) ran behind
 //     64 at H = 64 and at H = 128 (PERF.md).
-// fp32 keeps full fp32 products with scalar FMAs from shared memory: a
-// correctness path.
+// fp32 runs the fp32 forward block of attention_f32.cuh, which #4 shares:
+// both products on the tensor cores in 3xTF32 (mma.sync m16n8k8), four
+// warps of 16 queries, 32-key tiles split once a block in shared memory.
 
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "attention_f32.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
 using namespace ia;
 
-constexpr int BLOCK_N = 64;  // keys per KV tile (both paths)
+constexpr int BLOCK_N = 64;  // keys per KV tile (bf16)
 constexpr int WG_ROWS = 64;  // queries of a consumer warpgroup (bf16)
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* bias;  // [B, S] key bias rows (stride bias_sb), or nullptr
-  void* o;
-  int S;
-  long long q_sb, q_ss, q_sn;
-  long long k_sb, k_ss, k_sn;
-  long long v_sb, v_ss, v_sn;
-  long long o_sb, o_ss, o_sn;
-  long long bias_sb;
-  float scale;
-};
+using Params = FwdParams;  // lse null, no dropout
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma, a TMA ring and a producer warpgroup
@@ -235,130 +224,12 @@ __global__ void __launch_bounds__(Fwd<HD>::Regs::THREADS, Fwd<HD>::MIN_BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: scalar FMAs, shared memory
+// fp32: the fp32 forward block of attention_f32.cuh, no lse, no dropout
 // ---------------------------------------------------------------------------
 
-constexpr int F32_BLOCK_M = 64;  // query rows of an fp32 block (THREADS threads)
-constexpr int ROWS_PER_WARP = F32_BLOCK_M / (THREADS / 32);  // 16
-
 template <int HD>
-struct F32Layout {
-  static constexpr int LDT = HD + 1;       // Q/K/V rows: odd pitch, no bank conflicts
-  static constexpr int LDP = BLOCK_N + 1;  // P rows
-  static constexpr int LDO = HD;           // O accumulator rows
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + F32_BLOCK_M * LDT;
-  static constexpr int V_OFF = K_OFF + BLOCK_N * LDT;
-  static constexpr int P_OFF = V_OFF + BLOCK_N * LDT;
-  static constexpr int O_OFF = P_OFF + F32_BLOCK_M * LDP;
-  static constexpr int STAT_OFF = O_OFF + F32_BLOCK_M * LDO;
-  static constexpr int BYTES = (STAT_OFF + 3 * F32_BLOCK_M) * 4;  // + m, l, alpha
-};
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS) attn_fwd_f32(Params p) {
-  using L = F32Layout<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sm = reinterpret_cast<float*>(smem);
-  float* Qs = sm + L::Q_OFF;
-  float* Ks = sm + L::K_OFF;
-  float* Vs = sm + L::V_OFF;
-  float* Ps = sm + L::P_OFF;
-  float* Os = sm + L::O_OFF;
-  float* m_s = sm + L::STAT_OFF;
-  float* l_s = m_s + F32_BLOCK_M;
-  float* a_s = l_s + F32_BLOCK_M;
-
-  const int S = p.S;
-  const int m0 = blockIdx.x * F32_BLOCK_M;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x % 32;
-  const int r0 = (threadIdx.x / 32) * ROWS_PER_WARP;
-
-  const float* q = slice<float>(p.q, b, h, p.q_sb, p.q_sn);
-  const float* k = slice<float>(p.k, b, h, p.k_sb, p.k_sn);
-  const float* v = slice<float>(p.v, b, h, p.v_sb, p.v_sn);
-  const float* bias = p.bias ? p.bias + b * p.bias_sb : nullptr;
-
-  load_tile_f32<F32_BLOCK_M, HD, L::LDT>(Qs, q, p.q_ss, m0, S);
-  for (int i = threadIdx.x; i < F32_BLOCK_M * L::LDO; i += THREADS) Os[i] = 0.f;
-  for (int i = threadIdx.x; i < F32_BLOCK_M; i += THREADS) {
-    m_s[i] = INIT_MAX;
-    l_s[i] = 0.f;
-  }
-
-  for (int kv0 = 0; kv0 < S; kv0 += BLOCK_N) {
-    __syncthreads();  // Q/O initialised, or the previous K/V tile consumed
-    load_tile_f32<BLOCK_N, HD, L::LDT>(Ks, k, p.k_ss, kv0, S);
-    load_tile_f32<BLOCK_N, HD, L::LDT>(Vs, v, p.v_ss, kv0, S);
-    __syncthreads();
-
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const int row = r0 + r;
-      // each lane owns keys `lane` and `lane + 32` of the tile
-      float s[2] = {0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const float qd = Qs[row * L::LDT + d];
-        s[0] = fmaf(qd, Ks[lane * L::LDT + d], s[0]);
-        s[1] = fmaf(qd, Ks[(lane + 32) * L::LDT + d], s[1]);
-      }
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = kv0 + lane + 32 * half;
-        float x = -INFINITY;
-        if (j < S) {
-          x = s[half] * p.scale;
-          if (bias) x += bias[j];
-          tile_max = fmaxf(tile_max, x);
-        }
-        s[half] = x;
-      }
-      tile_max = warp_max(tile_max);
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, tile_max);
-      const float alpha = expf(m_old - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const float pv = (kv0 + c < S) ? expf(s[half] - m_new) : 0.f;
-        psum += pv;
-        Ps[row * L::LDP + c] = pv;
-      }
-      psum = warp_sum(psum);
-      __syncwarp();
-      if (lane == 0) {
-        m_s[row] = m_new;
-        l_s[row] = l_s[row] * alpha + psum;
-        a_s[row] = alpha;
-      }
-    }
-    __syncwarp();
-
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const float alpha = a_s[r0 + r];
-      const float* prow = Ps + (r0 + r) * L::LDP;
-      float* orow = Os + (r0 + r) * L::LDO;
-      for (int d = lane; d < HD; d += 32) {
-        float acc = orow[d] * alpha;
-#pragma unroll 8
-        for (int j = 0; j < BLOCK_N; ++j) acc = fmaf(prow[j], Vs[j * L::LDT + d], acc);
-        orow[d] = acc;
-      }
-    }
-  }
-  __syncwarp();
-
-  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sn;
-  for (int r = 0; r < ROWS_PER_WARP; ++r) {
-    const int row = m0 + r0 + r;
-    if (row >= S) break;
-    const float denom = fmaxf(l_s[r0 + r], MIN_DENOM);
-    for (int d = lane; d < HD; d += 32) o[(long long)row * p.o_ss + d] = Os[(r0 + r) * L::LDO + d] / denom;
-  }
+__global__ void __launch_bounds__(THREADS, F32FwdTiles<HD>::MIN_BLOCKS) attn_fwd_f32(const Params p) {
+  f32_fwd_block<HD, false, false>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -375,16 +246,6 @@ cudaError_t launch_bf16(const Params& p, int B, int N, cudaStream_t st) {
                                             p.S, N, HD, st);
 }
 
-template <int HD>
-cudaError_t launch_f32(const Params& p, int B, int N, cudaStream_t st) {
-  const auto kernel = attn_fwd_f32<HD>;
-  const int smem = F32Layout<HD>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + F32_BLOCK_M - 1) / F32_BLOCK_M, N, B);
-  kernel<<<grid, THREADS, smem, st>>>(p);
-  return cudaGetLastError();
-}
 
 }  // namespace
 
@@ -400,11 +261,9 @@ int ia_fused_attention_fwd(int dtype, int head_dim, const void* q, const void* k
                            long long k_ss, long long k_sn, long long v_sb, long long v_ss,
                            long long v_sn, long long o_sb, long long o_ss, long long o_sn,
                            long long bias_sb, float scale, void* stream) {
-  const Params p{q,    k,    v,    static_cast<const float*>(bias),
-                 o,    S,    q_sb, q_ss,
-                 q_sn, k_sb, k_ss, k_sn,
-                 v_sb, v_ss, v_sn, o_sb,
-                 o_ss, o_sn, bias_sb, scale};
+  const Params p{q,    k,    v,    static_cast<const float*>(bias), o, nullptr, S, N,
+                 q_sb, q_ss, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss, v_sn, o_sb, o_ss, o_sn,
+                 bias_sb, scale, 0u, 0u, 1.f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
@@ -412,9 +271,9 @@ int ia_fused_attention_fwd(int dtype, int head_dim, const void* q, const void* k
     if (head_dim == 64) return launch_bf16<64>(p, B, N, st);
     if (head_dim == 128) return launch_bf16<128>(p, B, N, st);
   } else if (dtype == 0) {
-    if (head_dim == 32) return launch_f32<32>(p, B, N, st);
-    if (head_dim == 64) return launch_f32<64>(p, B, N, st);
-    if (head_dim == 128) return launch_f32<128>(p, B, N, st);
+    if (head_dim == 32) return launch_f32_fwd<32>(attn_fwd_f32<32>, p, B, st);
+    if (head_dim == 64) return launch_f32_fwd<64>(attn_fwd_f32<64>, p, B, st);
+    if (head_dim == 128) return launch_f32_fwd<128>(attn_fwd_f32<128>, p, B, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -425,6 +284,14 @@ int ia_fused_attention_smem_bytes(int head_dim) {
   if (head_dim == 32) return Fwd<32>::Ring::BYTES;
   if (head_dim == 64) return Fwd<64>::Ring::BYTES;
   if (head_dim == 128) return Fwd<128>::Ring::BYTES;
+  return -1;
+}
+
+// the same for an fp32 block (attention_f32.cuh)
+int ia_fused_attention_f32_smem_bytes(int head_dim) {
+  if (head_dim == 32) return F32FwdTiles<32>::BYTES;
+  if (head_dim == 64) return F32FwdTiles<64>::BYTES;
+  if (head_dim == 128) return F32FwdTiles<128>::BYTES;
   return -1;
 }
 

@@ -201,6 +201,16 @@ __device__ __forceinline__ void a_split(const float* tile, int row, int col, uin
   split_tf32(at[8 * LD + 4], big[3], small[3]);
 }
 
+// the B operand at offsets off and off + step of a tile split in shared
+// memory (big halves in `big`, small ones at the same offsets of `small`)
+__device__ __forceinline__ void b_frag(const float* big, const float* small, int off, int step,
+                                       uint32_t (&b)[2], uint32_t (&s)[2]) {
+  b[0] = __float_as_uint(big[off]);
+  b[1] = __float_as_uint(big[off + step]);
+  s[0] = __float_as_uint(small[off]);
+  s[1] = __float_as_uint(small[off + step]);
+}
+
 // An accumulator tile (16 rows x 8 columns) as the A operand of a product
 // that contracts over its columns, split.  The contraction takes logical k
 // = t and t + 4 to be columns 2t and 2t + 1, which lane 4g + t already
@@ -263,6 +273,27 @@ __device__ __forceinline__ void f32_tile_async(float* dst, const float* src, lon
       const bool ok = row0 + r < S;
       cp_async4(dst + r * LD + d, ok ? src + (long long)(row0 + r) * s_stride + d : src, ok);
     }
+  }
+}
+
+// A tile of ROWS rows by HD fp32 columns (pitch LD floats) split into TF32
+// halves by the block's NTHREADS threads, once for every warp: the big
+// halves in place, the small ones at the same offsets of `small`
+template <int ROWS, int HD, int LD, int NTHREADS>
+__device__ __forceinline__ void split_tile_tf32(float* raw, float* small) {
+  static_assert(ROWS * HD % (4 * NTHREADS) == 0, "whole float4s a thread");
+#pragma unroll
+  for (int u = 0; u < ROWS * HD / (4 * NTHREADS); ++u) {
+    const int c = (threadIdx.x + u * NTHREADS) * 4;
+    const int off = (c / HD) * LD + c % HD;
+    const float4 x = *reinterpret_cast<const float4*>(raw + off);
+    uint32_t b[4], sm[4];
+    split_tf32(x.x, b[0], sm[0]);
+    split_tf32(x.y, b[1], sm[1]);
+    split_tf32(x.z, b[2], sm[2]);
+    split_tf32(x.w, b[3], sm[3]);
+    *reinterpret_cast<uint4*>(raw + off) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(small + off) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
   }
 }
 

@@ -1,9 +1,12 @@
-"""The arithmetic that the fp32 backward kernels of
+"""The arithmetic that the fp32 kernels are designed to, emulated on the CPU
+against the JAX package: the backward kernels of
 ``csrc/flash_blockwise_bwd.cu`` (``flash_dq_f32``, ``flash_dkv_f32``: #3's
-fp32 route, and #5/#6 in fp32) are designed to, emulated on the CPU against
-the JAX package.  These tests check the design, not the CUDA code: the
-kernels themselves are checked on the card by ``chip_smoke.py`` (phase 2's
-SASS and spills, phases 6, 11 and 19e against float64 with a TF32 witness).
+fp32 route, and #5/#6 in fp32) and the forward block of
+``csrc/attention_f32.cuh`` (``attn_fwd_f32``: #1 in fp32;
+``flash_fwd_f32``: #2's contract and #4 in fp32).  These tests check the
+design, not the CUDA code: the kernels themselves are checked on the card
+by ``chip_smoke.py`` (phase 2's SASS and spills, phases 3, 6, 11 and 19e
+against float64 with a TF32 witness).
 
 The kernels take every product on the tensor cores in TF32 (11 significant
 bits), three times over ("3xTF32"): x = big + small with big = x rounded to
@@ -28,8 +31,17 @@ attention within 1e-4 of each (batch row, head) slice's max|ref|, on numpy
 ``randn`` inputs (off the 1/8 grid of the other attention tests, where
 every q.k is exact in TF32 too); one TF32 product per fp32 product on the
 same inputs exceeds that limit, so these inputs tell the two apart.
+
+The forward (``emulated_forward``) takes its two products, q k^T and p v,
+each in place in one accumulator: the tests below hold out against the JAX
+package's fp32 attention within 1e-4 of each slice's max|ref| and lse
+against a float64 logsumexp within 1e-5, and require the in-place sums to
+stay within half of both limits in every case, a one-hot row included
+(the rule by which a product may be summed in place; otherwise it would
+take ``mma_3xtf32_rn``'s fresh accumulators).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -48,6 +60,11 @@ torch.set_num_threads(1)
 
 GRAD_TOL = 1e-4  # chip_smoke.py's GRAD_TOL[float32], per slice
 HEAD_DIMS = (32, 64, 128)
+# the fp32 forward block (csrc/attention_f32.cuh): keys a tile, and which
+# of its products (scores q k^T, then p v) sum each 8-deep step in a fresh
+# accumulator added in fp32 (mma_3xtf32_rn) rather than in place
+FWD_LOOP = 32
+FWD_FRESH = (False, False)
 # logical k of an 8-deep step -> the physical row of its 8-row group that
 # the kernels put there: k = t is row 2t, k = t + 4 is row 2t + 1
 K_ORDER = np.array([0, 2, 4, 6, 1, 3, 5, 7])
@@ -88,19 +105,21 @@ def tc_step(c, prods):
     return toward_zero((np.trunc(terms / quantum) * quantum).sum(-1))
 
 
-def matmul(a, b, passes, fresh=False):
-    """a [..., M, K] @ b [..., K, N] in fp32 from TF32 operands, K a
+def matmul(a, b, passes, fresh=False, acc=None):
+    """acc + a [..., M, K] @ b [..., K, N] in fp32 from TF32 operands, K a
     multiple of 8, in 8-deep ``tc_step`` steps of ``passes`` products each:
     3 as the kernels take them (small big, big small, big big), 1 as one
     TF32 product.  All steps go into one accumulator (``mma_3xtf32``), or
     with ``fresh`` each into a fresh one added in fp32 to nearest
-    (``mma_3xtf32_rn``)."""
+    (``mma_3xtf32_rn``).  ``acc`` (fp32, default zeros) is the accumulator
+    the steps start from."""
     if passes == 1:
         pairs = [(tf32(a), tf32(b))]
     else:
         (ab, as_), (bb, bs) = split(a), split(b)
         pairs = [(as_, bb), (ab, bs), (ab, bb)]
-    d = np.zeros(a.shape[:-1] + b.shape[-1:], np.float32)
+    d = (np.zeros(a.shape[:-1] + b.shape[-1:], np.float32) if acc is None
+         else np.asarray(acc, np.float32))
     for k0 in range(0, a.shape[-1], 8):
         acc = np.zeros_like(d) if fresh else d
         for x, y in pairs:
@@ -112,10 +131,11 @@ def matmul(a, b, passes, fresh=False):
     return d
 
 
-def contract_in_groups(a, b, passes):
-    """a [..., M, K] @ b [..., K, N] over K in the kernels' order: K padded
-    to whole groups of 8 with zeros (the zero-filled rows past S) and each
-    group taken in ``K_ORDER``."""
+def contract_in_groups(a, b, passes, fresh=False, acc=None):
+    """acc + a [..., M, K] @ b [..., K, N] over K in the kernels' order
+    (``matmul``'s ``fresh`` and ``acc``): K padded to whole groups of 8
+    with zeros (the zero-filled rows past S) and each group taken in
+    ``K_ORDER``."""
     K = a.shape[-1]
     pad = -K % 8
     a = np.concatenate([a, np.zeros(a.shape[:-1] + (pad,), a.dtype)], -1)
@@ -123,7 +143,7 @@ def contract_in_groups(a, b, passes):
                                     b.dtype)], -2)
     order = (np.arange(0, K + pad, 8)[:, None] + K_ORDER).reshape(-1)
     return matmul(np.ascontiguousarray(a[..., order]),
-                  np.ascontiguousarray(b[..., order, :]), passes)
+                  np.ascontiguousarray(b[..., order, :]), passes, fresh, acc)
 
 
 def split_lse(lse):
@@ -152,6 +172,48 @@ def emulated_backward(q, k, v, bias, g, lse, delta, passes):
     dv = contract_in_groups(np.ascontiguousarray(p.transpose(0, 1, 3, 2)),
                             gh, passes)
     return tuple(x.transpose(0, 2, 1, 3) for x in (dq, dk, dv))
+
+
+def emulated_forward(q, k, v, bias, passes, fresh=FWD_FRESH, loop=FWD_LOOP):
+    """out and lse of #1 and of #2's contract at rate 0 by the fp32 forward
+    block's design (``csrc/attention_f32.cuh``): key tiles of ``loop``
+    rows, zero past S with a key bias of -inf there; per tile the scores
+    q k^T by ``matmul`` and x = fmaf(s, scale, bias) in natural units; the
+    exact running row max m from -1e30, alpha = exp2((m - m') log2 e), p =
+    exp2((x - m') log2 e), l = l alpha + rowsum(p) in fp32, o = o alpha and
+    then o += p v contracted in ``K_ORDER`` from o as it stands; out = o /
+    max(l, 1e-37) and lse = m + log(max(l, 1e-37)) in float64.  ``fresh``
+    (scores, p v): each 8-deep step of that product in a fresh accumulator
+    (``mma_3xtf32_rn``), else in place.  Arrays [B, S, N, H], bias [B, S];
+    returns out [B, S, N, H] (fp32) and lse [B, N, S] (float64)."""
+    B, S, N, H = q.shape
+    scale = np.float32(1.0 / math.sqrt(H))
+    log2e = np.float32(math.log2(math.e))
+    pad = -S % loop
+    qh, kh, vh = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                  for x in (q, k, v))
+    kh, vh = (np.concatenate([x, np.zeros((B, N, pad, H), np.float32)], 2)
+              for x in (kh, vh))
+    kb = np.concatenate([bias, np.full((B, pad), -np.inf, np.float32)], 1)
+    m = np.full((B, N, S), -1e30, np.float32)
+    l = np.zeros((B, N, S), np.float32)
+    o = np.zeros((B, N, S, H), np.float32)
+    for k0 in range(0, S + pad, loop):
+        kt = np.ascontiguousarray(kh[:, :, k0:k0 + loop].swapaxes(-1, -2))
+        s = matmul(qh, kt, passes, fresh=fresh[0])
+        x = (s.astype(np.float64) * np.float64(scale)
+             + kb[:, None, None, k0:k0 + loop]).astype(np.float32)
+        m_new = np.maximum(m, x.max(-1))
+        alpha = np.exp2((m - m_new) * log2e)
+        p = np.exp2((x - m_new[..., None]) * log2e)
+        l = l * alpha + p.sum(-1, dtype=np.float32)
+        o = contract_in_groups(p, vh[:, :, k0:k0 + loop], passes,
+                               fresh=fresh[1], acc=o * alpha[..., None])
+        m = m_new
+    denom = np.maximum(l, np.float32(1e-37))
+    out = o / denom[..., None]
+    lse = m.astype(np.float64) + np.log(denom.astype(np.float64))
+    return out.transpose(0, 2, 1, 3), lse
 
 
 def _slice_rel(a, b):
@@ -313,3 +375,82 @@ def test_fragments():
     # and K_ORDER is that order: logical k -> physical key
     assert [2 * t for t in range(4)] + [2 * t + 1 for t in range(4)] \
         == K_ORDER.tolist()
+
+
+# the forward's limits: chip_smoke.py's TOL[float32] on out (here per slice)
+# and LSE_TOL on lse (absolute on ordinary rows, of |lse| + 1 on the one-hot
+# row, whose fp32 scores run to about 100)
+OUT_TOL = 1e-4
+LSE_TOL = 1e-5
+ONE_HOT_ROW = 2  # batch row whose q is scaled by 30: one key takes each row
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_case(H, one_hot, B=3, S=130, N=2, seed=0):
+    """numpy randn q, k, v (off the 1/8 grid), a ragged mask with a fully
+    masked batch row (1) and, with ``one_hot``, q of batch row
+    ``ONE_HOT_ROW`` scaled by 30; the key bias rows [B, S], the JAX
+    package's fp32 out, and the float64 logsumexp of the scores as the
+    contract has them (computed in float64, rounded to fp32: there the
+    -1e9 mask bias swallows q.k, so the fully masked row is uniform)."""
+    rs = np.random.RandomState(seed + H)
+    q, k, v = (rs.randn(B, S, N, H).astype(np.float32) for _ in range(3))
+    if one_hot:
+        q[ONE_HOT_ROW] *= 30.0
+    lens = rs.randint(S // 4, S + 1, size=B)
+    lens[1] = 0
+    mask = (np.arange(S)[None, :] < lens[:, None]).astype(np.int32)
+    ref = np.asarray(jax.jit(jatt.dot_product_attention)(
+        *(jnp.asarray(x) for x in (q, k, v)),
+        jatt.make_attention_bias(jnp.asarray(mask))))
+    bias = tatt.make_attention_bias(torch.from_numpy(mask)).reshape(B, S).numpy()
+    x = (np.einsum("bqnh,bknh->bnqk", q.astype(np.float64), k.astype(np.float64))
+         / math.sqrt(H) + bias[:, None, None, :]).astype(np.float32).astype(np.float64)
+    top = x.max(-1)
+    lse = top + np.log(np.exp(x - top[..., None]).sum(-1))
+    return (q, k, v, bias), ref, lse
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_errs(H, one_hot, passes, fresh=FWD_FRESH):
+    """The emulated forward's worst out error per slice (of its max|ref|)
+    and worst lse error (absolute; of |lse| + 1 on the one-hot row)."""
+    args, ref, ref_lse = _fwd_case(H, one_hot)
+    out, lse = emulated_forward(*args, passes=passes, fresh=fresh)
+    assert np.isfinite(out).all() and np.isfinite(lse).all()
+    d = np.abs(lse - ref_lse)
+    if one_hot:
+        d[ONE_HOT_ROW] /= np.abs(ref_lse[ONE_HOT_ROW]) + 1.0
+    return _slice_rel(out, ref), d.max()
+
+
+FWD_CASES = [(H, one_hot) for one_hot in (False, True) for H in HEAD_DIMS]
+
+
+@pytest.mark.parametrize("H,one_hot", FWD_CASES)
+def test_3xtf32_forward_matches_jax(H, one_hot):
+    """The forward block's design (3xTF32 products summed as ``FWD_FRESH``
+    says, 32-key tiles, the online softmax) gives out within 1e-4 of each
+    slice's max|ref| of the JAX package's fp32 attention and lse within
+    1e-5 of the float64 logsumexp, the fully masked row included."""
+    e_out, e_lse = _fwd_errs(H, one_hot, 3)
+    assert e_out < OUT_TOL and e_lse < LSE_TOL
+
+
+@pytest.mark.parametrize("H,one_hot", FWD_CASES)
+def test_in_place_forward_sums_keep_half_the_limit(H, one_hot):
+    """Both products summed in place in one accumulator (``mma_3xtf32``)
+    stay within half of each limit in every case: the margin under which
+    the kernel keeps the in-place form (``FWD_FRESH``) rather than a fresh
+    accumulator per 8-deep step."""
+    assert FWD_FRESH == (False, False)
+    e_out, e_lse = _fwd_errs(H, one_hot, 3, (False, False))
+    assert e_out < OUT_TOL / 2 and e_lse < LSE_TOL / 2
+
+
+@pytest.mark.parametrize("H,one_hot", FWD_CASES)
+def test_one_pass_tf32_forward_exceeds_the_limits(H, one_hot):
+    """One TF32 product per fp32 product reads above both limits on the
+    same inputs: they tell an fp32-accurate forward from a TF32 one."""
+    e_out, e_lse = _fwd_errs(H, one_hot, 1)
+    assert e_out > OUT_TOL and e_lse > LSE_TOL

@@ -259,7 +259,7 @@ def test_kernel_source_ships_with_the_package():
 
     for source in ("fused_attention.cu", "flash_blockwise_fwd.cu",
                    "flash_blockwise_bwd.cu", "attention_common.cuh",
-                   "hopper_common.cuh"):
+                   "attention_f32.cuh", "hopper_common.cuh"):
         assert (ROOT / "item_alignment_torch" / "csrc" / source).is_file()
     # kernel #2's contract runs on the forward of flash_blockwise_fwd.cu and
     # #3's on the dQ and dK/dV kernels of flash_blockwise_bwd.cu; their own
