@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19:
+run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19, 20:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -204,6 +204,39 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19:
    timed at B=8, S=512 beside SDPA and the bound, #3's route with dQ and
    dK/dV alone (TFLOP/s and the ratio to their bounds: in fp32 those of
    3xTF32).
+20. the image family: on phase 16's corpus at 512 items in four
+   categories of ``data/images.py:CATE2YOLO_CLASS``, each with a JPEG main
+   image (a product on a plain background, 600-1000 px a side) and 128
+   train, 32 valid and 32 test pairs, and an ``eca_nfnet_l0`` checkpoint
+   under timm 0.6.5's names and shapes written from a random NFNet (every
+   StdConv gain from U(0.5, 1)), all from --seed.  (a) scripts/train.sh
+   step 6a: ``prepare --only_image --object_detection --min_crop_ratio
+   0.1`` (the saliency detector: at least 90% of the items cropped), then
+   ``prepare --with_image --cv_model_name eca_nfnet_l0
+   --pretrained_model_path`` at 288 px, batch 32, fp32: 512 vectors of
+   2304, eight of them within 1e-4 of max|ref| of direct fp32 forwards of
+   the same crops on the card and on the CPU; one encode batch profiled;
+   the TSVs' 2304-wide image columns then train one ``finetune-multimodal``
+   step at configs/roberta_image_large.json's width (batch 32, S=510,
+   bf16).  (b) step 7 and predict.sh p5: ``prepare --only_image --dtypes
+   train,valid,test --image_size 800`` (uint8 shards), ``finetune-image
+   --model_name eca_nfnet_l0 --image_size 800 --train_batch_size 16
+   --gradient_accumulation_steps 4 --learning_rate 1e-4 --bf16`` from the
+   checkpoint, 8 micro-batches and an eval, then ``--do_pred`` in fp32 from
+   its ``best_f1.pt``: the file within 1e-4 of a direct fp32 forward, bf16
+   probabilities within 2e-2 of fp32, uint8 normalised on the card within
+   1e-6 of the host's ``normalize``; then the step through a ``Trainer``
+   (one warm-up and three timed optimizer steps of 4 micro-batches, one
+   micro-batch under ``torch.profiler`` split into convolutions,
+   elementwise and the rest, its model FLOP by ``FlopCounterMode``), and at
+   288 px in fp32 with dropout 0 the gradient mean that the optimizer hands
+   AdamW after 4 micro-batches of 4 pairs within 1e-4 of each parameter's
+   max|ref| of one batch of the 16.  (c) ViT-L/16 at 384
+   (configs/vit_large_patch16_384.json: 577 tokens, 24 layers, hidden 1024)
+   and ResNetV2-50 at 288 (configs/resnetv2_50.json): a two-tower train
+   step at batch 16 in bf16, one warm-up and three timed, and the trained
+   weights' bf16 probabilities within 2e-2 of fp32.  No attention kernel is
+   on this path: the image commands count no launch of #1-#6.
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -217,8 +250,9 @@ every eval and prediction batch, #2 and #3 24 calls a step a tower, none of
 forwards, profiled steps and kernel checks are left out), and phase 19's
 commands (``bert-pretrain``: #2 and #3 12 calls a step; ``finetune-bert``:
 60 a step, 12 layers x 5 fields, and #1 60 an eval batch; ``pred-bert``: #1
-60 a batch; TextCNN none; #4-#6 none anywhere); the kernels line adds the
-#1-#3 launches of phases 16-19.  The
+60 a batch; TextCNN none; #4-#6 none anywhere), and phase 20's image
+commands (a and b; none of #1-#6); the kernels line adds the launches of
+phases 16-20.  The
 line before the last is one JSON object with the six kernels' numbers (the
 rows of #1 and #2 with an ``f32`` object too: phase 19e's fp32 ms,
 library_ms, bound_ms and bound_by at B=8, S=512, N=12); the last line is
@@ -1597,11 +1631,14 @@ ATTENTION_KERNELS = ("attn_fwd_bf16", "attn_fwd_f32", "flash_fwd_bf16",
                      "flash_dq_f32", "flash_dkv_bf16", "flash_dkv_f32")
 
 
-def profile_step(step, step_ms: float) -> str:
+def profile_step(step, step_ms: float, kernel_groups=KERNEL_GROUPS,
+                 top: int = 0) -> str:
     """One more train step (``step()``) under torch.profiler: the device
-    time of its kernels by group, the share of the unprofiled step time
-    (``step_ms``) in which the device ran none, and the six host ops whose
-    own kernels took the most device time."""
+    time of its kernels by group (``kernel_groups``: (name, substrings of
+    a kernel's name) pairs, the rest "other"), the share of the unprofiled
+    step time (``step_ms``) in which the device ran none, the six host
+    ops whose own kernels took the most device time and, with ``top``, the
+    ``top`` kernels that took the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1610,16 +1647,17 @@ def profile_step(step, step_ms: float) -> str:
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
-    attention = {}
+    groups = dict.fromkeys([g for g, _ in kernel_groups] + ["other"], 0.0)
+    attention, kernels = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
-        group = next((g for g, keys in KERNEL_GROUPS
+        group = next((g for g, keys in kernel_groups
                       if any(k in name for k in keys)), "other")
         ms = e.time_range.elapsed_us() / 1e3
         groups[group] += ms
+        kernels[e.name[:60]] = kernels.get(e.name[:60], 0.0) + ms
         kernel = next((k for k in ATTENTION_KERNELS if k in name), None)
         if kernel:
             attention[kernel] = attention.get(kernel, 0.0) + ms
@@ -1636,7 +1674,11 @@ def profile_step(step, step_ms: float) -> str:
                 f"{k} {ms:.3f} ms ({ms / busy:.1%})"
                 for k, ms in sorted(attention.items(), key=lambda x: -x[1]))
             + "; host ops by own device time: "
-            + ", ".join(f"{name} {ms:.2f} ms" for ms, name in ops))
+            + ", ".join(f"{name} {ms:.2f} ms" for ms, name in ops)
+            + ("; kernels: " + ", ".join(
+                f"{name} {ms:.2f} ms" for name, ms in sorted(
+                    kernels.items(), key=lambda x: -x[1])[:top])
+               if top else ""))
 
 
 def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
@@ -3421,6 +3463,607 @@ def phase_legacy(seed: int, card: str) -> tuple:
     return tuple(launches), dict(errs, serving_err=serving, f32=f32)
 
 
+IMG_ITEMS = 512     # phase 20's corpus: items with a main image each
+IMG_DUMP = 288      # scripts/train.sh IMG_EMB_SIZE: step 6a's dump
+IMG_TRAIN = 800     # scripts/train.sh IMG_SIZE: step 7 and predict.sh p5
+NF_BATCH, NF_ACCUM = 16, 4  # step 7's batch and gradient accumulation
+NF_WIDTH = 2304     # eca_nfnet_l0's pooled features (1536 x 1.5)
+IMG_PAIRS = {"train": 128, "valid": 32, "test": 32}
+# keys of data/images.py:CATE2YOLO_CLASS, so the crop pass runs on them
+IMG_CATES = ("手机", "笔记本电脑", "显示器", "电脑椅")
+EMB_TOL = 1e-4      # the dump vs direct fp32 forwards, of max|ref|
+IMG_TOL = 2e-2      # bf16 vs fp32 probabilities
+NORM_TOL = 1e-6     # uint8 normalised on the card vs the host
+ACC_TOL = 1e-4      # accumulated gradient mean vs one batch, of max|ref|
+IMAGE_GROUPS = (("convolutions", ("conv", "fprop", "dgrad", "wgrad",
+                                  "implicit", "cudnn")),
+                ("elementwise", ("elementwise",)))
+
+
+def product_image(rs: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """A product on a plain studio background: a block of 35-70% of each
+    side at a random place, a smooth two-colour gradient with stripes,
+    every channel at least 35 below the background's."""
+    img = np.empty((h, w, 3), np.uint8)
+    img[:] = rs.randint(215, 256, 3)
+    ph, pw = int(h * rs.uniform(0.35, 0.7)), int(w * rs.uniform(0.35, 0.7))
+    y, x = rs.randint(0, h - ph + 1), rs.randint(0, w - pw + 1)
+    c0, c1 = rs.randint(0, 150, 3), rs.randint(0, 150, 3)
+    block = c0 + (c1 - c0) * np.linspace(0.0, 1.0, pw)[None, :, None]
+    stripes = (np.arange(ph)[:, None, None] // rs.randint(8, 40)) % 2 * 30
+    img[y:y + ph, x:x + pw] = np.clip(block + stripes, 0, 255)
+    return img
+
+
+def write_image_corpus(root: Path, seed: int) -> dict:
+    """Phase 16's corpus at IMG_ITEMS items in four whitelisted categories,
+    each item with a JPEG main image of 600-1000 px a side (quality 90),
+    and IMG_PAIRS train, valid and test pairs."""
+    from PIL import Image
+
+    files = write_smoke_corpus(root, seed, n_items=IMG_ITEMS,
+                               n_train=IMG_PAIRS["train"],
+                               n_test=IMG_PAIRS["test"], n_mine=0)
+    raw = files["raw"]
+    (raw / "item_images").mkdir()
+    rs = np.random.RandomState(seed)
+    items = [json.loads(line) for line in
+             open(raw / "item_info.jsonl", encoding="utf-8")]
+    with open(raw / "item_info.jsonl", "w", encoding="utf-8") as w:
+        for i, item in enumerate(items):
+            item.update(cate_name=IMG_CATES[i % 4],
+                        item_image_name=f"{item['item_id']}.jpg")
+            h, wd = rs.randint(600, 1001, 2)
+            Image.fromarray(product_image(rs, h, wd)).save(
+                raw / "item_images" / item["item_image_name"], quality=90)
+            w.write(json.dumps(item, ensure_ascii=False) + "\n")
+    with open(raw / "item_valid_pair.jsonl", "w") as w:
+        for k in range(IMG_PAIRS["valid"]):
+            a = rs.randint(IMG_ITEMS)
+            b = (a + 4 * rs.randint(1, IMG_ITEMS // 4)) % IMG_ITEMS
+            w.write(json.dumps({"src_item_id": f"i{a}",
+                                "tgt_item_id": f"i{b}",
+                                "item_label": str(k % 2)}) + "\n")
+    return files
+
+
+def _nfnet():
+    """The tower that ``build_model`` gives eca_nfnet_l0, on the CPU."""
+    from item_alignment_torch.models.image import backbone_for
+
+    with torch.device("cpu"):
+        return backbone_for("eca_nfnet_l0", ModelConfig())
+
+
+def timm_nfnet_state_dict(tower) -> dict:
+    """The port NFNet's weights under timm 0.6.5's ``eca_nfnet_l0`` names
+    and shapes (the reverse of ``utils/timm_import.convert_timm_nfnet``),
+    with a 1000-class ``head.fc`` as timm's has."""
+    out = {}
+    for name, value in tower.state_dict().items():
+        mod, leaf = name.rsplit(".", 1)
+        if mod.startswith("stem"):
+            mod = f"stem.conv{int(mod[4:]) + 1}"
+        elif mod.startswith("stage"):
+            stage, part = mod.split(".", 1)
+            s, b = stage[len("stage"):].split("_block")
+            part = "downsample.conv" if part == "downsample" else part
+            mod = f"stages.{s}.{b}.{part}"
+        if leaf == "gain":
+            value = value.reshape(-1, 1, 1, 1)
+        if leaf == "conv":  # ECA's Conv1d
+            mod, leaf = f"{mod}.conv", "weight"
+        out[f"{mod}.{leaf}"] = value.detach().cpu().clone()
+    gen = torch.Generator().manual_seed(0)
+    out["head.fc.weight"] = torch.randn(1000, tower.num_features,
+                                        generator=gen) * 0.01
+    out["head.fc.bias"] = torch.zeros(1000)
+    return out
+
+
+def _rel_err(ours, ref) -> float:
+    ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(ours - ref).max() / np.abs(ref).max())
+
+
+def _timm_checkpoint(path: Path, seed: int) -> str:
+    """A random eca_nfnet_l0 from ``seed`` (He-normal kernels, every StdConv
+    gain drawn from U(0.5, 1): no residual branch starts at 0 as a
+    pretrained one does not), saved by ``torch.save`` under timm's names;
+    the port's converter must give the weights back exactly."""
+    from item_alignment_torch.models.image import (
+        StdConv,
+        init_image_weights,
+    )
+    from item_alignment_torch.utils.timm_import import convert_timm_nfnet
+
+    tower = _nfnet()
+    gen = torch.Generator().manual_seed(seed)
+    init_image_weights(tower, gen)
+    with torch.no_grad():
+        for m in tower.modules():
+            if isinstance(m, StdConv):
+                m.gain.uniform_(0.5, 1.0, generator=gen)
+    sd = timm_nfnet_state_dict(tower)
+    back = convert_timm_nfnet({k: v.numpy() for k, v in sd.items()})
+    state = tower.state_dict()
+    check(back.keys() == state.keys() and all(
+        np.array_equal(back[k], state[k].numpy()) for k in state),
+        "phase 20: the timm checkpoint does not convert back exactly")
+    torch.save(sd, path)
+    return str(path)
+
+
+def _encode_timed(store: list):
+    """A wrapper of ``dump_image_embeddings`` whose encoder appends each
+    batch's wall seconds (host to device, forward, back) to ``store``."""
+    def around(fn):
+        def call(item_ids, image_paths, encode_fn, *args, **kw):
+            def encode(imgs):
+                t0 = time.perf_counter()
+                out = encode_fn(imgs)
+                store.append(time.perf_counter() - t0)
+                return out
+            return fn(item_ids, image_paths, encode, *args, **kw)
+        return call
+    return around
+
+
+def _image_probs(cfg: ModelConfig, state: dict, batch: dict) -> tuple:
+    """An ImageTwoTower in ``cfg``'s dtype with ``state``: probabilities
+    and (src, tgt) embeddings of one host batch, in fp32 on the host."""
+    from item_alignment_torch.models.image import ImageTwoTower
+
+    model = ImageTwoTower(cfg, seed=None).eval()
+    model.load_state_dict(state)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(batch["images_1"]).cuda(),
+                    torch.from_numpy(batch["images_2"]).cuda())
+    res = tuple(x.float().cpu().numpy()
+                for x in (out.probs, out.src_embeds, out.tgt_embeds))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _timed_steps(trainer, batches: list, accum: int, steps: int = 4
+                 ) -> float:
+    """ms per optimizer step of ``accum`` micro-batches, over ``steps - 1``
+    steps after one warm-up, ``batches`` cycled."""
+    times = []
+    for k in range(steps):
+        t0 = time.perf_counter()
+        for j in range(accum):
+            trainer.train_step(batches[(k * accum + j) % len(batches)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * sum(times[1:]) / (steps - 1)
+
+
+def _accumulation_check(state: dict, seed: int) -> float:
+    """At IMG_DUMP in fp32 with dropout 0: the gradient mean that the
+    optimizer holds after NF_ACCUM micro-batches of 4 pairs (what it hands
+    AdamW) against the gradients of one batch of the same 16 pairs; the
+    worst error over the parameters, each of its max|ref|."""
+    from item_alignment_torch.models.image import ImageTwoTower
+
+    cfg = ModelConfig(model_name="eca_nfnet_l0",
+                      image_model_name="eca_nfnet_l0", image_size=IMG_DUMP,
+                      interaction_type="two_tower", hidden_dropout_prob=0.0)
+    model = ImageTwoTower(cfg, seed=None)
+    model.load_state_dict(state)
+    rs = np.random.RandomState(seed + 20)
+    n = 4 * NF_ACCUM
+    batch = {"images_1": rs.randint(0, 256, (n, IMG_DUMP, IMG_DUMP, 3),
+                                    np.uint8),
+             "images_2": rs.randint(0, 256, (n, IMG_DUMP, IMG_DUMP, 3),
+                                    np.uint8),
+             "labels": rs.randint(0, 2, n).astype(np.int32)}
+    model(**{k: torch.from_numpy(v).cuda() if k != "labels" else
+             torch.from_numpy(v).long().cuda() for k, v in batch.items()},
+          deterministic=False, dropout_seed=0).loss.backward()
+    ref = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    trainer = Trainer(model, TrainConfig(
+        seed=seed, train_batch_size=4, log_steps=10 ** 9,
+        optimizer=OptimizerConfig(learning_rate=1e-4, total_steps=100,
+                                  grad_accumulation_steps=NF_ACCUM))).setup()
+    held = {}
+
+    def hold(update):
+        def call(grads):
+            held.update({k: g.detach().clone() for k, g in grads.items()})
+            return update(grads)
+        return call
+
+    with wrapped(trainer.optimizer.adamw, "update", hold):
+        for k in range(NF_ACCUM):
+            trainer.train_step({key: v[4 * k:4 * k + 4]
+                                for key, v in batch.items()})
+    check(held.keys() == ref.keys(), "phase 20b: AdamW got no gradients")
+    worst = max((held[k] - ref[k]).abs().max().item()
+                / max(ref[k].abs().max().item(), 1e-30) for k in ref)
+    del model, trainer, ref, held
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
+
+
+def pretrained_like_resnet(tower, images: torch.Tensor) -> None:
+    """Make a random ResNetV2 behave as a trained one does for the bf16
+    check: each block's conv3 at a tenth of its draw (timm initialises it
+    at 0, ``zero_init_last``, so a trained one stays small), then every
+    AffineAct (a folded BatchNorm) set from the statistics of its input on
+    ``images`` in one fp32 forward, in order: ``scale = 1 / sqrt(var +
+    1e-5)``, ``bias = -mean * scale``.  With identity affines the
+    activations grow block by block until the probabilities saturate; with
+    folded statistics but full-size conv3s the random net is chaotic, and
+    bf16 rounding alone moves its probabilities past IMG_TOL."""
+    from item_alignment_torch.models.image import AffineAct, PreActBottleneck
+
+    with torch.no_grad():
+        for m in tower.modules():
+            if isinstance(m, PreActBottleneck):
+                m.conv3.weight.mul_(0.1)
+
+    def fold(module, args):
+        x = args[0].float()
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        module.scale.copy_(torch.rsqrt(var + 1e-5))
+        module.bias.copy_(-mean * module.scale)
+
+    hooks = [m.register_forward_pre_hook(fold) for m in tower.modules()
+             if isinstance(m, AffineAct)]
+    try:
+        with torch.no_grad():
+            tower(images)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _live(probs: np.ndarray) -> bool:
+    """Whether some probability is off 0 and 1 (a bf16-vs-fp32 comparison
+    of saturated probabilities shows nothing)."""
+    return bool(((probs > 1e-3) & (probs < 1 - 1e-3)).any())
+
+
+def _other_backbone(config: str, side: int, seed: int, card: str) -> str:
+    """Phase 20c: a two-tower train step of ``config``'s backbone at batch
+    NF_BATCH in bf16 (one warm-up, three timed), then the trained weights'
+    bf16 probabilities on one batch against fp32."""
+    from item_alignment_torch.models.image import ImageTwoTower
+
+    cfg = ModelConfig.from_json(str(ROOT / "configs" / config),
+                                dtype="bfloat16",
+                                interaction_type="two_tower")
+    model = ImageTwoTower(cfg, seed=seed)
+    tower = model.tower
+    if cfg.image_model_name.startswith("vit"):
+        check((tower.dim, tower.depth, tower.heads) == (1024, 24, 16)
+              and tower.pos_embed.shape[1] == (side // 16) ** 2 + 1 == 577,
+              "phase 20c: not ViT-L/16 at 384")
+    rs = np.random.RandomState(seed)
+    batches = [{"images_1": rs.randint(0, 256, (NF_BATCH, side, side, 3),
+                                       np.uint8),
+                "images_2": rs.randint(0, 256, (NF_BATCH, side, side, 3),
+                                       np.uint8),
+                "labels": rs.randint(0, 2, NF_BATCH).astype(np.int32)}
+               for _ in range(4)]
+    if not cfg.image_model_name.startswith("vit"):
+        from item_alignment_torch.models.image import maybe_normalize_uint8
+
+        pretrained_like_resnet(tower, maybe_normalize_uint8(
+            torch.from_numpy(batches[0]["images_1"]).cuda()))
+    trainer = Trainer(model, TrainConfig(
+        seed=seed, train_batch_size=NF_BATCH, log_steps=10 ** 9,
+        optimizer=OptimizerConfig(learning_rate=1e-4,
+                                  total_steps=16000))).setup()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _timed_steps(trainer, batches, 1)
+    peak = torch.cuda.max_memory_allocated()
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    p16 = _image_probs(cfg, state, batches[0])[0]
+    p32 = _image_probs(cfg.replace(dtype="float32"), state, batches[0])[0]
+    diff = float(np.abs(p16 - p32).max())
+    check(np.isfinite(p16).all() and diff <= IMG_TOL and _live(p32),
+          f"phase 20c {config}: bf16 vs fp32 probs {diff} (fp32 probs "
+          f"{p32.min()}-{p32.max()})")
+    return (f"{cfg.image_model_name} at {side} px (tower "
+            f"{type(tower).__name__}, {tower.num_features} features): "
+            f"{step_ms:.2f} ms/step at batch {NF_BATCH} pairs in bf16 "
+            f"({NF_BATCH / step_ms * 1e3:.2f} train pairs/s), peak memory "
+            f"{peak / 2 ** 30:.2f} GiB, bf16 vs fp32 probs {diff:.3e} "
+            f"(limit {IMG_TOL}; fp32 probs {p32.min():.4f}-{p32.max():.4f})")
+
+
+def phase_images(seed: int, card: str) -> tuple:
+    """Phase 20: the image family through ``cli.main`` on the card with
+    random weights from ``seed``: (a) scripts/train.sh step 6a, the crops
+    and the eca_nfnet_l0 embedding dump at 288 from a timm-named
+    checkpoint, then the TSVs through a finetune-multimodal step at
+    configs/roberta_image_large.json's width; (b) step 7 and predict.sh p5,
+    the uint8 shards at 800 and ``finetune-image`` (batch 16, accumulation
+    4, bf16) and its prediction, then that step timed, profiled and
+    counted through a ``Trainer``, and the accumulation held against one
+    batch; (c) ViT-L/16 at 384 and ResNetV2-50 at 288.  Returns the
+    launches of #1-#6 over the image commands (none: no attention kernel
+    is on this path)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from item_alignment_torch.data import images as data_images
+    from item_alignment_torch.data.images import (
+        eval_transform,
+        load_image,
+        normalize,
+    )
+    from item_alignment_torch.data.prepare import read_tsv
+    from item_alignment_torch.models.image import maybe_normalize_uint8
+    from item_alignment_torch.utils.hf_import import load_torch_state_dict
+    from item_alignment_torch.utils.timm_import import load_timm_backbone
+
+    with segmenter(), tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        files = write_image_corpus(root, seed)
+        raw = files["raw"]
+        ckpt = _timm_checkpoint(root / "eca_nfnet_l0.bin", seed)
+        corpus_s = time.perf_counter() - t0
+        walls = {}
+
+        # 20a: step 6a, the crops and the dump at 288
+        zero_counters()  # the image family's main path starts here
+        res, walls["prepare --object_detection"] = run_cli([
+            "prepare", "--data_dir", str(raw), "--output_dir", str(raw),
+            "--only_image", "--object_detection", "--min_crop_ratio", "0.1"])
+        crops = {k: v for k, v in res[-1].items() if k != "output_dir"}
+        check(crops["missing"] == 0 and crops["cropped"] >= 0.9 * IMG_ITEMS,
+              f"phase 20a: crops {crops}")
+        processed = root / "processed_image"
+        encode_s = []
+        torch.cuda.reset_peak_memory_stats()
+        with wrapped(data_images, "dump_image_embeddings",
+                     _encode_timed(encode_s)):
+            prep, walls["prepare --with_image"] = run_cli([
+                "prepare", "--data_dir", str(raw), "--output_dir",
+                str(processed), "--with_image", "--cv_model_name",
+                "eca_nfnet_l0", "--pretrained_model_path", ckpt,
+                "--image_size", str(IMG_DUMP), "--batch_size", "32",
+                "--seed", str(seed)])
+        dump_peak = torch.cuda.max_memory_allocated()
+        launches = counters()
+        with open(processed / "image_embedding.json", encoding="utf-8") as r:
+            dumped = {k: np.asarray(v, np.float32)
+                      for k, v in json.load(r).items()}
+        check(len(dumped) == IMG_ITEMS and all(
+            v.shape == (NF_WIDTH,) and np.isfinite(v).all() and v.any()
+            for v in dumped.values()), "phase 20a: image_embedding.json")
+        # eight items through the tower directly, on the card and the CPU
+        ids8 = [f"i{k}" for k in range(0, IMG_ITEMS, IMG_ITEMS // 8)]
+        imgs8 = np.stack([eval_transform(load_image(str(
+            raw / "item_images_cropped" / f"{iid}.jpg")), IMG_DUMP)
+            for iid in ids8])
+        tower = _nfnet().cuda().eval()
+        check(tower.num_features == NF_WIDTH, "phase 20: not eca_nfnet_l0")
+        tower.load_state_dict(load_timm_backbone(
+            tower.state_dict(), load_torch_state_dict(ckpt), "eca_nfnet_l0"))
+        with torch.inference_mode():
+            ref = tower(torch.from_numpy(imgs8).cuda()).cpu().numpy()
+            got = np.stack([dumped[iid] for iid in ids8])
+            err_card = _rel_err(got, ref)
+            batch32 = torch.from_numpy(np.repeat(imgs8, 4, axis=0)).cuda()
+            # the first batch carries cuDNN's first-call set-up
+            encode_ms = 1e3 * float(np.median(encode_s[1:]))
+            profiled = profile_step(lambda: tower(batch32).cpu(), encode_ms,
+                                    IMAGE_GROUPS, top=4)
+            tower.cpu()
+            err_cpu = _rel_err(got, tower(torch.from_numpy(imgs8)).numpy())
+        del tower, batch32
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(err_card <= EMB_TOL and err_cpu <= EMB_TOL,
+              f"phase 20a: dumped vectors vs direct fp32 forwards: card "
+              f"{err_card}, CPU {err_cpu} (limit {EMB_TOL})")
+        rows = read_tsv(prep[-1]["train"])
+        check(len(rows) >= 32 and {len(r) for r in rows} == {9}
+              and np.array_equal(np.asarray(rows[0][4].split(","),
+                                            np.float32), dumped[rows[0][1]]),
+              "phase 20a: the --with_image TSVs")
+        print(f"phase 20a step 6a: {IMG_ITEMS} items with JPEG main images "
+              f"of 600-1000 px (written with the timm checkpoint in "
+              f"{corpus_s:.3f} s); prepare --object_detection (saliency) "
+              f"{crops}, {walls['prepare --object_detection']:.3f} s; "
+              f"prepare --with_image through eca_nfnet_l0 at {IMG_DUMP} px, "
+              f"batch 32, fp32: {len(dumped)} vectors of {NF_WIDTH}, "
+              f"command {walls['prepare --with_image']:.3f} s "
+              f"({IMG_ITEMS / walls['prepare --with_image']:.2f} images/s), "
+              f"encode {sum(encode_s):.3f} s in {len(encode_s)} batches "
+              f"({IMG_ITEMS / sum(encode_s):.2f} images/s; the first batch "
+              f"{1e3 * encode_s[0]:.2f} ms, the median of the others "
+              f"{encode_ms:.2f} ms, {32 / encode_ms * 1e3:.2f} images/s), "
+              f"peak memory {dump_peak / 2 ** 30:.2f} GiB; "
+              f"eight items vs direct fp32 forwards: card {err_card:.3e}, "
+              f"CPU {err_cpu:.3e} of max|ref| (limit {EMB_TOL}); one encode "
+              f"batch of 32: {profiled}; {card}", flush=True)
+
+        # the TSVs through one finetune-multimodal step at phase 18's shape
+        (processed / "mm_step.tsv").write_text("".join(
+            "\t".join(r) + "\n" for r in rows[:32]), encoding="utf-8")
+        cfg_json = root / "roberta_image_large_bf16.json"
+        cfg_json.write_text(json.dumps(dict(json.loads(
+            (ROOT / "configs" / "roberta_image_large.json").read_text()),
+            dtype="bfloat16")))
+        zero_counters()
+        _, walls["finetune-multimodal, 1 step"] = run_cli([
+            "finetune-multimodal", "--data_dir", str(processed),
+            "--output_dir", str(root / "output"), "--vocab_path",
+            str(files["vocab"]), "--model_name", "roberta_image_large",
+            "--config_file", str(cfg_json), "--image_hidden_size",
+            str(NF_WIDTH), "--max_seq_len", "50", "--max_seq_len_pv", "205",
+            "--train_batch_size", "32", "--epochs", "1", "--train_file",
+            "mm_step.tsv", "--valid_file", "none.tsv", "--bf16",
+            "--log_steps", "1", "--log_dir", str(root / "logs_mm"),
+            "--total_steps", TOTAL_STEPS, "--seed", str(seed), "--do_train"])
+        mm = counters()
+        mm_loss, = [s["value"] for s in map(json.loads, open(
+            root / "logs_mm" / "scalars.jsonl")) if s["tag"] == "train/loss"]
+        check(math.isfinite(mm_loss) and mm == (0, LAYERS, LAYERS, 0, 0, 0),
+              f"phase 20a: finetune-multimodal on the dumped vectors: loss "
+              f"{mm_loss}, launches {mm}")
+        print(f"phase 20a the TSVs' {NF_WIDTH}-wide image columns through "
+              f"finetune-multimodal roberta_image_large (batch 32, S=510, "
+              f"bf16), 1 step: loss {mm_loss:.6f}, launches #1..#6 {mm} "
+              f"(phase 18's path, not phase 20's), command "
+              f"{walls['finetune-multimodal, 1 step']:.3f} s", flush=True)
+
+        # 20b: step 7 and p5, the shards at 800 and finetune-image
+        zero_counters()  # the image family's main path again
+        shards_dir = root / "image_shards"
+        res, walls["prepare --only_image"] = run_cli([
+            "prepare", "--data_dir", str(raw), "--output_dir",
+            str(shards_dir), "--only_image", "--dtypes", "train,valid,test",
+            "--image_size", str(IMG_TRAIN), "--seed", str(seed)])
+        written = res[-1]
+        shard_mb = sum(os.path.getsize(p) for v in written.values()
+                       for p in v) / 2 ** 20
+        out = root / "output"
+        res, walls["finetune-image"] = run_cli([
+            "finetune-image", "--data_dir", str(root), "--output_dir",
+            str(out), "--shards", *written["train"], "--valid_shards",
+            *written["valid"], "--pretrained_model_path", ckpt,
+            "--model_name", "eca_nfnet_l0", "--data_version", "v6",
+            "--image_size", str(IMG_TRAIN), "--train_batch_size",
+            str(NF_BATCH), "--gradient_accumulation_steps", str(NF_ACCUM),
+            "--learning_rate", "1e-4", "--epochs", "1", "--bf16",
+            "--do_train", "--do_eval", "--log_steps", "1", "--log_dir",
+            str(root / "logs_img"), "--seed", str(seed)])
+        losses, cli_ms = _finetune_ms(root / "logs_img")
+        run_dir = out / "eca_nfnet_l0-v6-two_tower-cls-NA-ce"
+        micro = IMG_PAIRS["train"] // NF_BATCH
+        best = load_params(str(run_dir / "best_f1.pt"))
+        moved = not torch.equal(best["NFNet_0.stem0.weight"], torch.load(
+            ckpt, weights_only=True)["stem.conv1.weight"])
+        check(len(losses) == micro and all(map(math.isfinite, losses))
+              and moved and (run_dir / "image_finetune_epoch-1.pt").is_file(),
+              f"phase 20b: finetune-image losses {losses}, weights moved "
+              f"{moved}")
+        res, walls["finetune-image --do_pred"] = run_cli([
+            "finetune-image", "--data_dir", str(root), "--output_dir",
+            str(out), "--shards", *written["test"], "--model_name",
+            "eca_nfnet_l0", "--data_version", "v6", "--image_size",
+            str(IMG_TRAIN), "--train_batch_size", str(NF_BATCH),
+            "--eval_batch_size", str(NF_BATCH), "--interaction_type",
+            "two_tower", "--threshold", "0.4", "--do_pred",
+            "--file_state_dict", str(run_dir / "best_f1.pt"), "--seed",
+            str(seed)])
+        main_path = tuple(a + b for a, b in zip(launches, counters()))
+        check(not any(main_path), f"phase 20: launches (#1..#6) "
+              f"{main_path} on the image path")
+        pred = [json.loads(line) for line in open(res[-1]["prediction_file"])]
+        pred_emb = np.array([[np.asarray(r[k].strip("[]").split(","),
+                                         np.float32)
+                              for k in ("src_item_emb", "tgt_item_emb")]
+                             for r in pred])
+        check(pred_emb.shape == (IMG_PAIRS["test"], 2, NF_WIDTH)
+              and np.isfinite(pred_emb).all(),
+              f"phase 20b: the p5 prediction file {pred_emb.shape}")
+        test_ds = cli._load_shard_dataset(written["test"], IMG_TRAIN)
+        batch = next(test_ds.batches(NF_BATCH))[0]
+        cfg = ModelConfig(model_name="eca_nfnet_l0",
+                          image_model_name="eca_nfnet_l0",
+                          image_size=IMG_TRAIN, interaction_type="two_tower")
+        p32, src32, tgt32 = _image_probs(cfg, best, batch)
+        p16 = _image_probs(cfg.replace(dtype="bfloat16"), best, batch)[0]
+        bf16_diff = float(np.abs(p16 - p32).max())
+        file_err = _rel_err(pred_emb[:NF_BATCH],
+                            np.stack([src32, tgt32], axis=1))
+        u8 = batch["images_1"]
+        norm_diff = float(np.abs(maybe_normalize_uint8(
+            torch.from_numpy(u8).cuda()).cpu().numpy() - normalize(u8)).max())
+        check(bf16_diff <= IMG_TOL and _live(p32) and file_err <= EMB_TOL
+              and norm_diff <= NORM_TOL,
+              f"phase 20b: bf16 vs fp32 probs {bf16_diff} (limit {IMG_TOL}),"
+              f" the p5 file vs a direct fp32 forward {file_err} (limit "
+              f"{EMB_TOL}), uint8 normalised on the card vs the host "
+              f"{norm_diff} (limit {NORM_TOL})")
+
+        # the same step direct through a Trainer: timed, profiled, counted
+        from item_alignment_torch.models.image import ImageTwoTower
+
+        train_ds = cli._load_shard_dataset(written["train"], IMG_TRAIN)
+        batches = [b for b, _ in train_ds.batches(NF_BATCH)]
+        model = ImageTwoTower(cfg.replace(dtype="bfloat16"), seed=None)
+        model.load_state_dict(best)
+        trainer = Trainer(model, TrainConfig(
+            seed=seed, train_batch_size=NF_BATCH, log_steps=10 ** 9,
+            optimizer=OptimizerConfig(learning_rate=1e-4, total_steps=16000,
+                                      grad_accumulation_steps=NF_ACCUM))
+        ).setup()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = _timed_steps(trainer, batches, NF_ACCUM)
+        micro_ms = step_ms / NF_ACCUM
+        train_peak = torch.cuda.max_memory_allocated()
+        profiled = profile_step(lambda: trainer.train_step(batches[0]),
+                                micro_ms, IMAGE_GROUPS, top=8)
+        with FlopCounterMode(display=False) as flops:
+            model(**trainer._device_batch(batches[1]), deterministic=False,
+                  dropout_seed=0).loss.backward()
+        model.zero_grad(set_to_none=True)
+        flop = flops.get_total_flops()
+        mfu = flop / (micro_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        acc_err = _accumulation_check(best, seed)
+        check(acc_err <= ACC_TOL, f"phase 20b: accumulated gradient mean vs "
+              f"one batch {acc_err} (limit {ACC_TOL})")
+        print(f"phase 20b step 7 / p5: prepare --only_image "
+              f"{ {k: len(v) for k, v in written.items()} } shard files of "
+              f"uint8 {IMG_TRAIN} px pairs ({shard_mb:.1f} MiB), "
+              f"{walls['prepare --only_image']:.3f} s; finetune-image "
+              f"eca_nfnet_l0 at {IMG_TRAIN} px, batch {NF_BATCH}, "
+              f"accumulation {NF_ACCUM}, bf16, lr 1e-4: {micro} micro-batches"
+              f" ({micro // NF_ACCUM} optimizer steps), losses "
+              f"{[round(x, 6) for x in losses]}, {cli_ms:.2f} ms a "
+              f"micro-batch through the CLI, eval on {IMG_PAIRS['valid']} "
+              f"pairs, command {walls['finetune-image']:.3f} s; p5 --do_pred "
+              f"(fp32) on {len(pred)} test pairs, "
+              f"{walls['finetune-image --do_pred']:.3f} s, the file vs a "
+              f"direct fp32 forward {file_err:.3e} of max|ref|; bf16 vs "
+              f"fp32 probs {bf16_diff:.3e} (limit {IMG_TOL}; fp32 probs "
+              f"{p32.min():.4f}-{p32.max():.4f}); uint8 "
+              f"normalised on the card vs the host {norm_diff:.3e} (limit "
+              f"{NORM_TOL}); launches #1..#6 over the image commands "
+              f"{main_path}; {card}", flush=True)
+        print(f"phase 20b direct Trainer at the same shape: {step_ms:.2f} ms "
+              f"an optimizer step of {NF_ACCUM} micro-batches, {micro_ms:.2f} "
+              f"ms a micro-batch ({NF_BATCH / micro_ms * 1e3:.2f} train "
+              f"pairs/s, {2 * NF_BATCH / micro_ms * 1e3:.2f} images/s), peak "
+              f"memory {train_peak / 2 ** 30:.2f} GiB; model FLOP of a "
+              f"micro-batch (FlopCounterMode, forward and backward) "
+              f"{flop / 1e12:.3f} TFLOP, {flop / (micro_ms / 1e3) / 1e12:.1f}"
+              f" TFLOP/s, {mfu:.3f} of 989 TFLOP/s; one micro-batch: "
+              f"{profiled}; gradient accumulation at {IMG_DUMP} px fp32: the "
+              f"mean AdamW got after {NF_ACCUM} micro-batches of 4 pairs vs "
+              f"one batch of {4 * NF_ACCUM}: {acc_err:.3e} of max|ref| "
+              f"(limit {ACC_TOL}); {card}", flush=True)
+
+        # 20c: the other backbones
+        for config, side in (("vit_large_patch16_384.json", 384),
+                             ("resnetv2_50.json", 288)):
+            print(f"phase 20c {_other_backbone(config, side, seed, card)}; "
+                  f"{card}", flush=True)
+        print("phase 20 wall times: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+    return main_path
+
+
 def run(args) -> None:
     card = phase_card()
     phase_build()
@@ -3483,36 +4126,41 @@ def run(args) -> None:
     pkgm, pkgm_err = phase_pkgm(args.seed, card)  # the PKGM family's path
     mm, mm_err = phase_multimodal(args.seed, card)  # the multimodal path
     legacy, legacy_err = phase_legacy(args.seed, card)  # the legacy member
+    image = phase_images(args.seed, card)  # the image family: no kernel
 
     src, tpu = "item_alignment_torch/csrc/", "item_alignment_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = [
         dict(name="fused_attention", source=src + "fused_attention.cu",
              replaces=tpu + "63",
-             launches=launches + entry[0] + pkgm[0] + mm[0] + legacy[0],
+             launches=(launches + entry[0] + pkgm[0] + mm[0] + legacy[0]
+                       + image[0]),
              max_abs_err=max(kernel["max_abs_err"], pkgm_err["serving_err"],
                              legacy_err["serving_err"]),
              **{k: kernel[k] for k in keys}, f32=legacy_err["f32"]["#1"]),
         dict(name="fused_attention_dropout",
              source=src + "flash_blockwise_fwd.cu", replaces=tpu + "203",
-             launches=trained[1] + entry[1] + pkgm[1] + mm[1] + legacy[1],
+             launches=(trained[1] + entry[1] + pkgm[1] + mm[1] + legacy[1]
+                       + image[1]),
              max_abs_err=max(train["fwd_err"], pkgm_err["fwd_err"],
                              mm_err["fwd_err"], legacy_err["fwd_err"]),
              **train["fwd"], f32=legacy_err["f32"]["#2"]),
         dict(name="fused_attention_dropout_bwd",
              source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",
-             launches=trained[2] + entry[2] + pkgm[2] + mm[2] + legacy[2],
+             launches=(trained[2] + entry[2] + pkgm[2] + mm[2] + legacy[2]
+                       + image[2]),
              max_abs_err=max(*train["bwd_err"], *pkgm_err["bwd_err"],
                              *mm_err["bwd_err"], *legacy_err["bwd_err"]),
              **train["bwd"]),
         dict(name="flash_blockwise_fwd", source=src + "flash_blockwise_fwd.cu",
-             replaces=tpu + "458", launches=served_long + trained_long[3],
+             replaces=tpu + "458",
+             launches=served_long + trained_long[3] + image[3],
              max_abs_err=block["fwd_err"], **block["fwd"]),
         dict(name="flash_blockwise_dq", source=src + "flash_blockwise_bwd.cu",
-             replaces=tpu + "522", launches=trained_long[4],
+             replaces=tpu + "522", launches=trained_long[4] + image[4],
              max_abs_err=block["bwd_err"][0], **block["dq"]),
         dict(name="flash_blockwise_dkv", source=src + "flash_blockwise_bwd.cu",
-             replaces=tpu + "571", launches=trained_long[5],
+             replaces=tpu + "571", launches=trained_long[5] + image[5],
              max_abs_err=max(block["bwd_err"][1:]), **block["dkv"]),
     ]
     print(json.dumps({"kernels": [dict(row, route="cuda") for row in rows]}),

@@ -5,13 +5,18 @@
 Port of ``item_alignment_tpu/cli.py`` for the main path:
 
 - ``prepare``        item_info / pair jsonl -> KG files and finetune TSVs;
-  with ``--with_image``, the 9-column TSVs from an existing
-  ``<output_dir>/image_embedding.json``;
+  with ``--with_image``, the 9-column TSVs from ``<output_dir>/
+  image_embedding.json``, dumped first through an image tower when it does
+  not exist; ``--only_image`` writes image-pair shards, and with
+  ``--object_detection`` the detection-guided crops instead;
 - ``finetune-text``  RoBERTa and PKGM, one-tower and two-tower: train,
   eval, predict (PKGM takes ``--entity2id``/``--relation2id`` and merges
   ``pkgm_model.bin`` beside ``pytorch_model.bin``);
 - ``finetune-multimodal``  RobertaImage one-tower and two-tower on the
   9-column TSVs (``--ensemble begin|end|sum``): train, eval, predict;
+- ``finetune-image`` the image two-tower (ViT, ResNetV2, NFNet) on the
+  image-pair shards, from a timm state dict (``--pretrained_model_path``):
+  train, eval, predict;
 - ``mine``           encode each item once, score a candidate-pair list
   against the cache (``--quant int8``, ``--cache_quant int8``);
 - ``pred-text``      the pooled entity-feature matrix for the GCN;
@@ -37,8 +42,8 @@ Flags are the JAX CLI's, so the same command lines run, with one more:
 ``--device {cuda,cpu}`` (default ``cuda``; without a GPU the default
 raises).  The port writes and reads its own parameter files, ``.pt``
 state dicts (``best_f1.pt``, ``text_finetune_epoch-N.pt``,
-``multimodal_finetune_epoch-N.pt``, ``bert_align.pt``,
-``bert_pretrain.pt``); a ``.msgpack``
+``multimodal_finetune_epoch-N.pt``, ``image_finetune_epoch-N.pt``,
+``bert_align.pt``, ``bert_pretrain.pt``); a ``.msgpack``
 file raises, pointing at ROADMAP Queue 1 #14.  ``--scan_steps`` and
 ``pred-text --scan_chunks/--xfer_guard`` steer XLA's dispatch and do nothing
 here.  The other commands and the model families not yet ported raise with
@@ -69,7 +74,6 @@ from item_alignment_torch.utils.retry import retry_transient
 
 MSGPACK_ITEM = "ROADMAP Queue 1 #14: Reading Flax msgpack files"
 PARALLEL_ITEM = "ROADMAP Queue 1 #4: Parallelism"
-IMAGE_ITEM = "ROADMAP Queue 1 #9: The image towers"
 COCA_ITEM = "ROADMAP Queue 1 #11: CoCa"
 INERT = "accepted for the JAX CLI's command lines; no effect in the port"
 
@@ -343,7 +347,9 @@ def cmd_prepare(argv: List[str]) -> int:
     """Offline preprocessing: the KG files, ``cate2id.json`` and the
     finetune TSVs (``data/prepare.py:prepare_all``); with ``--with_image``,
     the 9-column TSVs carry the vectors of ``<output_dir>/
-    image_embedding.json``."""
+    image_embedding.json``, dumped through an image tower first when the
+    file does not exist.  ``--only_image`` writes the image-pair shards, and
+    ``--only_image --object_detection`` the detection-guided crops."""
     p = argparse.ArgumentParser(prog="ia-torch prepare")
     p.add_argument("--data_dir", required=True)
     p.add_argument("--output_dir", required=True)
@@ -354,36 +360,54 @@ def cmd_prepare(argv: List[str]) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--with_image", action="store_true",
                    help="thread <output_dir>/image_embedding.json into the "
-                        "finetune TSVs")
-    for flag in ("--only_image", "--object_detection"):
-        p.add_argument(flag, action="store_true",
-                       help=f"image pipeline; not ported ({IMAGE_ITEM})")
-    # the image-embedding dump's flags, accepted for the JAX CLI's command
-    # lines (scripts/train.sh passes them with --with_image)
-    for flag in ("--image_size", "--batch_size", "--cv_model_name",
-                 "--pretrained_model_path", "--file_state_dict",
-                 "--images_dir"):
-        p.add_argument(flag, default=None, help=INERT)
-    p.add_argument("--finetuned", action="store_true", help=INERT)
-    args, _ = p.parse_known_args(argv)
-    if args.only_image or args.object_detection:
-        raise NotImplementedError(
-            f"prepare's image pipeline is not ported yet ({IMAGE_ITEM})")
-    p.parse_args(argv)  # that pipeline's own flags are the only extras
+                        "finetune TSVs (dumped through --cv_model_name when "
+                        "it does not exist)")
+    p.add_argument("--only_image", action="store_true",
+                   help="write image-pair shards of --dtypes")
+    p.add_argument("--object_detection", action="store_true",
+                   help="with --only_image: the detection-guided crops")
+    p.add_argument("--dtypes", default="train,valid")
+    p.add_argument("--image_size", type=int, default=288)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--cv_model_name", default="eca_nfnet_l0")
+    p.add_argument("--pretrained_model_path", default=None,
+                   help="torch-saved timm state dict for the embedding dump")
+    p.add_argument("--finetuned", action="store_true",
+                   help="encode with a finetuned two-tower "
+                        "(--file_state_dict)")
+    p.add_argument("--file_state_dict", default=None,
+                   help="finetune-image best_f1.pt (with --finetuned)")
+    p.add_argument("--boxes_file", default=None,
+                   help="precomputed detector boxes for --object_detection "
+                        "(item_id -> [x1,y1,x2,y2,cls,conf] rows)")
+    p.add_argument("--min_crop_ratio", type=float, default=0.1)
+    p.add_argument("--detector", default="saliency",
+                   choices=["saliency", "none"],
+                   help="box source without --boxes_file/--yolo_weights: "
+                        "'saliency' finds a product on a plain background "
+                        "(data/images.py:propose_box_saliency); 'none' "
+                        "copies the images uncropped")
+    p.add_argument("--yolo_weights", default=None,
+                   help="a locally exported YOLOv5 TorchScript file, run on "
+                        "CPU torch for --object_detection (data/yolo.py)")
+    p.add_argument("--yolo_imgsz", type=int, default=640)
+    p.add_argument("--yolo_conf_thres", type=float, default=0.25)
+    p.add_argument("--images_dir", default=None,
+                   help="defaults to <data_dir>/item_images[_cropped]")
+    p.add_argument("--shard_size", type=int, default=1024)
+    _device_flag(p)
+    args = p.parse_args(argv)
+    if args.only_image:
+        # the shards and crops are host work; the command still takes the
+        # card by default, as every image entry point does
+        resolve_device(args.device)
+        if args.object_detection:
+            return _prepare_object_detection(args)
+        return _prepare_image_shards(args)
 
-    from item_alignment_torch.data.images import load_embedding_json
     from item_alignment_torch.data.prepare import prepare_all
 
-    img_emb = None
-    if args.with_image:
-        path = os.path.join(args.output_dir, "image_embedding.json")
-        if not os.path.isfile(path):
-            raise NotImplementedError(
-                f"prepare --with_image found no {path}; dumping image "
-                f"embeddings through an image tower is not ported yet "
-                f"({IMAGE_ITEM})")
-        img_emb = load_embedding_json(path)
-        logger.info(f"loaded image embeddings for {len(img_emb)} items")
+    img_emb = _load_image_embedding(args) if args.with_image else None
     files = prepare_all(args.data_dir, args.output_dir,
                         valid_proportion=args.valid_proportion,
                         seed=args.seed,
@@ -391,6 +415,195 @@ def cmd_prepare(argv: List[str]) -> int:
                         num_neg=args.num_neg, prev_valid=args.prev_valid,
                         img_emb=img_emb)
     print(json.dumps(files))
+    return 0
+
+
+def _iter_item_info(path: str):
+    with open(path, encoding="utf-8") as r:
+        for line in r:
+            if line.strip():
+                yield json.loads(line)
+
+
+def _load_image_embedding(args):
+    """``<output_dir>/image_embedding.json`` as {item id: embedding text};
+    when it does not exist, it is dumped first: every item's image
+    ``<images_dir>/<item_id>.jpg`` (default ``<data_dir>/
+    item_images_cropped``) through ``--cv_model_name``'s tower in fp32, with
+    a timm state dict (``--pretrained_model_path``) or the tower of a
+    ``finetune-image`` ``best_f1.pt`` (``--finetuned --file_state_dict``).
+    An image that does not load gets a zero vector."""
+    from item_alignment_torch.data.images import (
+        dump_image_embeddings,
+        load_embedding_json,
+    )
+    from item_alignment_torch.models.image import (
+        backbone_for,
+        init_image_weights,
+    )
+
+    out_path = os.path.join(args.output_dir, "image_embedding.json")
+    if os.path.isfile(out_path):
+        emb = load_embedding_json(out_path)
+        logger.info(f"loaded image embeddings for {len(emb)} items")
+        return emb
+    if not (args.finetuned or args.pretrained_model_path):
+        # random weights would poison every TSV downstream
+        raise SystemExit("--with_image needs --pretrained_model_path (a timm "
+                         "state dict) or --finetuned --file_state_dict")
+    device = resolve_device(args.device)
+    cfg = ModelConfig(model_name=args.cv_model_name,
+                      image_model_name=args.cv_model_name,
+                      image_size=args.image_size)
+    with torch.device(device):
+        tower = backbone_for(args.cv_model_name, cfg)
+    init_image_weights(tower, torch.Generator(device=device).manual_seed(0))
+    if args.finetuned:
+        if not args.file_state_dict:
+            raise SystemExit("--finetuned needs --file_state_dict "
+                             "(a finetune-image best_f1.pt)")
+        state = _load_param_file(args.file_state_dict)
+        prefix = f"{type(tower).__name__}_0."
+        sub = {k[len(prefix):]: v for k, v in state.items()
+               if k.startswith(prefix)}
+        tower.load_state_dict(sub or state)
+    else:
+        from item_alignment_torch.utils.hf_import import load_torch_state_dict
+        from item_alignment_torch.utils.timm_import import load_timm_backbone
+
+        sd = load_torch_state_dict(_timm_checkpoint(args.pretrained_model_path,
+                                                    args.cv_model_name))
+        tower.load_state_dict(load_timm_backbone(tower.state_dict(), sd,
+                                                 args.cv_model_name))
+    tower.eval()
+
+    def encode(imgs: np.ndarray) -> np.ndarray:
+        with torch.inference_mode():
+            out = tower(torch.from_numpy(imgs).to(device))
+            if isinstance(out, tuple):  # ViT returns (cls, tokens)
+                out = out[0]
+            return out.float().cpu().numpy()
+
+    images_dir = args.images_dir or os.path.join(args.data_dir,
+                                                 "item_images_cropped")
+    ids = [d["item_id"] for d in _iter_item_info(
+        os.path.join(args.data_dir, "item_info.jsonl"))]
+    paths = [os.path.join(images_dir, f"{iid}.jpg") for iid in ids]
+    emb = dump_image_embeddings(ids, paths, encode, out_path,
+                                image_size=args.image_size,
+                                batch_size=args.batch_size,
+                                missing_dim=tower.num_features)
+    logger.info(f"dumped {len(emb)} image embeddings "
+                f"(dim {tower.num_features})")
+    return emb
+
+
+def _prepare_image_shards(args) -> int:
+    """The image pairs of each of ``--dtypes``' pair files, transformed to
+    ``--image_size`` (train: random resized crop and flip from
+    ``--seed``; valid and test: the eval crop) and stored as post-transform
+    uint8 in ``.npz`` shards; a pair with an image that does not load is
+    dropped."""
+    from item_alignment_torch.data.images import (
+        eval_transform,
+        load_image,
+        train_transform,
+        write_image_shards,
+    )
+
+    id2name = {d["item_id"]: d.get("item_image_name", f"{d['item_id']}.jpg")
+               for d in _iter_item_info(
+                   os.path.join(args.data_dir, "item_info.jsonl"))}
+    images_dir = args.images_dir or os.path.join(args.data_dir, "item_images")
+    rng = np.random.RandomState(args.seed)
+    written = {}
+    for dtype in args.dtypes.split(","):
+        pair_file = {"train": "item_train_pair.jsonl",
+                     "valid": "item_valid_pair.jsonl",
+                     "test": "item_test_pair.jsonl"}[dtype]
+        path = os.path.join(args.data_dir, pair_file)
+        if not os.path.exists(path):
+            logger.warning(f"skipping {dtype}: no {pair_file}")
+            continue
+
+        def gen():
+            skipped = 0
+            with open(path, encoding="utf-8") as r:
+                for line in r:
+                    d = json.loads(line)
+                    sid, tid = d["src_item_id"], d["tgt_item_id"]
+                    label = int(d.get("item_label", 0))
+                    img1 = load_image(os.path.join(images_dir,
+                                                   id2name.get(sid, "")))
+                    img2 = load_image(os.path.join(images_dir,
+                                                   id2name.get(tid, "")))
+                    if img1 is None or img2 is None:
+                        skipped += 1
+                        continue
+                    if dtype == "train":
+                        t1 = train_transform(img1, args.image_size, rng,
+                                             normalized=False)
+                        t2 = train_transform(img2, args.image_size, rng,
+                                             normalized=False)
+                    else:
+                        t1 = eval_transform(img1, args.image_size,
+                                            normalized=False)
+                        t2 = eval_transform(img2, args.image_size,
+                                            normalized=False)
+                    yield (f"{sid}|{tid}", t1, t2, label)
+            if skipped:
+                logger.warning(f"[{dtype}] skipped {skipped} broken pairs")
+
+        written[dtype] = write_image_shards(
+            gen(), args.output_dir, shard_size=args.shard_size,
+            prefix=f"{dtype}_feat", transformed=True)
+    print(json.dumps(written))
+    return 0
+
+
+def _prepare_object_detection(args) -> int:
+    """Each item's image cropped to its largest detection that the
+    category's whitelist allows and that covers more than
+    ``--min_crop_ratio`` of it, else copied, into ``<output_dir>/
+    item_images_cropped/<item_id>.jpg``.  The boxes come from
+    ``--boxes_file``, a YOLOv5 TorchScript file (``--yolo_weights``) or the
+    saliency detector (``--detector saliency``); ``--detector none`` copies
+    every image."""
+    from item_alignment_torch.data.images import (
+        crop_images_with_boxes,
+        propose_box_saliency,
+    )
+
+    boxes = {}
+    detector = None
+    if args.boxes_file:
+        with open(args.boxes_file, encoding="utf-8") as r:
+            text = r.read()
+        try:  # one JSON object {item_id: [boxes]}
+            boxes = json.loads(text)
+        except json.JSONDecodeError:  # jsonl rows {"item_id", "boxes"}
+            for line in text.splitlines():
+                if line.strip():
+                    d = json.loads(line)
+                    boxes[d["item_id"]] = d["boxes"]
+    elif args.yolo_weights:
+        from item_alignment_torch.data.yolo import YoloTorchscriptDetector
+
+        detector = YoloTorchscriptDetector(
+            args.yolo_weights, imgsz=args.yolo_imgsz,
+            conf_thres=args.yolo_conf_thres)
+        logger.info("YOLOv5 TorchScript detector: %s", args.yolo_weights)
+    elif args.detector == "saliency":
+        detector = propose_box_saliency
+        logger.info("no --boxes_file: the saliency detector")
+    else:
+        logger.warning("no --boxes_file: every image is copied uncropped")
+    images_dir = args.images_dir or os.path.join(args.data_dir, "item_images")
+    out_dir = os.path.join(args.output_dir, "item_images_cropped")
+    stats = crop_images_with_boxes(
+        os.path.join(args.data_dir, "item_info.jsonl"), images_dir, out_dir,
+        boxes, args.min_crop_ratio, detector=detector)
+    print(json.dumps({"output_dir": out_dir, **stats}))
     return 0
 
 
@@ -425,11 +638,15 @@ def cmd_finetune_text(argv: List[str]) -> int:
         rows_to_pkgm_two_tower_dataset,
         rows_to_two_tower_dataset,
     )
-    from item_alignment_torch.models import build_model
+    from item_alignment_torch.models import build_model, is_image_two_tower
 
+    if is_image_two_tower(args.model_name):
+        raise ValueError(f"{args.model_name!r} is an image two-tower: "
+                         f"train it with finetune-image on image-pair "
+                         f"shards")
     device = resolve_device(args.device)
     tok = load_text_tokenizer(args.vocab_path)
-    pkgm ="pkgm" in args.model_name
+    pkgm = "pkgm" in args.model_name
     extra = {}
     if pkgm:
         if not (args.entity2id and args.relation2id):
@@ -582,6 +799,161 @@ def cmd_finetune_multimodal(argv: List[str]) -> int:
 
     return _finetune(args, model, cfg, device, build_ds, read_rows,
                      kind="multimodal", pred_with_best=False)
+
+
+def cmd_finetune_image(argv: List[str]) -> int:
+    """The image two-tower (``--model_name`` with vit, resnet or nfnet) on
+    the ``.npz`` shards of ``prepare --only_image`` (the reference's
+    finetune_image.py): train from a timm state dict
+    (``--pretrained_model_path``) and save ``best_f1.pt`` and
+    ``image_finetune_epoch-N.pt``, evaluate on ``--valid_shards`` (or the
+    train shards) under ``--do_eval``, and predict on ``--shards`` under
+    ``--do_pred``, from ``--file_state_dict`` without ``--do_train``."""
+    p = argparse.ArgumentParser(prog="ia-torch finetune-image")
+    _common_train_flags(p)
+    p.add_argument("--shards", nargs="+", required=True,
+                   help="npz shards from write_image_shards")
+    p.add_argument("--valid_shards", nargs="+", default=None,
+                   help="npz shards for the eval split (best-F1 tracking "
+                        "under --do_eval)")
+    p.add_argument("--image_size", type=int, default=288)
+    args = p.parse_args(argv)
+    if not any(a == "--eval_batch_size" or a.startswith("--eval_batch_size=")
+               for a in argv):
+        # the train batch's forward and backward fit, so its forward does
+        args.eval_batch_size = args.train_batch_size
+
+    from item_alignment_torch.engine.checkpoint import save_params
+    from item_alignment_torch.engine.observability import profile_trace
+    from item_alignment_torch.engine.train import Trainer
+    from item_alignment_torch.models import build_model, is_image_two_tower
+
+    if not is_image_two_tower(args.model_name):
+        raise ValueError(f"finetune-image trains the vit/resnet/nfnet "
+                         f"two-towers, not {args.model_name!r}")
+    device = resolve_device(args.device)
+    ds = _load_shard_dataset(args.shards, args.image_size)
+    valid_ds = (_load_shard_dataset(args.valid_shards, args.image_size)
+                if args.valid_shards else None)
+    args.interaction_type = "two_tower"  # the run dir's name says so
+    cfg = _model_config(args, image_model_name=args.model_name,
+                        image_size=args.image_size,
+                        interaction_type="two_tower")
+    out_dir = os.path.join(args.output_dir, run_dir_name(args))
+    _dump_hyperparameters(args, out_dir)
+    model = build_model(cfg, device=device, seed=args.seed)
+    trainer = Trainer(model, _train_config(
+        args, ds.num_batches(args.train_batch_size)), device=device,
+        log_dir=args.log_dir)
+    if args.pretrained_model_path:
+        _load_timm_pretrained(model, args)
+    _maybe_restore(trainer, args)
+    if args.do_train:
+        with profile_trace(args.profile_dir):
+            result = trainer.fit(ds, (valid_ds or ds) if args.do_eval
+                                 else None)
+        _save_epoch_params(trainer, out_dir, args.epochs, kind="image")
+        # predict.sh predicts from best_f1: the best-eval parameters, or the
+        # last ones when training ran without eval
+        best = trainer.best_params if trainer.best_params is not None \
+            else trainer._host_params()
+        save_params(os.path.join(out_dir, "best_f1.pt"), best)
+        print(json.dumps({"best": result["best"]}))
+    if args.do_pred:
+        path = os.path.join(out_dir,
+                            f"deepAI_result_threshold={args.threshold}.jsonl")
+        trainer.predict_jsonl(ds, path, args.threshold)
+        print(json.dumps({"prediction_file": path}))
+    return 0
+
+
+def _load_shard_dataset(shard_paths, image_size: int):
+    """The image pairs of ``shard_paths`` in one ``ArrayDataset``
+    (``images_1``, ``images_2``, ``labels``; meta ``src_item_id`` and
+    ``tgt_item_id`` from the ``src|tgt`` pair ids), filled in two passes
+    (count, then fill preallocated arrays, so the host never holds the
+    data twice).  Post-transform uint8 shards stay uint8; fp32 shards, and
+    raw uint8 ones (``transformed`` false or absent: transformed here with
+    ``eval_transform``), go into fp32 arrays."""
+    from item_alignment_torch.data.datasets import ArrayDataset
+    from item_alignment_torch.data.images import (
+        eval_transform,
+        normalize,
+        read_image_shards,
+    )
+
+    n = 0
+    first_u8 = None
+    for sp in shard_paths:  # npz loads lazily: only the metadata is read
+        with np.load(sp, allow_pickle=False) as z:
+            n += int(len(z["labels"]))
+            if first_u8 is None:
+                first_u8 = bool(z["images_1"].dtype == np.uint8
+                                and "transformed" in z.files
+                                and z["transformed"])
+    buf_dtype = np.uint8 if first_u8 else np.float32
+    imgs1 = np.empty((n, image_size, image_size, 3), buf_dtype)
+    imgs2 = np.empty_like(imgs1)
+    labels = np.empty((n,), np.int32)
+    src_ids, tgt_ids = [], []
+    row = 0
+    for shard in read_image_shards(shard_paths):
+        is_u8 = shard["images_1"].dtype == np.uint8
+        is_transformed = bool(shard.get("transformed", np.bool_(not is_u8)))
+        if buf_dtype == np.uint8 and not (is_u8 and is_transformed):
+            raise SystemExit(
+                "mixed image shards: post-transform uint8 shards cannot be "
+                "combined with fp32 or raw ones in one run")
+        # transformed uint8 rows in an fp32 buffer are normalised here: a
+        # bare cast would hand the model 0..255 floats
+        norm_here = is_transformed and is_u8 and buf_dtype == np.float32
+        for i in range(len(shard["labels"])):
+            if norm_here:
+                imgs1[row] = normalize(shard["images_1"][i])
+                imgs2[row] = normalize(shard["images_2"][i])
+            elif is_transformed:
+                imgs1[row] = shard["images_1"][i]
+                imgs2[row] = shard["images_2"][i]
+            else:  # a raw uint8 shard
+                imgs1[row] = eval_transform(shard["images_1"][i], image_size)
+                imgs2[row] = eval_transform(shard["images_2"][i], image_size)
+            labels[row] = int(shard["labels"][i])
+            sid, _, tid = str(shard["pair_ids"][i]).partition("|")
+            src_ids.append(sid)
+            tgt_ids.append(tid or sid)
+            row += 1
+    return ArrayDataset({"images_1": imgs1, "images_2": imgs2,
+                         "labels": labels},
+                        meta={"src_item_id": src_ids, "tgt_item_id": tgt_ids})
+
+
+def _timm_checkpoint(path: str, model_name: str) -> str:
+    """The timm state dict at ``path``: the file, or the first of
+    ``pytorch_model.bin``, ``model.pth``, ``model.bin`` and
+    ``checkpoint.pth`` in the directory; missing, it raises."""
+    if os.path.isdir(path):
+        for cand in ("pytorch_model.bin", "model.pth", "model.bin",
+                     "checkpoint.pth"):
+            if os.path.exists(os.path.join(path, cand)):
+                path = os.path.join(path, cand)
+                break
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"--pretrained_model_path {path}: no checkpoint found (expected "
+            f"a torch state dict of the timm model for {model_name})")
+    return path
+
+
+def _load_timm_pretrained(model, args) -> None:
+    """The timm backbone weights of ``--pretrained_model_path`` over the
+    image two-tower's tower (``utils/timm_import.py``)."""
+    from item_alignment_torch.utils.hf_import import load_torch_state_dict
+    from item_alignment_torch.utils.timm_import import load_timm_backbone
+
+    path = _timm_checkpoint(args.pretrained_model_path, args.model_name)
+    model.load_state_dict(load_timm_backbone(
+        model.state_dict(), load_torch_state_dict(path), args.model_name))
+    logger.info(f"loaded the timm backbone from {path}")
 
 
 def _load_pretrained(model, cfg, args) -> None:
@@ -1285,7 +1657,7 @@ COMMANDS = {
     "prepare": cmd_prepare,
     "build-graph": _not_ported("build-graph", REST_OF_CLI),
     "finetune-text": cmd_finetune_text,
-    "finetune-image": _not_ported("finetune-image", REST_OF_CLI),
+    "finetune-image": cmd_finetune_image,
     "finetune-multimodal": cmd_finetune_multimodal,
     "finetune-graph": _not_ported("finetune-graph", REST_OF_CLI),
     "finetune-bert": cmd_finetune_bert,

@@ -129,10 +129,13 @@ class Trainer:
 
     def _device_batch(self, batch: Dict[str, np.ndarray]
                       ) -> Dict[str, torch.Tensor]:
+        """The batch on the device: ids and labels as int64, floats and
+        uint8 images as they are (the image towers normalise uint8 on the
+        device; int64 images would move 8x the bytes)."""
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v))
-            if not t.is_floating_point():
+            if not t.is_floating_point() and t.dtype != torch.uint8:
                 t = t.long()
             out[k] = t.to(self.device, non_blocking=True)
         return self.batch_transform(out)

@@ -20,6 +20,7 @@ from item_alignment_torch.models.bert_legacy import (
     BertAlignModel,
     BertForPretraining,
 )
+from item_alignment_torch.models.image import ImageTwoTower
 from item_alignment_torch.models.multimodal import (
     RobertaImageOneTower,
     RobertaImageTwoTower,
@@ -90,7 +91,10 @@ def test_port_imports_no_jax():
             "item_alignment_torch/aggregate/submit.py",
             "item_alignment_torch/models/bert_legacy.py",
             "item_alignment_torch/engine/adversarial.py",
-            "item_alignment_torch/data/bert_data.py"} <= names
+            "item_alignment_torch/data/bert_data.py",
+            "item_alignment_torch/models/image.py",
+            "item_alignment_torch/utils/timm_import.py",
+            "item_alignment_torch/data/yolo.py"} <= names
     bad = {f"{p.relative_to(ROOT)}: {name}" for p in files
            for name in _imported_roots(p) if name in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -187,20 +191,13 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
     calls = [[name] for name in sorted(cli.COMMANDS)
              if name not in ("prepare", "finetune-text", "mine", "pred-text",
                              "pkgm-pretrain", "finetune-multimodal",
-                             "ensemble", "model-soup", "finetune-bert",
-                             "bert-pretrain", "pred-bert")]
-    # --with_image with no image_embedding.json to read: dumping one needs
-    # an image tower
-    calls += [["prepare", "--data_dir", "d", "--output_dir",
-               str(tmp_path / "o"), flag]
-              for flag in ("--with_image", "--only_image",
-                           "--object_detection")]
+                             "finetune-image", "ensemble", "model-soup",
+                             "finetune-bert", "bert-pretrain", "pred-bert")]
     vocab = tmp_path / "vocab.txt"
     vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
                                  "[MASK]"]))
     calls += [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
-               str(tmp_path), "--device", "cpu", "--model_name", name]
-              for name in ("resnetv2_50", "nfnet_l0", "vit_base", "gcn")]
+               str(tmp_path), "--device", "cpu", "--model_name", "gcn"]]
     calls += [["finetune-multimodal", "--data_dir", str(tmp_path),
                "--vocab_path", str(tmp_path), "--device", "cpu",
                "--model_name", "coca_base"]]
@@ -218,13 +215,18 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
               ["bert-pretrain", "--item_info", str(tmp_path / "i.jsonl"),
                "--vocab_path", str(tmp_path), "--output_dir",
                str(tmp_path / "pre"), "--device", "cpu", "--distributed"]]
-    assert len(calls) == 4 + 3 + 4 + 1 + 1 + 2
+    assert len(calls) == 3 + 1 + 1 + 1 + 2
     for argv in calls:
         with pytest.raises(NotImplementedError) as e:
             cli.main(argv)
         m = ITEM_REF.search(str(e.value))
         assert m, (argv, str(e.value))
         _check_item(*m.groups(), items)
+    # an image two-tower is finetune-image's, not finetune-text's
+    with pytest.raises(ValueError, match="finetune-image"):
+        cli.main(["finetune-text", "--data_dir", str(tmp_path),
+                  "--vocab_path", str(tmp_path), "--device", "cpu",
+                  "--model_name", "nfnet_l0"])
 
 
 def test_msgpack_parameter_file_raises_with_the_roadmap_item(tmp_path):
@@ -299,6 +301,12 @@ def _kge_npz(tmp: pathlib.Path) -> str:
     return path
 
 
+def _cli(argv):
+    from item_alignment_torch import cli
+
+    return cli.main(argv)
+
+
 @pytest.mark.parametrize("build", [
     lambda tmp: RobertaOneTower(TINY),
     lambda tmp: RobertaTwoTower(TINY),
@@ -319,6 +327,13 @@ def _kge_npz(tmp: pathlib.Path) -> str:
                                                 type_vocab_size=5)),
     lambda tmp: TextCNNTwoTower(TINY.replace(model_name="textcnn",
                                              num_filters=4)),
+    lambda tmp: ImageTwoTower(TINY.replace(model_name="vit_tiny",
+                                           image_model_name="vit_tiny",
+                                           image_size=32, patch_size=16)),
+    lambda tmp: _cli(["prepare", "--data_dir", str(tmp), "--output_dir",
+                      str(tmp / "o"), "--only_image"]),
+    lambda tmp: _cli(["finetune-image", "--data_dir", str(tmp),
+                      "--model_name", "eca_nfnet_l0", "--shards", "x.npz"]),
 ])
 def test_entry_points_default_to_cuda(build, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
