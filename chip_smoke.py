@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19, 20:
+run in the order 1-6, 11, 7-9, 12-15, 10, 16-22:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -237,6 +237,48 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16, 17, 18, 19, 20:
    step at batch 16 in bf16, one warm-up and three timed, and the trained
    weights' bf16 probabilities within 2e-2 of fp32.  No attention kernel is
    on this path: the image commands count no launch of #1-#6.
+21. the graph path (scripts/train.sh step 9) at the reference's scale,
+   230,000 nodes and 2,000,000 random edges plus self loops, from --seed.
+   (a) ``ops/sparse.spmm`` on the card, forward, dx and dw, against
+   float64 on the CPU (``index_add_``, no shared code) within 1e-5 of
+   max|ref|: on a graph a tenth that size sorted by destination and not,
+   whole and in padded chunks, with the transpose list and without; and
+   at full size in train.sh's layout (sorted, chunks of 262,144, padded,
+   the transpose).  Its time at [230000, 128] fp32 (forward, the backward's
+   dx) beside the bytes bound and the bare ``torch.sparse.mm`` (cuSPARSE's
+   CSR SpMM, which spmm calls) on a CSR matrix built beforehand, which must
+   give spmm's forward bit for bit.  (b) two forward and backward runs
+   equal bit for bit (cuSPARSE's CSR SpMM repeats, and dw is gathers).
+   (c) ``ia-torch build-graph`` on a 512-item ``item_info`` with its
+   ``entity2id.txt``: every item-value link both ways plus self loops,
+   both lists sorted by destination, the transpose the swapped list, the
+   pair split.  (d) ``ia-torch finetune-graph --edge_chunk 262144
+   --scan_layers`` (hidden 128, 4 layers, batch 512, Adam 1e-2) on fp32
+   features [230000, 1024], 2 epochs of 4,096 pairs and 1,024 valid
+   pairs, twice: ``gcn_params.pt`` equal bit for bit, ms/step, peak
+   memory, one step under ``torch.profiler``; a 3,000-node graph's
+   trained probabilities on the card within 1e-4 of the CPU's.  No
+   attention kernel is on this path.
+22. CoCa at configs/coca_base.json's width (hidden 768, 12 text layers,
+   a 12-layer ViT-B/16 at 224 px, a 12-deep multimodal decoder with 12
+   heads) in bf16 with random weights from --seed.  (a) ``ia-torch
+   coca-pretrain`` on two ``.npz`` shards of 128-token captions and uint8
+   images, batch 32, 4 steps: losses finite, 12 calls of #2's and #3's
+   contracts a step.  (b) ``finetune-multimodal --model_name coca_base``
+   with ``--ensemble sum`` and ``cross_attn`` from (a)'s
+   ``coca_pretrain.pt`` on 7-column TSVs with a 256 px JPEG an item (S=128
+   a tower, batch 32, 3 steps, eval, predict): 24 calls of #2's and #3's
+   contracts a step and 24 launches of #1 an eval or prediction batch;
+   the probabilities on the kernels within 2e-2 of plain attention, of
+   the finetuned model and of its start (the seed's weights under the
+   pretrain's, the head scaled so that its logit margins have a root mean
+   square of 1; at least 4 of its probabilities must lie off 0 and 1:
+   random weights saturate them within a few steps); with ``sum``, 3
+   steps timed and one profiled through a ``Trainer``.  (c) #1 at the
+   finetune's S=128, B=32, N=12, and #2's and #3's contracts at the
+   pretrain's S=127 and the finetune's S=128 (B=32, N=12, rates 0 and
+   0.1, the keep bits), against their plain versions as phase 6 holds
+   them; their errors join the kernels line's.
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -250,9 +292,10 @@ every eval and prediction batch, #2 and #3 24 calls a step a tower, none of
 forwards, profiled steps and kernel checks are left out), and phase 19's
 commands (``bert-pretrain``: #2 and #3 12 calls a step; ``finetune-bert``:
 60 a step, 12 layers x 5 fields, and #1 60 an eval batch; ``pred-bert``: #1
-60 a batch; TextCNN none; #4-#6 none anywhere), and phase 20's image
-commands (a and b; none of #1-#6); the kernels line adds the launches of
-phases 16-20.  The
+60 a batch; TextCNN none; #4-#6 none anywhere), phase 20's image
+commands (a and b; none of #1-#6), phase 21's graph commands (none) and
+phase 22's CoCa commands (as above); the kernels line adds the launches
+of phases 16-22.  The
 line before the last is one JSON object with the six kernels' numbers (the
 rows of #1 and #2 with an ``f32`` object too: phase 19e's fp32 ms,
 library_ms, bound_ms and bound_by at B=8, S=512, N=12); the last line is
@@ -326,6 +369,7 @@ from item_alignment_torch.ops import _build, _launch, cuda_attention
 from item_alignment_torch.ops import cuda_attention_blockwise as cab
 from item_alignment_torch.ops import cuda_attention_train as cat
 from item_alignment_torch.ops import quant
+from item_alignment_torch.ops import sparse
 from item_alignment_torch.ops.attention import make_attention_bias
 
 ROOT = Path(__file__).resolve().parent
@@ -4064,6 +4108,641 @@ def phase_images(seed: int, card: str) -> tuple:
     return main_path
 
 
+# ------------------------------------------------------------- phase 21
+GRAPH_NODES = 230_000     # the reference's graph (ops/sparse.py:58)
+GRAPH_EDGES = 2_000_000   # random edges before the self loops
+GRAPH_FEATS = 1024        # pred-text's RoBERTa-large width
+GRAPH_HIDDEN, GRAPH_LAYERS, GRAPH_BATCH = 128, 4, 512  # finetune-graph's
+GRAPH_CHUNK = 262_144     # scripts/train.sh step 9's --edge_chunk
+GRAPH_PAIRS = {"train": 4096, "valid": 1024}
+GRAPH_EPOCHS = 2
+SPMM_TOL = 1e-5           # fp32 on the card vs float64 on the CPU, of max|ref|
+GRAPH_CPU_TOL = 1e-4      # the card's probabilities vs the CPU's
+
+
+def synthetic_graph(n: int, e: int, seed: int) -> tuple:
+    """``build-graph``'s arrays for a random graph: ``e`` edges (``e / 2``
+    random node pairs, both ways), deduplicated, normalised with self
+    loops and sorted by destination, and the transpose list."""
+    rs = np.random.RandomState(seed)
+    half = rs.randint(0, n, (2, e // 2))
+    ei = np.unique(np.concatenate([half, half[::-1]], 1), axis=1)
+    ei, ew = sparse.normalize_adjacency(ei, n)
+    ti, tw = sparse.transpose_edges(ei, ew)
+    ei, ew = sparse.sort_edges_by_dst(ei, ew)
+    return ei, ew, ti, tw
+
+
+def write_graph(root: Path, n: int, e: int, feats: int, pairs: dict,
+                seed: int) -> dict:
+    """``edges.npz`` (as build-graph writes it), a feature matrix ``[n,
+    feats]`` and the pair files of a random graph, from ``seed``."""
+    root.mkdir(parents=True, exist_ok=True)
+    ei, ew, ti, tw = synthetic_graph(n, e, seed)
+    np.savez(root / "edges.npz", edge_index=ei, edge_weight=ew,
+             edge_index_t=ti, edge_weight_t=tw, sorted_by_dst=np.bool_(True),
+             n_nodes=np.int64(n))
+    rng = np.random.default_rng(seed)
+    np.save(root / "feats.npy", rng.standard_normal((n, feats),
+                                                    dtype=np.float32))
+    for split, count in pairs.items():
+        idx = rng.integers(0, n, (count, 2))
+        with open(root / f"{split}.jsonl", "w") as w:
+            for k, (s, t) in enumerate(idx):
+                w.write(json.dumps({"src_idx": int(s), "tgt_idx": int(t),
+                                    "item_label": int(k % 2)}) + "\n")
+    return {"n_edges": ei.shape[1]}
+
+
+def spmm_reference(ei, ew, x, g) -> tuple:
+    """A @ x, A^T g and x[src] . g[dst] in float64 on the CPU with
+    ``index_add_``, sharing no code with ``ops/sparse.py``."""
+    src = torch.from_numpy(np.asarray(ei[0], np.int64))
+    dst = torch.from_numpy(np.asarray(ei[1], np.int64))
+    w = torch.from_numpy(np.asarray(ew, np.float64))[:, None]
+    x64, g64 = x.detach().cpu().double(), g.cpu().double()
+    y = torch.zeros_like(x64).index_add_(0, dst, x64[src] * w)
+    dx = torch.zeros_like(x64).index_add_(0, src, g64[dst] * w)
+    return y, dx, (x64[src] * g64[dst]).sum(-1)
+
+
+def _spmm_case(ei, ew, trans, n, chunk, gen) -> float:
+    """spmm's forward, dx and dw on the card against ``spmm_reference``:
+    the worst error of the three, each of its max|ref|."""
+    F_ = GRAPH_HIDDEN
+    x = torch.randn(n, F_, generator=gen, device="cuda", requires_grad=True)
+    g = torch.randn(n, F_, generator=gen, device="cuda")
+    w = torch.tensor(ew, device="cuda", requires_grad=True)
+    adj = sparse.Adjacency(ei, ew, n, chunk, trans, "cuda")
+    y = sparse.spmm(adj, x, w)
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    refs = spmm_reference(ei, ew, x, g)
+    return max(float((a.detach().double().cpu() - r).abs().max()
+                     / r.abs().max().clamp(min=1e-30))
+               for a, r in zip((y, dx, dw), refs))
+
+
+def _pad_chunked(ei, ew, trans, n, chunk, sort):
+    target = -(-ei.shape[1] // chunk) * chunk + chunk  # at least one pad
+    pad_dst = n - 1 if sort else 0
+    ei, ew = sparse.pad_edges(ei, ew, target, pad_dst=pad_dst)
+    if trans is not None:
+        trans = sparse.pad_edges(*trans, target, pad_dst=n - 1)
+    return ei, ew, trans
+
+
+def phase_spmm(seed: int, card: str) -> None:
+    """Phase 21a-b: spmm on the card against float64 on the CPU, on a
+    graph a tenth of the reference's in every layout, and at reference
+    scale in train.sh's; two repeats bit for bit; times."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, e = GRAPH_NODES // 10, GRAPH_EDGES // 10
+    ei0, ew0, ti, tw = synthetic_graph(n, e, seed)
+    rs = np.random.RandomState(seed)
+    shuffle = rs.permutation(ei0.shape[1])
+    worst, cases = 0.0, []
+    for sort in (True, False):
+        for chunk in (None, 16_384):
+            for with_t in (True, False):
+                ei, ew = (ei0, ew0) if sort else (ei0[:, shuffle],
+                                                  ew0[shuffle])
+                trans = (ti, tw) if with_t else None
+                if chunk:
+                    ei, ew, trans = _pad_chunked(ei, ew, trans, n, chunk,
+                                                 sort)
+                err = _spmm_case(ei, ew, trans, n, chunk, gen)
+                cases.append(f"{'sorted' if sort else 'unsorted'}/"
+                             f"{'chunked+padded' if chunk else 'whole'}/"
+                             f"{'transpose' if with_t else 'swapped'} "
+                             f"{err:.2e}")
+                worst = max(worst, err)
+    N = GRAPH_NODES
+    ei, ew, ti, tw = synthetic_graph(N, GRAPH_EDGES, seed + 1)
+    ei, ew, trans = _pad_chunked(ei, ew, (ti, tw), N, GRAPH_CHUNK, True)
+    full = _spmm_case(ei, ew, trans, N, GRAPH_CHUNK, gen)
+    worst = max(worst, full)
+    check(worst <= SPMM_TOL, f"phase 21a spmm vs float64: {worst:.3e} "
+          f"(limit {SPMM_TOL}): {cases}, full {full:.3e}")
+
+    adj = sparse.Adjacency(ei, ew, N, GRAPH_CHUNK, trans, "cuda")
+    x = torch.randn(N, GRAPH_HIDDEN, generator=gen, device="cuda",
+                    requires_grad=True)
+    g = torch.randn(N, GRAPH_HIDDEN, generator=gen, device="cuda")
+    w = torch.tensor(ew, device="cuda", requires_grad=True)
+    runs = []
+    for _ in range(2):
+        y = sparse.spmm(adj, x, w)
+        runs.append((y.detach(),) + torch.autograd.grad(y, (x, w), g))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    check(same, "phase 21b: two spmm runs differ")
+
+    E = adj.n_edges
+    fwd_ms = cuda_ms(lambda: sparse.spmm(adj, x.detach()), 10)
+    xg = x.detach().requires_grad_()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(sparse.spmm(adj, xg), xg,
+                                                 g), 10) - fwd_ms
+    # x read and the output written once, the int32 columns and fp32
+    # values of the E entries, the int32 row offsets
+    nbytes = 2 * N * GRAPH_HIDDEN * 4 + E * (4 + 4) + (N + 1) * 4
+    bound = _bound(nbytes, 2 * E * GRAPH_HIDDEN, torch.float32)
+    A = adj.a.matrix(adj.weight, torch.float32)
+    lib = torch.sparse.mm(A, x.detach())
+    lib_same = torch.equal(lib, runs[0][0])
+    check(lib_same, "phase 21a: spmm differs from the bare torch.sparse.mm")
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(A, x.detach()), 10)
+    print(f"phase 21a spmm on the card vs float64 on the CPU, forward, dx "
+          f"and dw, of max|ref| (limit {SPMM_TOL}): {n:,} nodes x "
+          f"{e:,} edges, {GRAPH_HIDDEN} features: " + ", ".join(cases)
+          + f"; {N:,} nodes x {E:,} edges (self loops and padding "
+          f"included), chunk {GRAPH_CHUNK}, transpose: {full:.2e}; "
+          f"phase 21b two runs bit for bit: {same}; spmm at [{N}, "
+          f"{GRAPH_HIDDEN}] fp32: forward {fwd_ms:.4f} ms, backward dx "
+          f"{bwd_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}: {nbytes / 1e6:.1f} MB) = "
+          f"{fwd_ms / bound['bound_ms']:.1f}x; the bare torch.sparse.mm "
+          f"(cuSPARSE's CSR SpMM) on a CSR matrix built beforehand "
+          f"{lib_ms:.4f} ms, equal to spmm's forward bit for bit: "
+          f"{lib_same}; {card}", flush=True)
+    del adj, A, x, xg, g, w, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def write_graph_items(root: Path, seed: int, n_items: int = 512) -> dict:
+    """A small ``item_info.jsonl`` (categories, industries and pv values),
+    its ``entity2id.txt`` and labelled pairs, as build-graph reads them."""
+    rs = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    names, items = [], []
+    for i in range(n_items):
+        cate = f"c{i % 8}"
+        pvs = {f"k{j}": f"v{j}_{rs.randint(10)}" for j in range(3)}
+        items.append({"item_id": f"i{i}", "cate_name": cate,
+                      "cate_id": str(i % 8), "industry_name": f"ind{i % 3}",
+                      "title": f"t{i}", "item_pvs": "#;#".join(
+                          f"{k}#:#{v}" for k, v in pvs.items()),
+                      "sku_pvs": ""})
+        names.append(f"/item/i{i}")
+    values = sorted({f"/value/c{i}-{i}" for i in range(8)}
+                    | {f"/value/ind{i}" for i in range(3)}
+                    | {f"/value/v{j}_{k}" for j in range(3)
+                       for k in range(10)})
+    names += values
+    with open(root / "item_info.jsonl", "w") as w:
+        for it in items:
+            w.write(json.dumps(it) + "\n")
+    with open(root / "entity2id.txt", "w") as w:
+        for k, name in enumerate(names):
+            w.write(f"{name}\t{k}\n")
+    with open(root / "pairs.jsonl", "w") as w:
+        for k in range(200):
+            a, b = rs.randint(n_items, size=2)
+            w.write(json.dumps({"src_item_id": f"i{a}", "tgt_item_id":
+                                f"i{b}", "item_label": str(k % 2)}) + "\n")
+    return {"n_items": n_items, "n_nodes": len(names),
+            "links": n_items * 5}
+
+
+def _graph_probs(params: dict, feats, edges: Path, pairs: Path,
+                 device: str) -> np.ndarray:
+    """The probabilities of the pairs of ``pairs`` under ``params`` on
+    ``device``."""
+    from item_alignment_torch.models.graph import GCNTwoTower
+
+    src, tgt, _ = cli._graph_pairs(str(pairs))
+    adj = cli.load_graph(str(edges), feats.shape[0], None, device)
+    cfg = ModelConfig(model_name="gcn", gcn_hidden=GRAPH_HIDDEN,
+                      gcn_layers=GRAPH_LAYERS, gcn_feature_dim=feats.shape[1])
+    model = GCNTwoTower(cfg, device=device, seed=None)
+    model.load_state_dict(params)
+    with torch.inference_mode():
+        out = model(torch.from_numpy(feats).to(device), adj,
+                    torch.from_numpy(src).to(device),
+                    torch.from_numpy(tgt).to(device))
+    return out.probs.float().cpu().numpy()
+
+
+def phase_graph(seed: int, card: str) -> tuple:
+    """Phase 21: the graph path (scripts/train.sh step 9) on the card: (a)
+    and (b) ``phase_spmm``; (c) ``ia-torch build-graph`` on a small
+    synthetic ``item_info``; (d) ``ia-torch finetune-graph`` with step 9's
+    flags on a random graph at reference scale, twice, timed and
+    profiled, and a small graph's trained probabilities on the card
+    against the CPU.  Returns the launches of #1-#6 over the commands
+    (none: no attention kernel is on this path)."""
+    from item_alignment_torch.models.graph import GCNTwoTower
+
+    walls = {}
+    phase_spmm(seed, card)
+    zero_counters()  # the graph path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        info = write_graph_items(root / "items", seed)
+        (out,), walls["build-graph"] = run_cli([
+            "build-graph", "--item_info", str(root / "items/item_info.jsonl"),
+            "--entity2id", str(root / "items/entity2id.txt"),
+            "--train_pairs", str(root / "items/pairs.jsonl"),
+            "--output_dir", str(root / "built"), "--valid_proportion",
+            "0.1", "--seed", str(seed)])
+        with np.load(out["edges"]) as z:
+            ei, ew, ti = z["edge_index"], z["edge_weight"], z["edge_index_t"]
+            n = int(z["n_nodes"])
+        sorted_ok = bool(np.all(np.diff(ei[1]) >= 0)
+                         and np.all(np.diff(ti[1]) >= 0))
+        expect_edges = 2 * info["links"] + n
+        check(out["n_items"] == info["n_items"] and n == info["n_nodes"]
+              and ei.shape[1] == expect_edges and sorted_ok
+              and np.all(ew > 0) and sorted(map(tuple, ei.T)) == sorted(
+                  map(tuple, ti[::-1].T))
+              and out["item_train_valid_pair.jsonl"] == 20
+              and out["item_train_train_pair.jsonl"] == 180,
+              f"phase 21c build-graph: {out}, {ei.shape[1]} edges "
+              f"(want {expect_edges}), sorted {sorted_ok}")
+        print(f"phase 21c build-graph: {info['n_items']} items, {n} nodes, "
+              f"{ei.shape[1]} edges ({info['links']} item-value links both "
+              f"ways and {n} self loops), both lists sorted by destination, "
+              f"the transpose the swapped list, pairs 180/20, "
+              f"{walls['build-graph']:.3f} s; {card}", flush=True)
+
+        g = root / "graph"
+        t0 = time.perf_counter()
+        sizes = write_graph(g, GRAPH_NODES, GRAPH_EDGES, GRAPH_FEATS,
+                            GRAPH_PAIRS, seed)
+        walls["synthetic graph"] = time.perf_counter() - t0
+        argv = ["finetune-graph", "--feature_matrix", str(g / "feats.npy"),
+                "--edges", str(g / "edges.npz"), "--train_pairs",
+                str(g / "train.jsonl"), "--valid_pairs",
+                str(g / "valid.jsonl"), "--edge_chunk", str(GRAPH_CHUNK),
+                "--scan_layers", "--epochs", str(GRAPH_EPOCHS)]
+        steps, params, results = {}, [], []
+        torch.cuda.reset_peak_memory_stats()
+        for k in range(2):
+            with wrapped(cli, "gcn_train_step", timed(steps, k)):
+                (res,), walls[f"finetune-graph {k}"] = run_cli(
+                    argv + ["--output_dir", str(g / f"out{k}")])
+            results.append(res)
+            params.append(load_params(str(g / f"out{k}/gcn_params.pt")))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_steps = GRAPH_EPOCHS * (GRAPH_PAIRS["train"] // GRAPH_BATCH)
+        step_ms = 1e3 * float(np.median(steps[0][1:]))
+        repeat = all(torch.equal(params[0][k], params[1][k])
+                     for k in params[0])
+        check(len(steps[0]) == n_steps and repeat
+              and np.isfinite(results[0]["final_loss"])
+              and results[0] == results[1]
+              and "encoder.conv.weight.weight" in params[0],
+              f"phase 21d finetune-graph: {results}, steps "
+              f"{len(steps[0])}, repeat {repeat}")
+        launches = counters()
+
+        feats = np.load(g / "feats.npy")
+        adj = cli.load_graph(str(g / "edges.npz"), GRAPH_NODES, GRAPH_CHUNK,
+                             "cuda")
+        cfg = ModelConfig(model_name="gcn", gcn_hidden=GRAPH_HIDDEN,
+                          gcn_layers=GRAPH_LAYERS, gcn_feature_dim=GRAPH_FEATS)
+        model = GCNTwoTower(cfg, device="cuda", seed=None)
+        model.load_state_dict(params[0])
+        adam = cli.graph_adam(model, 1e-2)
+        features = torch.from_numpy(feats).cuda()
+        del feats
+        src, tgt, lab = (torch.from_numpy(a[:GRAPH_BATCH]).cuda() for a in
+                         cli._graph_pairs(str(g / "train.jsonl")))
+
+        def step():
+            cli.gcn_train_step(model, adam, features, adj, src, tgt, lab,
+                               seed)
+
+        profiled = profile_step(step, step_ms, kernel_groups=(
+            ("sparse products", ("csr", "spmm", "cusparse")),
+            ("gathers", ("index", "gather")),
+            ("matrix products", ("gemm", "xmma", "nvjet", "cutlass"))))
+        del model, adam, features, adj
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        small = root / "small"
+        write_graph(small, 3000, 20_000, 64, {"train": 512, "valid": 256},
+                    seed + 2)
+        run_cli(["finetune-graph", "--feature_matrix",
+                 str(small / "feats.npy"), "--edges", str(small / "edges.npz"),
+                 "--train_pairs", str(small / "train.jsonl"), "--edge_chunk",
+                 "4096", "--scan_layers", "--epochs", "3", "--batch_size",
+                 "128", "--output_dir", str(small / "out")])
+        trained = load_params(str(small / "out/gcn_params.pt"))
+        small_feats = np.load(small / "feats.npy")
+        on_card, on_cpu = (_graph_probs(trained, small_feats,
+                                        small / "edges.npz",
+                                        small / "valid.jsonl", d)
+                           for d in ("cuda", "cpu"))
+        cpu_diff = float(np.abs(on_card - on_cpu).max())
+        check(cpu_diff <= GRAPH_CPU_TOL and 0 < on_card.std(),
+              f"phase 21d card vs CPU probabilities {cpu_diff:.3e}")
+    check(not any(launches), f"phase 21: launches {launches}")
+    print(f"phase 21d finetune-graph --edge_chunk {GRAPH_CHUNK} "
+          f"--scan_layers: {GRAPH_NODES:,} nodes x {sizes['n_edges']:,} "
+          f"edges (self loops included), features [{GRAPH_NODES}, "
+          f"{GRAPH_FEATS}] fp32, hidden {GRAPH_HIDDEN}, {GRAPH_LAYERS} "
+          f"layers, batch {GRAPH_BATCH}, {GRAPH_EPOCHS} epochs of "
+          f"{GRAPH_PAIRS['train']} pairs ({n_steps} steps): {results[0]}; "
+          f"{step_ms:.2f} ms/step (median of steps 2-{n_steps}; the first "
+          f"{1e3 * steps[0][0]:.2f} ms), peak memory {peak:.2f} GiB; "
+          f"one step profiled: {profiled}; the second run's gcn_params.pt "
+          f"equal bit for bit: {repeat}; a 3,000-node graph's trained "
+          f"probabilities on the card vs the CPU max diff {cpu_diff:.3e} "
+          f"(limit {GRAPH_CPU_TOL}); launches #1..#6 {launches}; "
+          f"wall times " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                     walls.items()) + f"; {card}",
+          flush=True)
+    return launches
+
+
+# ------------------------------------------------------------- phase 22
+COCA_BATCH = 32           # the pretrain and finetune batch
+COCA_TEXT = 128           # tokens a caption and an item's text
+COCA_PRETRAIN_STEPS = 4
+COCA_PAIRS = {"train": 96, "valid": 64, "test": 32}
+COCA_TOL = 2e-2           # bf16: kernels vs plain attention, probabilities
+COCA_LIVE = 4             # valid pairs whose probability lies off 0 and 1
+COCA_WIDTH_FLAGS = ("vocab_size", "hidden_size", "num_hidden_layers",
+                    "num_attention_heads", "intermediate_size",
+                    "multimodal_depth", "coca_heads", "image_size")
+
+
+def write_coca_corpus(root: Path, seed: int, cfg: dict) -> dict:
+    """Pretrain shards (``COCA_TEXT``-token captions from the smoke vocab,
+    ragged, and uint8 images at the config's size) and the finetune's
+    7-column TSVs with a 256 px JPEG an item, from ``seed``."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    n = COCA_BATCH * COCA_PRETRAIN_STEPS
+    side = cfg["image_size"]
+    ids = rs.randint(1000, cfg["vocab_size"] - 1, (n, COCA_TEXT))
+    ids[:, 0] = 101  # [CLS]
+    lens = rs.randint(COCA_TEXT // 4, COCA_TEXT + 1, n)
+    mask = (np.arange(COCA_TEXT)[None] < lens[:, None]).astype(np.int64)
+    ids = ids * mask
+    half = n // 2
+    for k in range(2):
+        part = slice(k * half, (k + 1) * half)
+        np.savez(root / f"shard_{k}.npz", input_ids=ids[part],
+                 attention_mask=mask[part],
+                 images=rs.randint(0, 256, (half, side, side, 3), np.uint8))
+    vocab = smoke_vocab()
+    words = vocab[1000:8000]
+    (root / "images").mkdir()
+    (root / "vocab").mkdir()
+    (root / "vocab" / "vocab.txt").write_text("\n".join(vocab),
+                                              encoding="utf-8")
+    n_items = 160
+    for i in range(n_items):
+        Image.fromarray(rs.randint(0, 256, (256, 256, 3), np.uint8)).save(
+            root / "images" / f"i{i}.jpg", quality=90)
+
+    def text(k):
+        return " ".join(rs.choice(words, k))
+
+    data = root / "data"
+    data.mkdir()
+    names = {"train": "finetune_train_train.tsv",
+             "valid": "finetune_train_valid.tsv", "test": "finetune_test.tsv"}
+    for split, count in COCA_PAIRS.items():
+        with open(data / names[split], "w", encoding="utf-8") as w:
+            for k in range(count):
+                a, b = rs.randint(n_items, size=2)
+                w.write("\t".join([str(k % 2), f"i{a}", text(20), text(60),
+                                   f"i{b}", text(20), text(60)]) + "\n")
+    return {"data": data, "images": root / "images", "vocab": root / "vocab"}
+
+
+def _coca_probs(cfg: ModelConfig, state: dict, ds) -> dict:
+    """CoCaForItemAlignment's probabilities and logits on ``ds`` with
+    ``state``, through the kernels and through plain attention."""
+    from item_alignment_torch.models.multimodal import CoCaForItemAlignment
+
+    probs = {}
+    for name, flash in (("kernels", True), ("plain", False)):
+        model = CoCaForItemAlignment(cfg.replace(use_flash_attention=flash),
+                                     seed=None).eval()
+        model.load_state_dict(state)
+        got = []
+        with torch.inference_mode():
+            for batch, meta in ds.batches(COCA_BATCH):
+                feed = {k: torch.from_numpy(v).cuda() for k, v in
+                        batch.items() if k != "labels"}
+                feed = {k: v if v.dtype == torch.uint8 else v.long()
+                        for k, v in feed.items()}
+                out = model(**feed)
+                got.append([t.float().cpu().numpy()[: meta["n_valid"]]
+                            for t in (out.probs, out.logits)])
+        probs[name] = [np.concatenate(part) for part in zip(*got)]
+        del model
+    return probs
+
+
+def _coca_finetune(root: Path, corpus: dict, tok, ensemble: str, seed: int,
+                   card: str, walls: dict, segmentation: str) -> tuple:
+    """Phase 22b: ``finetune-multimodal --model_name coca_base`` with
+    ``ensemble`` from phase 22a's pretrain file through ``cli.main``, its
+    model on the kernels against plain attention, and (``sum``) one step
+    timed and profiled.  Returns the command's launches of #1-#6."""
+    from item_alignment_torch.data.images import load_image
+    from item_alignment_torch.data.prepare import read_finetune_tsv
+    from item_alignment_torch.data.tokenization import (
+        build_multimodal_pair_dataset,
+    )
+    from item_alignment_torch.models.multimodal import CoCaForItemAlignment
+
+    config = ROOT / "configs" / "coca_base.json"
+    width = json.loads(config.read_text())
+    train_steps = COCA_PAIRS["train"] // COCA_BATCH
+    log_dir = root / f"logs_{ensemble}"
+    out_dir = root / f"ft_{ensemble}"
+    zero_counters()  # the finetune path
+    torch.cuda.reset_peak_memory_stats()
+    lines, walls[f"finetune {ensemble}"] = run_cli([
+        "finetune-multimodal", "--data_dir", str(corpus["data"]),
+        "--output_dir", str(out_dir), "--vocab_path",
+        str(corpus["vocab"]), "--model_name", "coca_base",
+        "--config_file", str(config), "--images_dir",
+        str(corpus["images"]), "--image_size",
+        str(width["image_size"]), "--ensemble", ensemble,
+        "--max_seq_len", "50", "--max_seq_len_pv",
+        str(COCA_TEXT - 50), "--train_batch_size", str(COCA_BATCH),
+        "--eval_batch_size", str(COCA_BATCH), "--epochs", "1",
+        "--learning_rate", "1e-4", "--bf16", "--log_steps", "1",
+        "--log_dir", str(log_dir), "--pretrained_model_path",
+        str(root / "pre"), "--seed", str(seed), "--do_train",
+        "--do_eval", "--do_pred"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ft = counters()
+    losses, ft_ms = _finetune_ms(log_dir)
+    ev = [o for o in lines if "sweep" in o][-1]
+    evals = 2 * COCA_PAIRS["valid"] // COCA_BATCH \
+        + COCA_PAIRS["test"] // COCA_BATCH
+    per_pass = 2 * width["num_hidden_layers"]  # two towers a pair
+    check(ft == (per_pass * evals, per_pass * train_steps,
+                 per_pass * train_steps, 0, 0, 0)
+          and len(losses) == train_steps and all(np.isfinite(losses))
+          and ev["best_f1"] is not None,
+          f"phase 22 finetune {ensemble}: launches {ft}, losses "
+          f"{losses}, eval {ev}")
+
+    run = out_dir / f"coca_base-v1-one_tower-cls-{ensemble}-ce"
+    state = load_params(str(run / "best_f1.pt"))
+    cfg = ModelConfig.from_json(
+        str(config), model_name="coca_base", ensemble=ensemble,
+        max_seq_len=50, max_seq_len_pv=COCA_TEXT - 50,
+        dtype="bfloat16", vocab_size=len(tok))
+    rows = read_finetune_tsv(str(corpus["data"] /
+                                 "finetune_train_valid.tsv"))
+    valid = build_multimodal_pair_dataset(
+        rows, tok, load_image, cli._image_paths(
+            str(corpus["images"]), rows), cfg.max_seq_len,
+        cfg.max_seq_len_pv, cfg.image_size, bos=ensemble == "sum")
+    # random weights saturate the trained probabilities within a few steps
+    # (and cross_attn's 12-deep decoder most of them from the start), so
+    # the finetune's start is held too: the seed's weights under the
+    # pretrain's coca and multimodal parameters, as the command loads them,
+    # with the head scaled so that its margins (logit 1 - logit 0) have a
+    # root mean square of 1 over the pairs (a scale, so the kernels' error
+    # stays relative to the margins' size)
+    start = CoCaForItemAlignment(cfg, seed=seed).state_dict()
+    start.update({k: v for k, v in load_params(str(
+        root / "pre" / "coca_pretrain.pt")).items() if k in start})
+    diffs = []
+    probs = _coca_probs(cfg, state, valid)
+    diffs.append(float(np.abs(probs["kernels"][0] - probs["plain"][0]).max()))
+    logits = _coca_probs(cfg, start, valid)["plain"][1]
+    rms = float(np.sqrt(np.mean((logits[:, -1] - logits[:, 0]) ** 2)))
+    for k in ("classifier.out_proj.weight", "classifier.out_proj.bias"):
+        start[k] = start[k] / (rms or 1.0)
+    probs = _coca_probs(cfg, start, valid)
+    diffs.append(float(np.abs(probs["kernels"][0] - probs["plain"][0]).max()))
+    live = int(((probs["plain"][0] > 0.01) & (probs["plain"][0] < 0.99)).sum())
+    diff = max(diffs)
+    check(diff <= COCA_TOL and live >= COCA_LIVE,
+          f"phase 22 {ensemble}: kernels vs plain attention {diffs} "
+          f"(trained, start; limit {COCA_TOL}), {live} of the start's "
+          f"probabilities off 0 and 1 (want {COCA_LIVE})")
+    profiled = ""
+    if ensemble == "sum":
+        model = CoCaForItemAlignment(cfg, seed=None)
+        model.load_state_dict(state)
+        tcfg = TrainConfig(seed=seed, train_batch_size=COCA_BATCH,
+                           optimizer=OptimizerConfig(
+                               learning_rate=1e-4, total_steps=100))
+        trainer = Trainer(model, tcfg, device="cuda")
+        rows = read_finetune_tsv(str(corpus["data"] /
+                                     "finetune_train_train.tsv"))
+        train_ds = build_multimodal_pair_dataset(
+            rows, tok, load_image, cli._image_paths(
+                str(corpus["images"]), rows), cfg.max_seq_len,
+            cfg.max_seq_len_pv, cfg.image_size, bos=True)
+        batches = [b for b, _ in train_ds.batches(COCA_BATCH)]
+        step_ms, profiled = _step_profile(
+            trainer, (batches * 2)[:4])
+        profiled = (f"; direct: {step_ms:.2f} ms/step over 3 timed "
+                    f"steps, {profiled}")
+        del model, trainer
+    del state, start, probs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 22b finetune-multimodal --model_name coca_base "
+          f"--ensemble {ensemble}: batch {COCA_BATCH}, S="
+          f"{COCA_TEXT} a tower, {width['image_size']} px uint8 "
+          f"images, bf16, from coca_pretrain.pt, {train_steps} steps, "
+          f"losses {[round(x, 4) for x in losses]}, {ft_ms:.2f} "
+          f"ms/step through the CLI ({COCA_BATCH / ft_ms * 1e3:.2f} "
+          f"train pairs/s), peak memory {peak:.2f} GiB; eval best "
+          f"F1 {ev['best_f1']:.4f}; launches #1..#6 {ft} (#2/#3 "
+          f"{per_pass} a step, #1 {per_pass} an eval or prediction "
+          f"batch); "
+          f"{len(valid)} valid pairs' probabilities on the kernels vs "
+          f"plain attention max diff {diffs[0]:.3e} trained, {diffs[1]:.3e} "
+          f"at the start ({live} of them off 0 and 1; limit {COCA_TOL}); "
+          f"command {walls[f'finetune {ensemble}']:.3f} s"
+          f"{profiled}; the segmenter {segmentation}; {card}", flush=True)
+    return ft
+
+
+def phase_coca(seed: int, card: str) -> tuple:
+    """Phase 22: CoCa at configs/coca_base.json's width in bf16 (hidden 768,
+    12 text layers, a 12-layer ViT-B/16 at 224 px, a 12-deep multimodal
+    decoder with 12 heads), random weights from ``seed``: ``coca-pretrain``
+    on uint8 shards of 128-token captions, then ``finetune-multimodal
+    --model_name coca_base`` with ``sum`` and ``cross_attn`` from its
+    ``coca_pretrain.pt``: train, evaluate, predict, all through
+    ``cli.main``; the finetuned model on the kernels against plain
+    attention; one step timed and profiled; then #1 and #2's and #3's
+    contracts against their plain versions at the text encoder's shapes.
+    Returns the launches of #1-#6 over the commands and the kernels'
+    errors (``phase_train_kernels``'s, and #1's as ``serving_err``)."""
+    from item_alignment_torch.data.tokenization import load_text_tokenizer
+
+    config = ROOT / "configs" / "coca_base.json"
+    width = json.loads(config.read_text())
+    flags = [f"--{k}={width[k]}" for k in COCA_WIDTH_FLAGS]
+    walls, total = {}, (0,) * 6
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        corpus = write_coca_corpus(root, seed, width)
+        walls["corpus"] = time.perf_counter() - t0
+        zero_counters()  # the pretrain path
+        torch.cuda.reset_peak_memory_stats()
+        (out,), walls["coca-pretrain"] = run_cli([
+            "coca-pretrain", "--shards", str(root / "shard_0.npz"),
+            str(root / "shard_1.npz"), "--output_dir", str(root / "pre"),
+            "--config_file", str(config), *flags, "--batch_size",
+            str(COCA_BATCH), "--epochs", "1", "--bf16", "--log_steps", "1",
+            "--log_dir", str(root / "pre_logs"), "--seed", str(seed)])
+        pre_peak = torch.cuda.max_memory_allocated() / 2**30
+        pre = counters()
+        losses, pre_ms = _finetune_ms(root / "pre_logs")
+        L = width["num_hidden_layers"]  # text-encoder layers, one pass
+        want = (0, L * COCA_PRETRAIN_STEPS, L * COCA_PRETRAIN_STEPS, 0, 0, 0)
+        check(pre == want and len(losses) == COCA_PRETRAIN_STEPS
+              and all(np.isfinite(losses)) and np.isfinite(out["final_loss"]),
+              f"phase 22 coca-pretrain: launches {pre} (want {want}), "
+              f"losses {losses}")
+        total = tuple(a + b for a, b in zip(total, pre))
+        n_params = sum(v.numel() for v in load_params(
+            str(root / "pre/coca_pretrain.pt")).values())
+        print(f"phase 22a coca-pretrain at coca_base width ({n_params:,} "
+              f"parameters), batch {COCA_BATCH}, captions of {COCA_TEXT} "
+              f"tokens (the text encoder sees {COCA_TEXT - 1}), uint8 "
+              f"images at {width['image_size']} px, bf16: "
+              f"{COCA_PRETRAIN_STEPS} steps, losses "
+              f"{[round(x, 4) for x in losses]}, {pre_ms:.2f} ms/step "
+              f"through the CLI, peak memory {pre_peak:.2f} GiB, launches "
+              f"#1..#6 {pre}, command {walls['coca-pretrain']:.3f} s; "
+              f"{card}", flush=True)
+
+        tok = load_text_tokenizer(str(corpus["vocab"]))
+        with segmenter() as segmentation:
+            for ensemble in ("sum", "cross_attn"):
+                ft = _coca_finetune(root, corpus, tok, ensemble, seed, card,
+                                    walls, segmentation)
+                total = tuple(a + b for a, b in zip(total, ft))
+    print("phase 22 wall times: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+    # the shapes the commands above ran: the pretrain's captions of S - 1
+    # tokens and the finetune's towers of S, B a batch, the base's heads
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, S, N = COCA_BATCH, COCA_TEXT, width["num_attention_heads"]
+    H = width["hidden_size"] // N
+    _, serving = kernel_case(f"bf16 S={S} B={B} N={N}", B, S, N, H,
+                             torch.bfloat16, False, gen,
+                             phase="phase 22 kernel")
+    errs = phase_train_kernels(gen, [
+        (f"bf16 S={s} B={B} N={N}", B, s, N, H, torch.bfloat16)
+        for s in (S - 1, S)], SimpleNamespace(**dict(
+            vars(TRAIN_FAMILY), name="phase 22 train kernels")))
+    return total, dict(errs, serving_err=serving)
+
+
 def run(args) -> None:
     card = phase_card()
     phase_build()
@@ -4127,6 +4806,8 @@ def run(args) -> None:
     mm, mm_err = phase_multimodal(args.seed, card)  # the multimodal path
     legacy, legacy_err = phase_legacy(args.seed, card)  # the legacy member
     image = phase_images(args.seed, card)  # the image family: no kernel
+    graph = phase_graph(args.seed, card)  # the graph path: no kernel
+    coca, coca_err = phase_coca(args.seed, card)  # CoCa: #1-#3
 
     src, tpu = "item_alignment_torch/csrc/", "item_alignment_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4134,33 +4815,39 @@ def run(args) -> None:
         dict(name="fused_attention", source=src + "fused_attention.cu",
              replaces=tpu + "63",
              launches=(launches + entry[0] + pkgm[0] + mm[0] + legacy[0]
-                       + image[0]),
+                       + image[0] + graph[0] + coca[0]),
              max_abs_err=max(kernel["max_abs_err"], pkgm_err["serving_err"],
-                             legacy_err["serving_err"]),
+                             legacy_err["serving_err"],
+                             coca_err["serving_err"]),
              **{k: kernel[k] for k in keys}, f32=legacy_err["f32"]["#1"]),
         dict(name="fused_attention_dropout",
              source=src + "flash_blockwise_fwd.cu", replaces=tpu + "203",
              launches=(trained[1] + entry[1] + pkgm[1] + mm[1] + legacy[1]
-                       + image[1]),
+                       + image[1] + graph[1] + coca[1]),
              max_abs_err=max(train["fwd_err"], pkgm_err["fwd_err"],
-                             mm_err["fwd_err"], legacy_err["fwd_err"]),
+                             mm_err["fwd_err"], legacy_err["fwd_err"],
+                             coca_err["fwd_err"]),
              **train["fwd"], f32=legacy_err["f32"]["#2"]),
         dict(name="fused_attention_dropout_bwd",
              source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",
              launches=(trained[2] + entry[2] + pkgm[2] + mm[2] + legacy[2]
-                       + image[2]),
+                       + image[2] + graph[2] + coca[2]),
              max_abs_err=max(*train["bwd_err"], *pkgm_err["bwd_err"],
-                             *mm_err["bwd_err"], *legacy_err["bwd_err"]),
+                             *mm_err["bwd_err"], *legacy_err["bwd_err"],
+                             *coca_err["bwd_err"]),
              **train["bwd"]),
         dict(name="flash_blockwise_fwd", source=src + "flash_blockwise_fwd.cu",
              replaces=tpu + "458",
-             launches=served_long + trained_long[3] + image[3],
+             launches=(served_long + trained_long[3] + image[3] + graph[3]
+                       + coca[3]),
              max_abs_err=block["fwd_err"], **block["fwd"]),
         dict(name="flash_blockwise_dq", source=src + "flash_blockwise_bwd.cu",
-             replaces=tpu + "522", launches=trained_long[4] + image[4],
+             replaces=tpu + "522",
+             launches=trained_long[4] + image[4] + graph[4] + coca[4],
              max_abs_err=block["bwd_err"][0], **block["dq"]),
         dict(name="flash_blockwise_dkv", source=src + "flash_blockwise_bwd.cu",
-             replaces=tpu + "571", launches=trained_long[5] + image[5],
+             replaces=tpu + "571",
+             launches=trained_long[5] + image[5] + graph[5] + coca[5],
              max_abs_err=max(block["bwd_err"][1:]), **block["dkv"]),
     ]
     print(json.dumps({"kernels": [dict(row, route="cuda") for row in rows]}),

@@ -19,7 +19,8 @@ State = Dict[str, torch.Tensor]
 
 
 def load_state_dicts(paths: Sequence[str], device=None) -> List[State]:
-    """``.pt`` state dicts onto ``device`` (None means ``"cuda"``)."""
+    """``.pt`` or Flax ``.msgpack`` state dicts onto ``device`` (None means
+    ``"cuda"``)."""
     dev = resolve_device(device)
     return [{k: v.to(dev) for k, v in load_params(p).items()} for p in paths]
 

@@ -13,7 +13,9 @@ Port of ``item_alignment_tpu/cli.py`` for the main path:
   eval, predict (PKGM takes ``--entity2id``/``--relation2id`` and merges
   ``pkgm_model.bin`` beside ``pytorch_model.bin``);
 - ``finetune-multimodal``  RobertaImage one-tower and two-tower on the
-  9-column TSVs (``--ensemble begin|end|sum``): train, eval, predict;
+  9-column TSVs (``--ensemble begin|end|sum``), or CoCa (``--model_name
+  coca_*`` with ``--images_dir``, ``--ensemble sum|cross_attn``, from a
+  ``coca-pretrain`` file): train, eval, predict;
 - ``finetune-image`` the image two-tower (ViT, ResNetV2, NFNet) on the
   image-pair shards, from a timm state dict (``--pretrained_model_path``):
   train, eval, predict;
@@ -22,6 +24,13 @@ Port of ``item_alignment_tpu/cli.py`` for the main path:
 - ``pred-text``      the pooled entity-feature matrix for the GCN;
 - ``pkgm-pretrain``  KGE pretraining on the KG files (``kge/``), writing
   ``kge_final.npz``;
+- ``build-graph``    the GCN's inputs on the host: the normalised,
+  dst-sorted item/attribute edge list and its transpose (``edges.npz``)
+  and the two pair files;
+- ``finetune-graph`` GCNII (``models/graph.py``) over the whole graph,
+  Adam, one step a pair batch: ``gcn_params.pt``;
+- ``coca-pretrain``  CoCa caption + contrastive pretraining on ``.npz``
+  shards of text and images: ``coca_pretrain.pt``;
 - ``ensemble``       fuse the members' prediction files (threshold or f1
   strategy, optional category split) into ``deepAI_result.jsonl``;
 - ``model-soup``     average ``.pt`` parameter files (``aggregate/soup.py``).
@@ -40,14 +49,15 @@ two-tower layout.
 
 Flags are the JAX CLI's, so the same command lines run, with one more:
 ``--device {cuda,cpu}`` (default ``cuda``; without a GPU the default
-raises).  The port writes and reads its own parameter files, ``.pt``
-state dicts (``best_f1.pt``, ``text_finetune_epoch-N.pt``,
+raises).  The port writes ``.pt`` state
+dicts (``best_f1.pt``, ``text_finetune_epoch-N.pt``,
 ``multimodal_finetune_epoch-N.pt``, ``image_finetune_epoch-N.pt``,
-``bert_align.pt``, ``bert_pretrain.pt``); a ``.msgpack``
-file raises, pointing at ROADMAP Queue 1 #14.  ``--scan_steps`` and
-``pred-text --scan_chunks/--xfer_guard`` steer XLA's dispatch and do nothing
-here.  The other commands and the model families not yet ported raise with
-their ROADMAP item.
+``bert_align.pt``, ``bert_pretrain.pt``, ``gcn_params.pt``,
+``coca_pretrain.pt``) and reads them or the JAX CLI's Flax ``.msgpack``
+files wherever the JAX CLI reads one (``engine/checkpoint.load_params``).
+``--scan_steps`` and ``pred-text --scan_chunks/--xfer_guard`` steer XLA's
+dispatch and do nothing here.  ``--distributed`` raises with its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -72,9 +82,7 @@ from item_alignment_torch.device import resolve_device
 from item_alignment_torch.utils import logger
 from item_alignment_torch.utils.retry import retry_transient
 
-MSGPACK_ITEM = "ROADMAP Queue 1 #14: Reading Flax msgpack files"
 PARALLEL_ITEM = "ROADMAP Queue 1 #4: Parallelism"
-COCA_ITEM = "ROADMAP Queue 1 #11: CoCa"
 INERT = "accepted for the JAX CLI's command lines; no effect in the port"
 
 
@@ -110,7 +118,8 @@ def _common_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pretrained_model_path", default=None,
                    help="HF dir with pytorch_model.bin")
     p.add_argument("--file_state_dict", default=None,
-                   help="parameters to evaluate or predict with (.pt)")
+                   help="parameters to evaluate or predict with (.pt or "
+                        ".msgpack)")
     p.add_argument("--interaction_type", default="one_tower",
                    choices=["one_tower", "two_tower"])
     p.add_argument("--classification_method", default="cls",
@@ -321,25 +330,27 @@ def _dump_hyperparameters(args, out_dir: str) -> None:
 
 
 def _check_param_file(path: str) -> None:
-    """A missing file or a Flax msgpack file raises: the port reads the
-    ``.pt`` state dicts that ``engine/checkpoint.py:save_params`` writes."""
-    if path.endswith(".msgpack"):
-        raise ValueError(
-            f"{path}: the port reads .pt parameter files; Flax msgpack files "
-            f"are not read yet ({MSGPACK_ITEM}). Convert it with "
-            "item_alignment_torch.convert.state_dict_from_flax where flax "
-            "is installed and save the result with engine.checkpoint."
-            "save_params")
     if not os.path.exists(path):
         # predicting with random weights would hand garbage scores on
         raise FileNotFoundError(f"parameter file {path} does not exist")
 
 
 def _load_param_file(path: str):
+    """The state dict of a ``.pt`` file or of a JAX CLI ``.msgpack`` (a
+    malformed one raises a ``ValueError`` that names it)."""
     from item_alignment_torch.engine.checkpoint import load_params
 
     _check_param_file(path)
     return load_params(path)
+
+
+def _param_file_in(path: str, name: str) -> str:
+    """``path`` itself, or in a directory ``<name>.pt``, else the JAX CLI's
+    ``<name>.msgpack``."""
+    if not os.path.isdir(path):
+        return path
+    pt = os.path.join(path, name + ".pt")
+    return pt if os.path.exists(pt) else os.path.join(path, name + ".msgpack")
 
 
 # ------------------------------------------------------------- commands
@@ -376,7 +387,8 @@ def cmd_prepare(argv: List[str]) -> int:
                    help="encode with a finetuned two-tower "
                         "(--file_state_dict)")
     p.add_argument("--file_state_dict", default=None,
-                   help="finetune-image best_f1.pt (with --finetuned)")
+                   help="finetune-image best_f1.pt or .msgpack (with "
+                        "--finetuned)")
     p.add_argument("--boxes_file", default=None,
                    help="precomputed detector boxes for --object_detection "
                         "(item_id -> [x1,y1,x2,y2,cls,conf] rows)")
@@ -683,12 +695,15 @@ def cmd_finetune_text(argv: List[str]) -> int:
 
 
 def _finetune(args, model, cfg, device, build_ds, read_rows,
-              kind: str = "text", pred_with_best: bool = True) -> int:
+              kind: str = "text", pred_with_best: bool = True,
+              restore_first: bool = False) -> int:
     """The finetune commands' flow: train (from ``--pretrained_model_path``
-    when given) and save ``best_f1.pt`` and ``<kind>_finetune_epoch-N.pt``;
-    evaluate on the validation split; predict on the test split when its
-    TSV exists, else on the validation split.  Without ``--do_train`` the
-    weights come from ``--file_state_dict``."""
+    when given; with ``restore_first``, ``--file_state_dict`` over it, as
+    the JAX CLI's finetune-multimodal does and its finetune-text does not)
+    and save ``best_f1.pt`` and ``<kind>_finetune_epoch-N.pt``; evaluate on
+    the validation split; predict on the test split when its TSV exists,
+    else on the validation split.  Without ``--do_train`` the weights come
+    from ``--file_state_dict``."""
     from item_alignment_torch.engine.checkpoint import save_params
     from item_alignment_torch.engine.observability import profile_trace
     from item_alignment_torch.engine.train import Trainer
@@ -705,6 +720,8 @@ def _finetune(args, model, cfg, device, build_ds, read_rows,
     if args.do_train:
         if args.pretrained_model_path:
             _load_pretrained(model, cfg, args)
+        if restore_first:
+            _maybe_restore(trainer, args)
         with profile_trace(args.profile_dir):
             result = trainer.fit(train_ds, valid_ds)
         _save_epoch_params(trainer, out_dir, args.epochs, kind)
@@ -758,19 +775,21 @@ def cmd_finetune_multimodal(argv: List[str]) -> int:
     p.add_argument("--ensemble", default="begin",
                    choices=["begin", "end", "sum", "cross_attn"])
     p.add_argument("--images_dir", default=None,
-                   help=f"item images for coca models ({COCA_ITEM})")
+                   help="item images dir (<item_id>.jpg/png/jpeg) for coca "
+                        "models")
     p.add_argument("--image_size", type=int, default=224)
     args = p.parse_args(argv)
-    if "coca" in args.model_name:
-        raise NotImplementedError(
-            f"finetune-multimodal --model_name {args.model_name}: CoCa is "
-            f"not ported yet ({COCA_ITEM})")
-    if "roberta_image" not in args.model_name:
-        raise ValueError(f"finetune-multimodal trains roberta_image* models, "
-                         f"not {args.model_name!r}")
+    is_coca = "coca" in args.model_name
+    if not (is_coca or "roberta_image" in args.model_name):
+        raise ValueError(f"finetune-multimodal trains roberta_image* and "
+                         f"coca* models, not {args.model_name!r}")
+    if is_coca and not args.images_dir:
+        raise ValueError("a coca finetune needs --images_dir")
 
-    from item_alignment_torch.data.prepare import read_tsv
+    from item_alignment_torch.data.images import load_image
+    from item_alignment_torch.data.prepare import read_finetune_tsv, read_tsv
     from item_alignment_torch.data.tokenization import (
+        build_multimodal_pair_dataset,
         load_text_tokenizer,
         rows_to_image_one_tower_dataset,
         rows_to_image_two_tower_dataset,
@@ -789,16 +808,37 @@ def cmd_finetune_multimodal(argv: List[str]) -> int:
 
     def read_rows(split):
         path = os.path.join(args.data_dir, split)
-        return read_tsv(path) if os.path.exists(path) else None
+        if not os.path.exists(path):
+            return None
+        return read_finetune_tsv(path) if is_coca else read_tsv(path)
 
     def build_ds(rows):
         if rows is None:
             return None
+        if is_coca:
+            return build_multimodal_pair_dataset(
+                rows, tok, load_image, _image_paths(args.images_dir, rows),
+                cfg.max_seq_len, cfg.max_seq_len_pv, cfg.image_size,
+                bos=cfg.ensemble == "sum")
         return layout(rows, tok, cfg.max_seq_len, cfg.max_seq_len_pv,
                       args.image_hidden_size, ensemble=cfg.ensemble)
 
     return _finetune(args, model, cfg, device, build_ds, read_rows,
-                     kind="multimodal", pred_with_best=False)
+                     kind="multimodal", pred_with_best=False,
+                     restore_first=True)
+
+
+def _image_paths(images_dir: str, rows) -> dict:
+    """{item id: ``<images_dir>/<item id>.jpg``, ``.png`` or ``.jpeg``, the
+    first that exists} for the items of the 9-tuple ``rows``."""
+    paths = {}
+    for iid in sorted({r[1] for r in rows} | {r[5] for r in rows}):
+        for ext in (".jpg", ".png", ".jpeg"):
+            cand = os.path.join(images_dir, iid + ext)
+            if os.path.exists(cand):
+                paths[iid] = cand
+                break
+    return paths
 
 
 def cmd_finetune_image(argv: List[str]) -> int:
@@ -956,11 +996,34 @@ def _load_timm_pretrained(model, args) -> None:
     logger.info(f"loaded the timm backbone from {path}")
 
 
+def _load_coca_pretrained(model, args) -> None:
+    """The ``coca`` and ``multimodal`` parameters of a ``coca-pretrain``
+    file (``--pretrained_model_path``: ``coca_pretrain.pt`` or the JAX
+    CLI's ``coca_pretrain.msgpack``, or their directory) over the
+    item-alignment model's (the reference loads with strict=False)."""
+    from item_alignment_torch.utils.hf_import import _overlay
+
+    path = _param_file_in(args.pretrained_model_path, "coca_pretrain")
+    pre = _load_param_file(path)
+    state = model.state_dict()
+    tops = {k.split(".")[0] for k in state} & {"coca", "multimodal"}
+    sub = {k: v for k, v in pre.items() if k.split(".")[0] in tops}
+    if not sub:
+        raise ValueError(f"no shared subtrees between {path} and the model")
+    _overlay(state, sub)
+    model.load_state_dict(state)
+    logger.info(f"loaded coca pretrain subtrees "
+                f"{sorted({k.split('.')[0] for k in sub})} from {path}")
+
+
 def _load_pretrained(model, cfg, args) -> None:
     """HF encoder weights from ``pytorch_model.bin`` under
     ``--pretrained_model_path`` (``utils/hf_import.py``); for a pkgm model,
     merged with the PKGM pretrain tables of ``pkgm_model.bin`` beside it
-    when there is one.  Without ``pytorch_model.bin`` nothing is loaded."""
+    when there is one.  Without ``pytorch_model.bin`` nothing is loaded.  A
+    coca model takes a ``coca-pretrain`` file instead."""
+    if "coca" in cfg.model_name:
+        return _load_coca_pretrained(model, args)
     from item_alignment_torch.models import PKGMBackbone
     from item_alignment_torch.utils import (
         KG_WEIGHTS_NAME,
@@ -1044,7 +1107,8 @@ def cmd_mine(argv: List[str]) -> int:
     p.add_argument("--config_file", default=None)
     p.add_argument("--model_name", default="roberta_large")
     p.add_argument("--file_state_dict", default=None,
-                   help="finetune-text two_tower parameters (.pt)")
+                   help="finetune-text two_tower parameters (.pt or "
+                        ".msgpack)")
     p.add_argument("--allow_random_weights", action="store_true")
     p.add_argument("--max_seq_len", type=int, default=50)
     p.add_argument("--max_seq_len_pv", type=int, default=205)
@@ -1158,7 +1222,8 @@ def cmd_pred_text(argv: List[str]) -> int:
     p.add_argument("--pretrained_model_path", default=None,
                    help="HF dir with pytorch_model.bin")
     p.add_argument("--file_state_dict", default=None,
-                   help="finetune-text parameters (.pt) over the encoder")
+                   help="finetune-text parameters (.pt or .msgpack) over "
+                        "the encoder")
     p.add_argument("--max_seq_len", type=int, default=64)
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--scan_chunks", type=int, default=8, help=INERT)
@@ -1401,11 +1466,11 @@ def cmd_ensemble(argv: List[str]) -> int:
 
 
 def cmd_model_soup(argv: List[str]) -> int:
-    """The uniform soup of ``.pt`` parameter files, averaged on
-    ``--device`` and written as a ``.pt`` file."""
+    """The uniform soup of ``.pt`` or ``.msgpack`` parameter files,
+    averaged on ``--device`` and written as a ``.pt`` file."""
     p = argparse.ArgumentParser(prog="ia-torch model-soup")
     p.add_argument("--checkpoints", required=True, nargs="+",
-                   help=".pt parameter files to average")
+                   help=".pt or .msgpack parameter files to average")
     p.add_argument("--output", required=True)
     _device_flag(p)
     args = p.parse_args(argv)
@@ -1444,8 +1509,8 @@ def cmd_finetune_bert(argv: List[str]) -> int:
     p.add_argument("--alpha", type=float, default=1e-2)
     p.add_argument("--threshold", type=float, default=0.4)
     p.add_argument("--pretrained_model_path", default=None,
-                   help="bert_pretrain.pt (or its dir): the domain-"
-                        "pretrained backbone to start from")
+                   help="bert_pretrain.pt or .msgpack (or their dir): "
+                        "the domain-pretrained backbone to start from")
     _engine_flags(p)
     args = p.parse_args(argv)
     _refuse_distributed(args)
@@ -1488,9 +1553,7 @@ def cmd_finetune_bert(argv: List[str]) -> int:
     if args.pretrained_model_path:
         from item_alignment_torch.utils.hf_import import _overlay_rows
 
-        path = args.pretrained_model_path
-        if os.path.isdir(path):
-            path = os.path.join(path, "bert_pretrain.pt")
+        path = _param_file_in(args.pretrained_model_path, "bert_pretrain")
         pre = {k: v for k, v in _load_param_file(path).items()
                if k.startswith("bert.")}
         if not pre:
@@ -1596,7 +1659,8 @@ def cmd_pred_bert(argv: List[str]) -> int:
     p = argparse.ArgumentParser(prog="ia-torch pred-bert")
     p.add_argument("--test_file", required=True)
     p.add_argument("--vocab_path", required=True)
-    p.add_argument("--params", required=True, help="bert_align.pt")
+    p.add_argument("--params", required=True,
+                   help="bert_align.pt or bert_align.msgpack")
     p.add_argument("--config_file", default=None)
     p.add_argument("--output", required=True)
     p.add_argument("--threshold", type=float, default=0.4)
@@ -1645,24 +1709,318 @@ def cmd_pred_bert(argv: List[str]) -> int:
     return 0
 
 
-def _not_ported(name: str, item: str):
-    def cmd(argv: List[str]) -> int:
-        raise NotImplementedError(f"ia-torch {name} is not ported yet ({item})")
+def cmd_build_graph(argv: List[str]) -> int:
+    """The GCN's inputs, on the host (the JAX CLI's ``build-graph``): the
+    item/attribute adjacency (item <-> its category value, industry value
+    and each pv value, both ways; the reference's data_prepare.py:655-731),
+    deduplicated, normalised with self loops, sorted by destination, with
+    its transpose (``edges.npz``), and the labelled pairs with their node
+    ids split into ``item_train_valid_pair.jsonl`` and
+    ``item_train_train_pair.jsonl``."""
+    p = argparse.ArgumentParser(prog="ia-torch build-graph")
+    p.add_argument("--item_info", required=True)
+    p.add_argument("--entity2id", required=True)
+    p.add_argument("--train_pairs", required=True,
+                   help="item_train_pair.jsonl")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--valid_proportion", type=float, default=0.1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--pad_to", type=int, default=None,
+                   help="pad the edge list to a static size")
+    args = p.parse_args(argv)
 
-    return cmd
+    import random as pyrandom
+
+    from item_alignment_torch.data.prepare import load_item_info
+    from item_alignment_torch.data.tokenization import load_kg_tokenizers
+    from item_alignment_torch.ops.sparse import (
+        normalize_adjacency,
+        pad_edges,
+        sort_edges_by_dst,
+        transpose_edges,
+    )
+
+    ents, _ = load_kg_tokenizers(args.entity2id, args.entity2id)
+    n_nodes = max(ents.values()) + 1
+    src, dst = [], []
+
+    def connect(i: int, tail_key: str) -> None:
+        j = ents.get(tail_key)
+        if j is not None:
+            src.extend((i, j))
+            dst.extend((j, i))
+
+    n_items = 0
+    id_dict, _, _ = load_item_info(args.item_info)
+    for item_id, d in id_dict.items():
+        head = f"/item/{item_id}"
+        if head not in ents:
+            continue
+        n_items += 1
+        i = ents[head]
+        connect(i, f"/value/{d['cate_name']}-{d['cate_id']}")
+        connect(i, f"/value/{d['industry_name']}")
+        for vals in (d.get("pvs") or {}).values():
+            for v in vals:
+                connect(i, f"/value/{v}")
+    edge_index = np.stack([np.asarray(src, np.int64),
+                           np.asarray(dst, np.int64)])
+    # shared pv values repeat across an item's skus
+    edge_index = np.unique(edge_index, axis=1)
+    ei, ew = normalize_adjacency(edge_index, n_nodes)
+    ti, tw = transpose_edges(ei, ew)
+    ei, ew = sort_edges_by_dst(ei, ew)
+    if args.pad_to:
+        ei, ew = pad_edges(ei, ew, args.pad_to, pad_dst=n_nodes - 1)
+        ti, tw = pad_edges(ti, tw, args.pad_to, pad_dst=n_nodes - 1)
+    os.makedirs(args.output_dir, exist_ok=True)
+    edges_path = os.path.join(args.output_dir, "edges.npz")
+    np.savez_compressed(edges_path, edge_index=ei, edge_weight=ew,
+                        edge_index_t=ti, edge_weight_t=tw,
+                        sorted_by_dst=np.bool_(True),
+                        n_nodes=np.int64(n_nodes))
+
+    e2idx = {k[len("/item/"):]: v for k, v in ents.items()
+             if k.startswith("/item/")}
+    rows = []
+    for d in _read_jsonl(args.train_pairs):
+        d["src_idx"] = e2idx[d["src_item_id"]]
+        d["tgt_idx"] = e2idx[d["tgt_item_id"]]
+        rows.append(d)
+    pyrandom.Random(args.seed).shuffle(rows)
+    n_valid = int(len(rows) * args.valid_proportion)
+    out_files = {}
+    for name, chunk in (("item_train_valid_pair.jsonl", rows[:n_valid]),
+                        ("item_train_train_pair.jsonl", rows[n_valid:])):
+        with open(os.path.join(args.output_dir, name), "w",
+                  encoding="utf-8") as w:
+            for d in chunk:
+                w.write(json.dumps(d, ensure_ascii=False) + "\n")
+        out_files[name] = len(chunk)
+    print(json.dumps({"edges": edges_path, "n_nodes": n_nodes,
+                      "n_items": n_items,
+                      "n_edges": int(edge_index.shape[1]), **out_files}))
+    return 0
 
 
-REST_OF_CLI = "ROADMAP Queue 1 #13: The rest of the CLI"
+def _graph_pairs(path: str):
+    """(src_idx, tgt_idx, item_label) int arrays of a pair jsonl."""
+    rows = _read_jsonl(path)
+    return (np.asarray([int(d["src_idx"]) for d in rows], np.int64),
+            np.asarray([int(d["tgt_idx"]) for d in rows], np.int64),
+            np.asarray([int(d.get("item_label", 0)) for d in rows], np.int64))
+
+
+def load_graph(edges_path: str, n_nodes: int, edge_chunk: Optional[int],
+               device):
+    """``edges.npz`` as an ``ops/sparse.Adjacency`` on ``device``: its
+    transpose list when it has one, both padded to a multiple of
+    ``edge_chunk`` with zero-weight edges (into the last node for a
+    dst-sorted list, node 0 otherwise), as the JAX CLI pads them."""
+    from item_alignment_torch.ops.sparse import Adjacency, pad_edges
+
+    with np.load(edges_path) as z:
+        ez = {k: z[k] for k in z.files}
+    ei, ew = ez["edge_index"], ez["edge_weight"]
+    sorted_edges = bool(ez.get("sorted_by_dst", False))
+    trans = ((ez["edge_index_t"], ez["edge_weight_t"])
+             if "edge_index_t" in ez else None)
+    if edge_chunk and ei.shape[1] % edge_chunk:
+        target = -(-ei.shape[1] // edge_chunk) * edge_chunk
+        pad_dst = n_nodes - 1 if sorted_edges else 0
+        ei, ew = pad_edges(ei, ew, target, pad_dst=pad_dst)
+        if trans is not None:
+            trans = pad_edges(*trans, target, pad_dst=pad_dst)
+    return Adjacency(ei, ew, n_nodes, edge_chunk, trans, device)
+
+
+def graph_adam(model, learning_rate: float):
+    """optax's ``adam`` (b1 0.9, b2 0.999, eps 1e-8, no weight decay, a
+    constant rate) over ``model``'s parameters."""
+    from item_alignment_torch.engine.optim import FusedAdamW
+
+    return FusedAdamW(dict(model.named_parameters()),
+                      lambda _: learning_rate, 0.9, 0.999, 1e-8, 0.0, {})
+
+
+def gcn_train_step(model, adam, features, adj, src, tgt, labels,
+                   dropout_seed) -> torch.Tensor:
+    """One ``finetune-graph`` step over the whole graph: forward on the
+    pair batch, backward, the Adam update; returns the loss."""
+    model.zero_grad(set_to_none=True)
+    out = model(features, adj, src, tgt, labels=labels, deterministic=False,
+                dropout_seed=dropout_seed)
+    out.loss.backward()
+    params = adam.params
+    upd = adam.update({n: torch.zeros_like(q) if q.grad is None else q.grad
+                       for n, q in params.items()})
+    with torch.no_grad():
+        torch._foreach_add_(list(params.values()), [upd[n] for n in params])
+    return out.loss.detach()
+
+
+def cmd_finetune_graph(argv: List[str]) -> int:
+    """GCNII over the whole graph (the reference's finetune_graph.py): the
+    node features (``pred-text``'s matrix) and ``build-graph``'s edges and
+    pairs; Adam (optax's ``adam``: no weight decay), each epoch in
+    ``RandomState(epoch)``'s order with the last partial batch dropped;
+    best-F1 on ``--valid_pairs``.  Prints ``{final_loss, best_f1,
+    best_threshold}`` and writes ``gcn_params.pt``."""
+    p = argparse.ArgumentParser(prog="ia-torch finetune-graph")
+    p.add_argument("--feature_matrix", required=True, help=".npy [N, F]")
+    p.add_argument("--edges", required=True,
+                   help=".npz with edge_index [2,E] and edge_weight [E]")
+    p.add_argument("--train_pairs", required=True,
+                   help="jsonl rows {src_idx, tgt_idx, item_label}")
+    p.add_argument("--valid_pairs", default=None)
+    p.add_argument("--output_dir", default="output/gcn")
+    p.add_argument("--gcn_hidden", type=int, default=128)
+    p.add_argument("--gcn_layers", type=int, default=4)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--learning_rate", type=float, default=1e-2)
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--edge_chunk", type=int, default=None,
+                   help="sum the edge list in chunks of this size (bounds "
+                        "the [chunk, hidden] message buffer)")
+    p.add_argument("--scan_layers", action="store_true",
+                   help="the JAX CLI's flag, accepted as train.sh step 9 "
+                        "passes it: the port always stacks the layers' "
+                        "kernels in one parameter")
+    _device_flag(p)
+    args = p.parse_args(argv)
+
+    from item_alignment_torch.engine import metrics as M
+    from item_alignment_torch.engine.checkpoint import save_params
+    from item_alignment_torch.engine.train import step_seed
+    from item_alignment_torch.models.graph import GCNTwoTower
+
+    device = resolve_device(args.device)
+    feats = np.load(args.feature_matrix)
+    adj = load_graph(args.edges, feats.shape[0], args.edge_chunk, device)
+    features = torch.from_numpy(feats.astype(np.float32, copy=False)).to(
+        device)
+    tr_src, tr_tgt, tr_lab = _graph_pairs(args.train_pairs)
+    cfg = ModelConfig(model_name="gcn", gcn_hidden=args.gcn_hidden,
+                      gcn_layers=args.gcn_layers,
+                      gcn_feature_dim=feats.shape[1])
+    # the JAX CLI's seeds: PRNGKey(0) for the weights, 1 for the dropout
+    model = GCNTwoTower(cfg, device=device, seed=0)
+    adam = graph_adam(model, args.learning_rate)
+    bs = min(args.batch_size, len(tr_src))
+
+    def on_device(a):
+        return torch.from_numpy(a).to(device)
+
+    loss, step = None, 0
+    for epoch in range(args.epochs):
+        order = np.random.RandomState(epoch).permutation(len(tr_src))
+        for s0 in range(0, len(order) - bs + 1, bs):
+            idx = order[s0:s0 + bs]
+            loss = gcn_train_step(model, adam, features, adj,
+                                  on_device(tr_src[idx]),
+                                  on_device(tr_tgt[idx]),
+                                  on_device(tr_lab[idx]),
+                                  step_seed(1, step))
+            step += 1
+        if epoch % 10 == 0 and loss is not None:
+            logger.info(f"[gcn] epoch {epoch} loss {float(loss):.4f}")
+
+    result = {"final_loss": None if loss is None else float(loss)}
+    if args.valid_pairs:
+        v_src, v_tgt, v_lab = _graph_pairs(args.valid_pairs)
+        pad = (-len(v_src)) % bs
+        vs = np.concatenate([v_src, np.zeros(pad, np.int64)])
+        vt = np.concatenate([v_tgt, np.zeros(pad, np.int64)])
+        probs = []
+        with torch.inference_mode():
+            for s0 in range(0, len(vs), bs):
+                probs.append(model(features, adj, on_device(vs[s0:s0 + bs]),
+                                   on_device(vt[s0:s0 + bs])).probs.cpu())
+        probs = torch.cat(probs).numpy()[:len(v_src)]
+        f1, _, _, thr = M.find_best_f1_and_threshold(v_lab, probs)
+        result.update(best_f1=f1, best_threshold=thr)
+    save_params(os.path.join(args.output_dir, "gcn_params.pt"),
+                model.state_dict())
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_coca_pretrain(argv: List[str]) -> int:
+    """CoCa caption + contrastive pretraining (the reference's
+    coca_pretrain.py) on ``.npz`` shards of ``input_ids``,
+    ``attention_mask`` and ``images`` (uint8 images stay uint8 and are
+    normalised on the device); writes ``coca_pretrain.pt``."""
+    p = argparse.ArgumentParser(prog="ia-torch coca-pretrain")
+    p.add_argument("--shards", nargs="+", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--config_file", default=None)
+    p.add_argument("--vocab_size", type=int, default=21128)
+    p.add_argument("--hidden_size", type=int, default=768)
+    p.add_argument("--num_hidden_layers", type=int, default=12)
+    p.add_argument("--num_attention_heads", type=int, default=12)
+    p.add_argument("--intermediate_size", type=int, default=3072)
+    p.add_argument("--multimodal_depth", type=int, default=12)
+    p.add_argument("--coca_heads", type=int, default=8)
+    p.add_argument("--image_size", type=int, default=224)
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    _engine_flags(p)
+    args = p.parse_args(argv)
+    _refuse_distributed(args)
+
+    from item_alignment_torch.data.datasets import ArrayDataset
+    from item_alignment_torch.engine.checkpoint import save_params
+    from item_alignment_torch.engine.train import Trainer
+    from item_alignment_torch.models.multimodal import CoCaForPretraining
+
+    device = resolve_device(args.device)
+    kw = dict(model_name="coca", vocab_size=args.vocab_size,
+              hidden_size=args.hidden_size,
+              num_hidden_layers=args.num_hidden_layers,
+              num_attention_heads=args.num_attention_heads,
+              intermediate_size=args.intermediate_size,
+              multimodal_depth=args.multimodal_depth,
+              coca_heads=args.coca_heads, image_size=args.image_size,
+              dtype="bfloat16" if args.bf16 else "float32")
+    cfg = (ModelConfig.from_json(args.config_file, **kw)
+           if args.config_file else ModelConfig(**kw))
+    arrays = {}
+    for key in ("input_ids", "attention_mask", "images"):
+        parts = []
+        for path in args.shards:
+            with np.load(path) as z:
+                parts.append(z[key])
+        arrays[key] = np.concatenate(parts)
+    for key in ("input_ids", "attention_mask"):
+        arrays[key] = arrays[key].astype(np.int32)
+    if arrays["images"].dtype != np.uint8:
+        # float shards arrive normalised; uint8 ones stay uint8
+        arrays["images"] = arrays["images"].astype(np.float32)
+    ds = ArrayDataset(arrays)
+    model = CoCaForPretraining(cfg, device=device, seed=args.seed)
+    bs = min(args.batch_size, len(ds))
+    trainer = Trainer(model, _train_config(args, max(len(ds) // bs, 1),
+                                           batch_size=bs),
+                      device=device, log_dir=args.log_dir)
+    result = trainer.fit(ds)
+    save_params(os.path.join(args.output_dir, "coca_pretrain.pt"),
+                trainer._host_params())
+    print(json.dumps({"final_loss": result["history"][-1]["loss"]}))
+    return 0
+
+
 COMMANDS = {
     "prepare": cmd_prepare,
-    "build-graph": _not_ported("build-graph", REST_OF_CLI),
+    "build-graph": cmd_build_graph,
     "finetune-text": cmd_finetune_text,
     "finetune-image": cmd_finetune_image,
     "finetune-multimodal": cmd_finetune_multimodal,
-    "finetune-graph": _not_ported("finetune-graph", REST_OF_CLI),
+    "finetune-graph": cmd_finetune_graph,
     "finetune-bert": cmd_finetune_bert,
     "bert-pretrain": cmd_bert_pretrain,
-    "coca-pretrain": _not_ported("coca-pretrain", REST_OF_CLI),
+    "coca-pretrain": cmd_coca_pretrain,
     "pkgm-pretrain": cmd_pkgm_pretrain,
     "pred-text": cmd_pred_text,
     "pred-bert": cmd_pred_bert,

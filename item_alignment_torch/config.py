@@ -3,8 +3,12 @@
 
 The port keeps its own copy so that it never imports the JAX package.  Every
 field, default, property and preset is the same as there (a test holds the
-two equal); fields used only by families or features not yet ported are
-kept so that configs and checkpoints move between the packages unchanged.
+two equal), so that configs and checkpoints move between the packages
+unchanged.  The port does not read ``gcn_edge_chunk`` and
+``gcn_sorted_edges`` (its ``ops/sparse.Adjacency`` holds the chunk and sees
+the order itself) nor ``gcn_scan_layers`` (its GCNII always stacks the
+layers' kernels; ``convert.py`` reads both Flax trees); neither package
+reads ``dim_head``.
 In the port's ``Trainer``, ``TrainConfig.scan_steps`` and
 ``dropout_rng_impl`` have no effect (PyTorch runs each step eagerly, and the
 dropout masks are hashes of integer seeds), and a mesh of more than one

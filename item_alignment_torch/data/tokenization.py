@@ -22,6 +22,8 @@ another segmentation gives other WordPiece ids (``商品`` -> ``商 ##品``).
   with ``ensemble == "begin"`` each text gets an ``[unused99] [SEP]``
   prefix, and the one-tower records the tgt image token's position per
   pair (data.py:623-753).
+- CoCa: each item's text and its uint8 image (``build_multimodal_pair_
+  dataset``, data.py:933-989).
 
 The image token is ``[unused99]``, id 99, as the JAX package hard-codes it.
 The tokenizer does not treat it as special: it comes out as id 99 only when
@@ -362,6 +364,55 @@ def rows_to_image_two_tower_dataset(
         meta["tgt_item_id"].append(tgt_item_id)
     arrays = {k: np.asarray(v, np.int32) for k, v in feats.items()}
     arrays.update({k: np.stack(v) for k, v in img_feats.items()})
+    return ArrayDataset(arrays, meta)
+
+
+def build_multimodal_pair_dataset(
+    rows: Sequence, tok, image_loader, image_paths: Dict[str, str],
+    max_seq_len: Optional[int], max_seq_len_pv: Optional[int],
+    image_size: int, bos: bool = False,
+) -> ArrayDataset:
+    """CoCa finetune pairs (data.py:933-989): each item's text (``title
+    [SEP] pvs``, with a ``[BOS]`` first when ``bos``) padded to
+    ``max_seq_len + max_seq_len_pv``, and its image through the eval
+    transform, kept as post-transform uint8 ``[S, S, 3]`` (the ViT
+    normalises on the device).  ``rows`` are the 9-tuples of
+    ``read_finetune_tsv``; ``image_paths`` maps an item id to its file.
+    A pair whose image does not load is dropped."""
+    from item_alignment_torch.data.images import eval_transform
+
+    feats: Dict[str, list] = {f"{k}_{i}": [] for k in
+                              ("input_ids", "attention_mask")
+                              for i in (1, 2)}
+    feats.update(images_1=[], images_2=[], labels=[])
+    meta = {"src_item_id": [], "tgt_item_id": []}
+    max_length = (max_seq_len or 0) + (max_seq_len_pv or 0)
+    for row in rows:
+        (label, sid, _, s_title, s_pvs, tid, _, t_title, t_pvs) = row
+        img1 = image_loader(image_paths.get(sid, ""))
+        img2 = image_loader(image_paths.get(tid, ""))
+        if img1 is None or img2 is None:
+            continue
+        for i, (title, pvs) in enumerate(((s_title, s_pvs),
+                                          (t_title, t_pvs)), start=1):
+            text = build_item_text(title, pvs, tok.sep_token)
+            if bos:
+                text = f"{tok.bos_token} {text}"
+            enc = tok(text=text, max_length=max_length,
+                      padding="max_length", truncation="longest_first")
+            feats[f"input_ids_{i}"].append(enc["input_ids"])
+            feats[f"attention_mask_{i}"].append(enc["attention_mask"])
+        for i, img in ((1, img1), (2, img2)):
+            feats[f"images_{i}"].append(eval_transform(img, image_size,
+                                                      normalized=False))
+        feats["labels"].append(int(label))
+        meta["src_item_id"].append(sid)
+        meta["tgt_item_id"].append(tid)
+    arrays = {k: np.asarray(v, np.int32) for k, v in feats.items()
+              if not k.startswith("images")}
+    for k in ("images_1", "images_2"):
+        arrays[k] = np.stack(feats[k]) if feats[k] else \
+            np.zeros((0, image_size, image_size, 3), np.uint8)
     return ArrayDataset(arrays, meta)
 
 

@@ -3,14 +3,19 @@
 Port of ``item_alignment_tpu/engine/checkpoint.py``, which writes through
 orbax and flax msgpack; both import jax, so the port saves with ``torch.save``
 instead: every tensor is moved to the CPU first and keeps its dtype (bf16
-optimizer moments stay bf16).  Files of the two packages are not
-interchangeable; weights move between them through ``convert.py``.
+optimizer moments stay bf16).  It reads the JAX package's single-file
+parameter dumps too: ``load_params`` of a ``.msgpack`` file decodes it
+(``utils/flax_msgpack.py``) and converts the Flax tree into the port's
+state dict (``convert.state_dict_from_flax``).  The port writes ``.pt``
+only, and the train-state checkpoints of the two packages are not
+interchangeable.
 
 - ``CheckpointManager(directory, keep)``: one file per step
   (``step_<n>.pt``), the newest ``keep`` kept.  A file is written under a
   temporary name and renamed, so a run killed while saving leaves no
   half-written checkpoint to resume from.
-- ``save_params`` / ``load_params``: one file of a ``state_dict``.
+- ``save_params`` / ``load_params``: one file of a ``state_dict`` (read
+  from a ``.pt`` or a Flax ``.msgpack``).
 - ``merge_param_sources``: the multi-source restore of the PKGM finetune.
 """
 
@@ -86,6 +91,14 @@ def save_params(path: str, params: Dict[str, torch.Tensor]) -> None:
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict in ``path``: a ``.pt`` of ``save_params``, or a Flax
+    ``.msgpack`` of the JAX package's ``save_params`` (fp32 tensors named
+    as the port's modules are)."""
+    if path.endswith(".msgpack"):
+        from item_alignment_torch.convert import state_dict_from_flax
+        from item_alignment_torch.utils.flax_msgpack import read_flax_msgpack
+
+        return state_dict_from_flax(read_flax_msgpack(path))
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -1,16 +1,20 @@
-"""Model families ported so far: the RoBERTa, PKGM and TextCNN text
-models, the legacy 5-field BERT, the multimodal RobertaImage
-one-/two-tower and the image two-tower (ViT, ResNetV2, NFNet)."""
+"""Model families of the port: the RoBERTa, PKGM and TextCNN text models,
+the legacy 5-field BERT, the multimodal RobertaImage one-/two-tower and
+CoCa, the image two-tower (ViT, ResNetV2, NFNet) and the GCNII graph
+model."""
 
 from item_alignment_torch.models.bert_legacy import (  # noqa: F401
     BertAlignModel,
     BertForPretraining,
 )
+from item_alignment_torch.models.graph import GCNII, GCNTwoTower  # noqa: F401
 from item_alignment_torch.models.image import (  # noqa: F401
     BACKBONES,
     ImageTwoTower,
 )
 from item_alignment_torch.models.multimodal import (  # noqa: F401
+    CoCaForItemAlignment,
+    CoCaForPretraining,
     RobertaImageBackbone,
     RobertaImageOneTower,
     RobertaImageTwoTower,
@@ -27,14 +31,6 @@ from item_alignment_torch.models.text import (  # noqa: F401
     TextCNNTwoTower,
 )
 
-# model-name substrings of the families still to port, in the JAX package's
-# dispatch order (item_alignment_tpu/models/__init__.py:build_model), which
-# takes the image towers between the two
-NOT_PORTED = (
-    ("coca", "ROADMAP Queue 1 #11: CoCa"),
-    ("gcn", "ROADMAP Queue 1 #10: The graph path"),
-)
-
 
 def is_image_two_tower(name: str) -> bool:
     """Whether ``build_model`` gives ``name`` an ``ImageTwoTower``: an
@@ -44,9 +40,8 @@ def is_image_two_tower(name: str) -> bool:
 
 
 def build_model(config, device=None, seed=0):
-    """The model of ``config.model_name`` (a name substring, as the JAX
-    package's ``build_model`` dispatches); the families not yet ported
-    raise with their ROADMAP item."""
+    """The model of ``config.model_name``, by name substring in the JAX
+    package's dispatch order."""
     name = config.model_name
     one_tower = config.interaction_type == "one_tower"
     if "pkgm" in name:
@@ -57,12 +52,12 @@ def build_model(config, device=None, seed=0):
     if "roberta_image" in name:
         cls = RobertaImageOneTower if one_tower else RobertaImageTwoTower
         return cls(config, device=device, seed=seed)
+    if "coca" in name:
+        return CoCaForItemAlignment(config, device=device, seed=seed)
     if is_image_two_tower(name):
         return ImageTwoTower(config, device=device, seed=seed)
-    for key, item in NOT_PORTED:
-        if key in name:
-            raise NotImplementedError(
-                f"model {name!r} is not ported yet ({item})")
+    if "gcn" in name:
+        return GCNTwoTower(config, device=device, seed=seed)
     if "roberta" in name or "bert" in name:
         cls = RobertaOneTower if one_tower else RobertaTwoTower
         return cls(config, device=device, seed=seed)

@@ -91,12 +91,30 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class StackedDense(nn.Module):
+    """``layers`` bias-free Dense kernels of one shape in one parameter,
+    ``weight [layers, out, in]``: the layer stack that Flax's ``nn.scan``
+    makes of a Dense (``kernel [layers, in, out]``).  ``forward(x, l)``
+    applies layer ``l``'s kernel."""
+
+    def __init__(self, layers: int, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(layers, out_features,
+                                               in_features))
+
+    def forward(self, x: torch.Tensor, layer: int) -> torch.Tensor:
+        return F.linear(x, self.weight[layer].to(x.dtype))
+
+
 class LayerNorm(nn.Module):
+    """``use_bias=False`` has no bias, as Flax's ``use_bias=False``."""
+
     def __init__(self, features: int, eps: float,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias \
+            else None
         self.eps = eps
         self.dtype = dtype
 
@@ -106,7 +124,9 @@ class LayerNorm(nn.Module):
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
                           min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean) * mul + self.bias
+        y = (xf - mean) * mul
+        if self.bias is not None:
+            y = y + self.bias
         return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
 
 
@@ -119,7 +139,8 @@ def compute_dtype(cfg) -> torch.dtype:
 def init_weights(module: nn.Module, std: float,
                  generator: torch.Generator) -> None:
     """Flax's initialisers: embeddings normal(std); Dense kernels
-    normal(init_std) or LeCun normal (truncated at 2 sigma), biases 0;
+    normal(init_std) or LeCun normal (truncated at 2 sigma), biases 0, and
+    each kernel of a ``StackedDense`` LeCun normal;
     ``nn.Conv1d`` kernels LeCun normal over a fan-in of in_channels x
     kernel size, biases 0; LayerNorm scale 1, bias 0."""
     for m in module.modules():
@@ -135,6 +156,10 @@ def init_weights(module: nn.Module, std: float,
                                       2.0 * dev, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, StackedDense):
+            dev = (1.0 / m.weight.shape[2]) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, dev, -2.0 * dev, 2.0 * dev,
+                                  generator=generator)
         elif isinstance(m, nn.Conv1d):
             fan_in = m.weight.shape[1] * m.weight.shape[2]
             dev = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
@@ -144,4 +169,5 @@ def init_weights(module: nn.Module, std: float,
                 m.bias.zero_()
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()

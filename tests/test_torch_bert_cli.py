@@ -9,8 +9,9 @@ the CPU.
 - ``bert-pretrain`` then ``finetune-bert --pretrained_model_path``: the
   5-token-type pretrain table overlays the 4-type align model's first rows;
   the outputs (``bert_align.pt``, ``sim_eval_weight.npz``, ``best_f1.pt``)
-  are written; a ``.msgpack`` backbone and a row that fills the position
-  table are refused.
+  are written; the JAX CLI's ``bert_pretrain.msgpack`` and
+  ``bert_align.msgpack`` are read as their ``.pt``; a malformed msgpack and
+  a row that fills the position table are refused.
 - ``finetune-text --model_name textcnn``: the JAX CLI trains a tiny TextCNN
   and the port evaluates and predicts with its converted weights within
   1e-4 (the tests/test_torch_cli.py recipe).
@@ -25,7 +26,10 @@ import pytest
 import torch
 
 from item_alignment_torch import cli as tcli
-from item_alignment_torch.convert import state_dict_from_flax
+from item_alignment_torch.convert import (
+    flax_from_state_dict,
+    state_dict_from_flax,
+)
 from item_alignment_torch.engine.checkpoint import load_params, save_params
 
 pytest.importorskip("transformers")
@@ -195,20 +199,62 @@ def test_finetune_bert_from_the_pretrain(legacy, pretrained, tmp_path,
     assert np.array_equal(w["bias"], head_b[1] - head_b[0])
 
 
-def test_finetune_bert_refuses_a_msgpack_and_a_full_row(legacy, tmp_path):
+def test_finetune_bert_refuses_a_msgpack_and_a_full_row(legacy, pretrained,
+                                                        tmp_path):
+    """A Flax ``bert_pretrain.msgpack`` (the JAX CLI's file, alone in its
+    directory) loads as its ``.pt`` does; a malformed one raises a
+    ``ValueError`` that names it; a row that fills the position table is
+    refused before any work."""
     argv = ["finetune-bert", "--train_file", str(legacy / "train.jsonl"),
             "--output_dir", str(tmp_path / "o"), "--batch_size", "4",
             "--epochs", "1", "--device", "cpu", *_common(legacy)]
-    (tmp_path / "bert_pretrain.msgpack").write_bytes(b"\x80")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 #14"):
+    pre = load_params(str(pretrained / "bert_pretrain.pt"))
+    (tmp_path / "mp").mkdir()
+    jsave(str(tmp_path / "mp" / "bert_pretrain.msgpack"),
+          flax_from_state_dict(pre)["params"])
+    _run(tcli.main, argv[:4] + [str(tmp_path / "mp_out")] + argv[5:] + [
+        "--learning_rate", "0", "--pretrained_model_path",
+        str(tmp_path / "mp")])
+    align = load_params(str(tmp_path / "mp_out" / "bert_align.pt"))
+    for name, value in align.items():
+        if name.startswith("bert.") and "token_type" not in name:
+            assert torch.equal(value, pre[name]), name
+    (tmp_path / "bad.msgpack").write_bytes(b"\xc1")
+    with pytest.raises(ValueError, match="bad.msgpack"):
         tcli.main(argv + ["--pretrained_model_path",
-                          str(tmp_path / "bert_pretrain.msgpack")])
+                          str(tmp_path / "bad.msgpack")])
     rows = _short_rows()
     rows[2]["src_pvs"] = " ".join(["颜"] * 600)  # fills all 512 tokens
     bad = _write_jsonl(tmp_path / "bad.jsonl", rows)
     with pytest.raises(ValueError, match="row 2 of pvs_input_ids holds 512"):
         tcli.main(argv[:2] + [bad] + argv[3:])
     assert not (tmp_path / "o").exists()
+
+
+def test_pred_bert_reads_the_jax_msgpack(legacy, tmp_path):
+    """``pred-bert --params bert_align.msgpack`` (predict.sh's file) gives
+    the probabilities of its converted ``.pt``, bit for bit."""
+    d = legacy
+    tok = j_tokenizer(str(d / "vocab"))
+    cfg = JConfig.from_json(str(d / "tiny.json"), model_name="bert_legacy",
+                            vocab_size=len(tok))
+    rows = [dict(r, item_label=0) for r in _short_rows()]
+    first = jbd.pairs_to_field_dataset(rows[:2], tok).arrays
+    first.pop("labels")
+    fields = {k: {kk: jnp.asarray(v) for kk, v in f.items()}
+              for k, f in jbd.unflatten_fields(first).items()}
+    params = jax.jit(BertAlignModel(cfg).init)(
+        {"params": jax.random.PRNGKey(5)}, fields)
+    jsave(str(tmp_path / "bert_align.msgpack"), params)
+    save_params(str(tmp_path / "bert_align.pt"), state_dict_from_flax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    argv = ["pred-bert", "--test_file", str(d / "test.jsonl"),
+            "--batch_size", "2", "--device", "cpu", *_common(d)]
+    for ext in ("msgpack", "pt"):
+        _run(tcli.main, argv + ["--params", str(tmp_path / f"bert_align.{ext}"),
+                                "--output", str(tmp_path / f"{ext}.jsonl")])
+    assert (tmp_path / "msgpack.jsonl").read_text() == \
+        (tmp_path / "pt.jsonl").read_text()
 
 
 def test_cli_raises_for_distributed_legacy_runs(legacy, tmp_path):

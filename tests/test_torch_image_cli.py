@@ -268,9 +268,18 @@ def test_with_image_through_a_finetuned_tower_and_the_refusals(corpus,
         tcli.main(base)
     with pytest.raises(SystemExit):
         tcli.main(base + ["--finetuned"])
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 #14"):
+    # the JAX CLI's msgpack gives its vectors too; a malformed one raises
+    _with_image(tcli.main, corpus, tmp_path / "tm", "--finetuned",
+                "--file_state_dict", str(tmp_path / "img.msgpack"),
+                "--device", "cpu")
+    c = _vectors(tmp_path / "tm")
+    assert c.keys() == b.keys()
+    for k in c:
+        assert np.abs(c[k] - b[k]).max() <= 1e-4 * np.abs(b[k]).max()
+    (tmp_path / "bad.msgpack").write_bytes(b"\xc1")
+    with pytest.raises(ValueError, match="bad.msgpack"):
         tcli.main(base + ["--finetuned", "--file_state_dict",
-                          str(tmp_path / "img.msgpack")])
+                          str(tmp_path / "bad.msgpack")])
 
 
 def _finetune(main, corpus, shards, out, init, *extra):

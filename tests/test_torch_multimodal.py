@@ -314,9 +314,11 @@ def test_build_model_builds_roberta_image():
             interaction_type=interaction)), device="cpu", seed=0)
         assert type(model) is cls
         assert model.roberta.embeddings.img2txt.weight.shape == (32, I)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #11"):
-        build_model(TConfig(**dict(TINY, model_name="coca_base")),
-                    device="cpu")
+    # CoCa is ported: a coca name gets the pair model
+    coca = build_model(TConfig(**dict(
+        TINY, model_name="coca_base", image_size=16, patch_size=8,
+        multimodal_depth=1, coca_heads=4)), device="cpu", seed=0)
+    assert type(coca) is tmm.CoCaForItemAlignment
 
 
 @pytest.mark.parametrize("ensemble", ["begin", "end"])

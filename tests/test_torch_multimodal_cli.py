@@ -272,7 +272,9 @@ def test_model_soup_matches_jax(corpus, jax_run, tmp_path):
     for name, value in ours.items():
         assert torch.equal(value, theirs[name]), name
         assert torch.equal(value, (a[name] + b[name]) / 2.0), name
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 #14"):
-        tcli.main(["model-soup", "--checkpoints", str(tmp_path / "a.msgpack"),
-                   paths[1], "--output", str(tmp_path / "x.pt"),
-                   "--device", "cpu"])
+    # a JAX msgpack beside a .pt: the same soup
+    _quiet(tcli.main, ["model-soup", "--checkpoints",
+                       str(tmp_path / "a.msgpack"), paths[1], "--output",
+                       str(tmp_path / "x.pt"), "--device", "cpu"])
+    mixed = load_params(str(tmp_path / "x.pt"))
+    assert all(torch.equal(mixed[k], ours[k]) for k in ours)

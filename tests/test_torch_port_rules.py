@@ -20,8 +20,11 @@ from item_alignment_torch.models.bert_legacy import (
     BertAlignModel,
     BertForPretraining,
 )
+from item_alignment_torch.models.graph import GCNTwoTower
 from item_alignment_torch.models.image import ImageTwoTower
 from item_alignment_torch.models.multimodal import (
+    CoCaForItemAlignment,
+    CoCaForPretraining,
     RobertaImageOneTower,
     RobertaImageTwoTower,
 )
@@ -33,6 +36,7 @@ from item_alignment_torch.models.text import (
     RobertaTwoTower,
     TextCNNTwoTower,
 )
+from item_alignment_torch.ops.sparse import Adjacency
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
@@ -46,6 +50,9 @@ TINY = ModelConfig(vocab_size=50, hidden_size=32, num_hidden_layers=1,
                    max_position_embeddings=32)
 IMAGE_TINY = TINY.replace(model_name="roberta_image", ensemble="begin",
                           image_hidden_size=8)
+COCA_TINY = TINY.replace(model_name="coca", num_attention_heads=4,
+                         image_size=32, patch_size=16, multimodal_depth=1,
+                         coca_heads=4)
 PKGM_TINY = TINY.replace(model_name="pkgm", max_seq_len=4, max_seq_len_pv=None,
                          max_pvs=2, num_entities=8, num_relations=3,
                          kg_embedding_dim=16)
@@ -94,7 +101,10 @@ def test_port_imports_no_jax():
             "item_alignment_torch/data/bert_data.py",
             "item_alignment_torch/models/image.py",
             "item_alignment_torch/utils/timm_import.py",
-            "item_alignment_torch/data/yolo.py"} <= names
+            "item_alignment_torch/data/yolo.py",
+            "item_alignment_torch/ops/sparse.py",
+            "item_alignment_torch/models/graph.py",
+            "item_alignment_torch/utils/flax_msgpack.py"} <= names
     bad = {f"{p.relative_to(ROOT)}: {name}" for p in files
            for name in _imported_roots(p) if name in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -164,7 +174,7 @@ def test_every_not_ported_raise_names_an_open_roadmap_item():
     as "ROADMAP Queue N #M: Title", and each such item is still listed, with
     that title, and not done."""
     items = _roadmap_items()
-    assert (1, 4) in items and (1, 14) in items
+    assert (1, 4) in items
     refs = 0
     for path in _port_sources():
         text = path.read_text()
@@ -179,43 +189,41 @@ def test_every_not_ported_raise_names_an_open_roadmap_item():
             for m in ITEM_REF.finditer(string):
                 _check_item(*m.groups(), items)
                 refs += 1
-    assert refs >= 10
+    assert refs >= 6  # ROADMAP Queue 1 #4 alone
 
 
 def test_cli_raises_name_open_roadmap_items(tmp_path):
-    """The commands and flags ``ia-torch`` has not ported raise, each with
-    its open ROADMAP item."""
+    """Every ``ia-torch`` command is ported (a ``cmd_*`` function of
+    ``cli.py``); what still raises is ``--distributed`` (ROADMAP Queue 1
+    #4), each raise with its open ROADMAP item."""
     from item_alignment_torch import cli
 
     items = _roadmap_items()
-    calls = [[name] for name in sorted(cli.COMMANDS)
-             if name not in ("prepare", "finetune-text", "mine", "pred-text",
-                             "pkgm-pretrain", "finetune-multimodal",
-                             "finetune-image", "ensemble", "model-soup",
-                             "finetune-bert", "bert-pretrain", "pred-bert")]
+    assert all(fn.__module__ == cli.__name__ and fn.__name__.startswith(
+        "cmd_") for fn in cli.COMMANDS.values()), cli.COMMANDS
+    assert {"build-graph", "finetune-graph", "coca-pretrain"} <= set(
+        cli.COMMANDS)
     vocab = tmp_path / "vocab.txt"
     vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
                                  "[MASK]"]))
-    calls += [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
-               str(tmp_path), "--device", "cpu", "--model_name", "gcn"]]
-    calls += [["finetune-multimodal", "--data_dir", str(tmp_path),
-               "--vocab_path", str(tmp_path), "--device", "cpu",
-               "--model_name", "coca_base"]]
     (tmp_path / "tiny.json").write_text(json.dumps(
         {"hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 1,
          "intermediate_size": 8, "max_position_embeddings": 16}))
-    calls += [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
-               str(tmp_path), "--device", "cpu", "--output_dir",
-               str(tmp_path / "out"), "--config_file",
-               str(tmp_path / "tiny.json"), "--do_train", "--distributed"]]
-    # the legacy member's trainers on a mesh
+    calls = [["finetune-text", "--data_dir", str(tmp_path), "--vocab_path",
+              str(tmp_path), "--device", "cpu", "--output_dir",
+              str(tmp_path / "out"), "--config_file",
+              str(tmp_path / "tiny.json"), "--do_train", "--distributed"]]
+    # the legacy member's and CoCa's trainers on a mesh
     calls += [["finetune-bert", "--train_file", str(tmp_path / "t.jsonl"),
                "--vocab_path", str(tmp_path), "--device", "cpu",
                "--distributed"],
               ["bert-pretrain", "--item_info", str(tmp_path / "i.jsonl"),
                "--vocab_path", str(tmp_path), "--output_dir",
-               str(tmp_path / "pre"), "--device", "cpu", "--distributed"]]
-    assert len(calls) == 3 + 1 + 1 + 1 + 2
+               str(tmp_path / "pre"), "--device", "cpu", "--distributed"],
+              ["coca-pretrain", "--shards", str(tmp_path / "s.npz"),
+               "--output_dir", str(tmp_path / "coca"), "--device", "cpu",
+               "--distributed"]]
+    assert len(calls) == 1 + 3
     for argv in calls:
         with pytest.raises(NotImplementedError) as e:
             cli.main(argv)
@@ -230,8 +238,8 @@ def test_cli_raises_name_open_roadmap_items(tmp_path):
 
 
 def test_msgpack_parameter_file_raises_with_the_roadmap_item(tmp_path):
-    """The port reads .pt parameter files; a Flax msgpack raises a
-    ValueError naming ROADMAP Queue 1 #14 instead of loading garbage."""
+    """The port reads the JAX CLI's Flax msgpack files; a malformed one
+    raises a ValueError that names the file instead of loading garbage."""
     from item_alignment_torch import cli
 
     (tmp_path / "vocab.txt").write_text("\n".join(
@@ -244,16 +252,18 @@ def test_msgpack_parameter_file_raises_with_the_roadmap_item(tmp_path):
     (tmp_path / "tiny.json").write_text(json.dumps(
         {"hidden_size": 8, "num_hidden_layers": 1, "num_attention_heads": 1,
          "intermediate_size": 8, "max_position_embeddings": 16}))
-    (tmp_path / "best_f1.msgpack").write_bytes(b"\x80")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 #14") as e:
+    path = tmp_path / "best_f1.msgpack"
+    path.write_bytes(b"\x81\xa6params\xc1")
+    with pytest.raises(ValueError, match=re.escape(str(path))) as e:
         cli.main(["mine", "--item_info", str(tmp_path / "info.jsonl"),
                   "--pairs", str(tmp_path / "pairs.jsonl"), "--output",
                   str(tmp_path / "out.jsonl"), "--vocab_path", str(tmp_path),
                   "--config_file", str(tmp_path / "tiny.json"),
                   "--max_seq_len", "2", "--max_seq_len_pv", "2",
                   "--num_workers", "0", "--device", "cpu",
-                  "--file_state_dict", str(tmp_path / "best_f1.msgpack")])
-    _check_item(*ITEM_REF.search(str(e.value)).groups(), _roadmap_items())
+                  "--file_state_dict", str(path)])
+    assert "not a Flax msgpack file" in str(e.value)
+    assert not (tmp_path / "out.jsonl").exists()
 
 
 def test_kernel_source_ships_with_the_package():
@@ -334,6 +344,15 @@ def _cli(argv):
                       str(tmp / "o"), "--only_image"]),
     lambda tmp: _cli(["finetune-image", "--data_dir", str(tmp),
                       "--model_name", "eca_nfnet_l0", "--shards", "x.npz"]),
+    lambda tmp: GCNTwoTower(TINY.replace(model_name="gcn", gcn_hidden=8,
+                                         gcn_feature_dim=4)),
+    lambda tmp: CoCaForPretraining(COCA_TINY),
+    lambda tmp: CoCaForItemAlignment(COCA_TINY.replace(ensemble="sum")),
+    lambda tmp: _cli(["finetune-graph", "--feature_matrix", "f.npy",
+                      "--edges", "e.npz", "--train_pairs", "p.jsonl"]),
+    lambda tmp: _cli(["coca-pretrain", "--shards", "s.npz",
+                      "--output_dir", str(tmp)]),
+    lambda tmp: Adjacency([[0], [0]], [1.0], 1),
 ])
 def test_entry_points_default_to_cuda(build, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
