@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-6, 11, 7-9, 12-15, 10, 16-22:
+run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -279,6 +279,22 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-22:
    pretrain's S=127 and the finetune's S=128 (B=32, N=12, rates 0 and
    0.1, the keep bits), against their plain versions as phase 6 holds
    them; their errors join the kernels line's.
+23. the parallel layer (``item_alignment_torch/parallel``).  (a) The keep
+   bits at global indices: #2's contract and #3's route at B=40, S=510,
+   N=16, H=64 in bf16, #4-#6 at B=4, S=1024, and both in fp32 at small
+   shapes, rate 0.1, called on rows 20-39 (2-3, 1-2) and heads 8-15 (2-3)
+   with (bn_stride, bn_base) = (N, r0 * N + h0): out, lse, dq, dk, dv and
+   the keep bits read back from each kernel equal the whole call's slice
+   bit for bit.  (b) Phase 8's recipe through a process group of one over
+   NCCL, mesh (1,1,1), the model under FSDP2 and the tensor-parallel
+   styles: losses and parameters of one warm-up and three timed steps
+   against the same steps without the wrappers (1e-6 relative; bit for bit
+   is expected and the line says which), ms/step and the idle share of
+   both, 24 calls of #2's and #3's contracts a step.  (c) Two processes
+   on the one card over gloo, mesh (2,1,1), one step at hidden 256 through
+   the kernels against the same step in one process (loss 1e-6 relative,
+   gradients 1e-5 of the largest); (1,1,2) is left out (gloo's collectives
+   on CUDA tensors crashed a rank).
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -294,8 +310,9 @@ commands (``bert-pretrain``: #2 and #3 12 calls a step; ``finetune-bert``:
 60 a step, 12 layers x 5 fields, and #1 60 an eval batch; ``pred-bert``: #1
 60 a batch; TextCNN none; #4-#6 none anywhere), phase 20's image
 commands (a and b; none of #1-#6), phase 21's graph commands (none) and
-phase 22's CoCa commands (as above); the kernels line adds the launches
-of phases 16-22.  The
+phase 22's CoCa commands (as above) and phase 23b (24 calls of #2's and
+#3's contracts a step); the kernels line adds the launches of phases
+16-23.  The
 line before the last is one JSON object with the six kernels' numbers (the
 rows of #1 and #2 with an ``f32`` object too: phase 19e's fp32 ms,
 library_ms, bound_ms and bound_by at B=8, S=512, N=12); the last line is
@@ -1411,9 +1428,9 @@ def fp32_plain_attention():
     plain = encoder.dot_product_attention
 
     def attend(q, k, v, bias=None, dropout_rate=0.0, dropout_seed=None,
-               dtype=torch.float32):
+               dtype=torch.float32, **heads):
         return plain(q.float(), k.float(), v.float(), bias, dropout_rate,
-                     dropout_seed, torch.float32).to(dtype)
+                     dropout_seed, torch.float32, **heads).to(dtype)
 
     encoder.dot_product_attention = attend
     try:
@@ -4743,6 +4760,214 @@ def phase_coca(seed: int, card: str) -> tuple:
     return total, dict(errs, serving_err=serving)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the parallel layer
+# ---------------------------------------------------------------------------
+
+# (label, family, B, S, N, H, dtype, rows, heads): the sliced call takes
+# rows [r0, r1) and heads [h0, h1) of the whole call's inputs
+OFFSET_CASES = [
+    ("#2's contract and #3's route, bf16", TRAIN_FAMILY, 40, 510, 16, 64,
+     torch.bfloat16, (20, 40), (8, 16)),
+    ("#4-#6, bf16", BLOCKWISE_FAMILY, 4, 1024, 16, 64, torch.bfloat16,
+     (2, 4), (8, 16)),
+    ("#2's contract and #3's route, fp32", TRAIN_FAMILY, 4, 130, 4, 64,
+     torch.float32, (2, 4), (2, 4)),
+    ("#4-#6, fp32", BLOCKWISE_FAMILY, 3, 600, 4, 64, torch.float32, (1, 3),
+     (2, 4)),
+]
+
+
+def _keep_index_family(fam, stride: int, base: int):
+    """``fam``'s forward and backward with the keep bits at (``stride``,
+    ``base``)."""
+    def fwd(rate, seed, q, k, v, bias=None):
+        return fam.fwd(rate, seed, q, k, v, bias, stride, base)
+
+    def bwd(rate, seed, q, k, v, bias, g, out, lse):
+        if fam is TRAIN_FAMILY:
+            return cat.fused_attention_dropout_bwd(rate, seed, q, k, v, bias,
+                                                   g, out, lse, stride, base)
+        args = (rate, seed, q, k, v, bias, g, lse, cab.flash_delta(g, out),
+                stride, base)
+        return (cab.flash_dq(*args), *cab.flash_dkv(*args))
+
+    return SimpleNamespace(fwd=fwd, bwd=bwd, kernels=fam.kernels)
+
+
+def phase_offsets(gen: torch.Generator) -> None:
+    """23a: each dropout-bearing contract called on rows r0.. and heads h0..
+    of a batch with (bn_stride, bn_base) = (N, r0 * N + h0) gives out, lse,
+    dq, dk, dv and the keep bits read back from each kernel equal bit for
+    bit to the same slice of the whole call (each (b, n) is a block of its
+    own); the bits equal the plain hash's slice too."""
+    rate, seed = 0.1, 4321
+    t = cat.dropout_consts(rate)[0]
+    for label, fam, B, S, N, H, dt, (r0, r1), (h0, h1) in OFFSET_CASES:
+        q, k, v, g, bias = _train_inputs(B, S, N, H, dt, gen)
+        out, lse = fam.fwd(rate, seed, q, k, v, bias)
+        grads = fam.bwd(rate, seed, q, k, v, bias, g, out, lse)
+        sl = (slice(r0, r1), slice(None), slice(h0, h1))
+        part = _keep_index_family(fam, N, r0 * N + h0)
+        out_s, lse_s = part.fwd(rate, seed, q[sl], k[sl], v[sl], bias[r0:r1])
+        grads_s = part.bwd(rate, seed, q[sl], k[sl], v[sl], bias[r0:r1],
+                           g[sl], out[sl], lse[r0:r1, h0:h1])
+        same = {"out": torch.equal(out_s, out[sl]),
+                "lse": torch.equal(lse_s, lse[r0:r1, h0:h1])}
+        same.update({n: torch.equal(a, b[sl]) for n, a, b in
+                     zip(("dq", "dk", "dv"), grads_s, grads)})
+        ref = cat.keep_mask_reference(seed, B, N, S, t, q)[r0:r1, h0:h1]
+        whole = _kernel_keep_bits(fam, seed, B, S, N, H, dt, rate)
+        sliced = _kernel_keep_bits(part, seed, r1 - r0, S, h1 - h0, H, dt,
+                                   rate)
+        for name, a, b in zip(fam.kernels, sliced, whole):
+            same[f"keep bits {name}"] = (torch.equal(a, b[r0:r1, h0:h1])
+                                         and torch.equal(a, ref))
+        del whole, sliced, ref
+        check(all(same.values()), f"phase 23a {label}: rows {r0}-{r1 - 1}, "
+              f"heads {h0}-{h1 - 1} differ from the whole call's slice: "
+              f"{[n for n, ok in same.items() if not ok]}")
+        print(f"phase 23a offsets {label} at B={B} S={S} N={N} H={H}, rate "
+              f"{rate}: rows {r0}-{r1 - 1} and heads {h0}-{h1 - 1} with "
+              f"(bn_stride, bn_base) = ({N}, {r0 * N + h0}) equal the whole "
+              f"call's slice bit for bit: " + ", ".join(same), flush=True)
+        torch.cuda.empty_cache()
+
+
+def _parallel_steps(mcfg: ModelConfig, tcfg: TrainConfig, seed: int,
+                    batches: list) -> dict:
+    """Phase 8's steps (one warm-up, the rest timed) and one profiled step
+    through a ``Trainer``; the parameters are read before the profiled
+    step."""
+    model = RobertaOneTower(mcfg, seed=seed)
+    trainer = Trainer(model, tcfg).setup()
+    torch.cuda.synchronize()
+    zero_counters()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = counters()
+    step_ms = sum(times[1:]) / (len(times) - 1) * 1e3
+    params = trainer._host_params()
+    profiled = profile_step(lambda: trainer.train_step(batches[-1]), step_ms)
+    return dict(model=model, trainer=trainer, losses=losses, params=params,
+                step_ms=step_ms, launches=launches, profiled=profiled)
+
+
+def phase_parallel(cfg: ModelConfig, seed: int, gen: torch.Generator) -> tuple:
+    """23b: phase 8's recipe (RoBERTa-large, batch 40, S=510, bf16, dropout
+    0.1, bf16 moments) through the parallel layer: a process group of one
+    over NCCL, mesh (1,1,1), the model under FSDP2 and the tensor-parallel
+    styles.  Against the same steps without them: losses and parameters
+    within 1e-6 relative (bit for bit expected: a collective of one copies),
+    ms/step and the idle share of both, and 24 calls of #2's and #3's
+    contracts a step."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from item_alignment_torch.parallel.dryrun import free_port
+    from item_alignment_torch.parallel.mesh import initialize_distributed
+
+    B, S, steps = 40, cfg.pair_seq_len, 4
+    ids, mask = pair_batch(B * steps, S, cfg.vocab_size, gen)
+    labels = torch.randint(0, 2, (B * steps,), generator=gen, device="cuda")
+    batches = [{"input_ids": ids[i * B:(i + 1) * B].cpu().numpy(),
+                "attention_mask": mask[i * B:(i + 1) * B].cpu().numpy(),
+                "labels": labels[i * B:(i + 1) * B].cpu().numpy()}
+               for i in range(steps)]
+    tcfg = TrainConfig(seed=seed, train_batch_size=B, log_steps=10 ** 9,
+                       optimizer=OptimizerConfig(
+                           learning_rate=5e-5, total_steps=16000, fused=True,
+                           state_dtype="bfloat16"))
+    mcfg = cfg.replace(hidden_dropout_prob=0.1,
+                       attention_probs_dropout_prob=0.1)
+    plain = _parallel_steps(mcfg, tcfg, seed, batches)
+    del plain["model"], plain["trainer"]
+    torch.cuda.empty_cache()
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        check(torch.distributed.get_backend() == "nccl",
+              f"phase 23b: backend {torch.distributed.get_backend()}")
+        wrapped = _parallel_steps(mcfg, tcfg, seed, batches)
+        model = wrapped["model"]
+        query = model.roberta.encoder.layer_0.attention.query.weight
+        check(isinstance(model, FSDPModule) and isinstance(query, DTensor)
+              and wrapped["trainer"].mesh is not None,
+              "phase 23b: the model is not under the wrappers")
+        placements = query.placements
+        del wrapped["model"], wrapped["trainer"], model, query
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    exact = (plain["losses"] == wrapped["losses"] and all(
+        torch.equal(p, wrapped["params"][n])
+        for n, p in plain["params"].items()))
+    worst = max(_rel(wrapped["params"][n], p)
+                for n, p in plain["params"].items())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(wrapped["losses"], plain["losses"]))
+    check(worst <= 1e-6 and loss_rel <= 1e-6,
+          f"phase 23b: the wrapped steps leave the plain ones: losses "
+          f"{wrapped['losses']} vs {plain['losses']}, parameters {worst:.3e}")
+    expect = per_step(short=steps)
+    check(wrapped["launches"] == expect, f"phase 23b: launches (#1..#6) "
+          f"{wrapped['launches']} over {steps} steps, expected {expect}")
+    for tag, run in (("without the wrappers", plain),
+                     ("one NCCL rank, FSDP2 + TP", wrapped)):
+        print(f"phase 23b parallel {tag}: losses "
+              f"{[round(x, 6) for x in run['losses']]}; {run['step_ms']:.2f} "
+              f"ms/step over {steps - 1} timed steps "
+              f"({B / run['step_ms'] * 1e3:.2f} train pairs/s); profile of "
+              f"one more step: {run['profiled']}", flush=True)
+    print(f"phase 23b parallel: mesh (1,1,1) over NCCL (the query weight "
+          f"{placements}) against the plain Trainer: "
+          + ("bit for bit" if exact else
+             f"within {max(worst, loss_rel):.3e} relative (not bit for bit)")
+          + f"; wrapper cost {wrapped['step_ms'] - plain['step_ms']:+.2f} "
+          f"ms/step; launches #1..#6 {wrapped['launches']}", flush=True)
+    return wrapped["launches"]
+
+
+TWO_RANK_WIDTH = dict(hidden_size=256, num_attention_heads=4,
+                      intermediate_size=512)  # heads of 64, as the kernels take
+
+
+def phase_parallel_two_processes() -> None:
+    """23c: two processes on the one card joined over gloo (NCCL refuses
+    two ranks on one device), mesh (2,1,1): one step of a RoBERTa one-tower
+    at hidden 256 (4 heads of 64, 2 layers, fp32, dropout 0.1, batch 8)
+    through the kernels equals the same step in this process: the loss
+    within 1e-6 relative and every gradient within 1e-5 of the largest.
+    (1,1,2) is left out: gloo's collectives on CUDA tensors ended a rank
+    with signal 11 there (PERF.md, section 7).  The ranks' launches are
+    theirs, not this process's."""
+    from item_alignment_torch.parallel import dryrun
+
+    args = (None, 0.1, None, 8, 1, "cuda", "float32", TWO_RANK_WIDTH)
+    ref = dryrun.text_step(*args)
+    t0 = time.perf_counter()
+    got = dryrun.spawn(dryrun.text_step, 2, (2, 1, 1), *args[1:],
+                       device="cuda", backend="gloo", timeout=300)
+    wall = time.perf_counter() - t0
+    scale = max(g.abs().max().item() for g in ref["grads"].values())
+    err = max((got["grads"][n] - g).abs().max().item() / scale
+              for n, g in ref["grads"].items())
+    loss_rel = abs(got["losses"][0] - ref["losses"][0]) / ref["losses"][0]
+    check(got["grads"].keys() == ref["grads"].keys() and err <= 1e-5
+          and loss_rel <= 1e-6, f"phase 23c: two gloo ranks on one card "
+          f"leave the one-process step: loss {got['losses']} vs "
+          f"{ref['losses']}, gradients {err:.3e} of the largest")
+    print(f"phase 23c parallel: two processes on one card over gloo, mesh "
+          f"(2,1,1), hidden 256, fp32, dropout 0.1: loss {got['losses'][0]:.7f}"
+          f" (one process {ref['losses'][0]:.7f}, {loss_rel:.1e} relative), "
+          f"gradients within {err:.3e} of the largest; {wall:.1f} s for the "
+          f"two processes", flush=True)
+
+
 def run(args) -> None:
     card = phase_card()
     phase_build()
@@ -4808,6 +5033,9 @@ def run(args) -> None:
     image = phase_images(args.seed, card)  # the image family: no kernel
     graph = phase_graph(args.seed, card)  # the graph path: no kernel
     coca, coca_err = phase_coca(args.seed, card)  # CoCa: #1-#3
+    phase_offsets(gen)
+    parallel = phase_parallel(cfg, args.seed, gen)  # the parallel path
+    phase_parallel_two_processes()
 
     src, tpu = "item_alignment_torch/csrc/", "item_alignment_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4815,7 +5043,7 @@ def run(args) -> None:
         dict(name="fused_attention", source=src + "fused_attention.cu",
              replaces=tpu + "63",
              launches=(launches + entry[0] + pkgm[0] + mm[0] + legacy[0]
-                       + image[0] + graph[0] + coca[0]),
+                       + image[0] + graph[0] + coca[0] + parallel[0]),
              max_abs_err=max(kernel["max_abs_err"], pkgm_err["serving_err"],
                              legacy_err["serving_err"],
                              coca_err["serving_err"]),
@@ -4823,7 +5051,7 @@ def run(args) -> None:
         dict(name="fused_attention_dropout",
              source=src + "flash_blockwise_fwd.cu", replaces=tpu + "203",
              launches=(trained[1] + entry[1] + pkgm[1] + mm[1] + legacy[1]
-                       + image[1] + graph[1] + coca[1]),
+                       + image[1] + graph[1] + coca[1] + parallel[1]),
              max_abs_err=max(train["fwd_err"], pkgm_err["fwd_err"],
                              mm_err["fwd_err"], legacy_err["fwd_err"],
                              coca_err["fwd_err"]),
@@ -4831,7 +5059,7 @@ def run(args) -> None:
         dict(name="fused_attention_dropout_bwd",
              source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",
              launches=(trained[2] + entry[2] + pkgm[2] + mm[2] + legacy[2]
-                       + image[2] + graph[2] + coca[2]),
+                       + image[2] + graph[2] + coca[2] + parallel[2]),
              max_abs_err=max(*train["bwd_err"], *pkgm_err["bwd_err"],
                              *mm_err["bwd_err"], *legacy_err["bwd_err"],
                              *coca_err["bwd_err"]),
@@ -4839,15 +5067,17 @@ def run(args) -> None:
         dict(name="flash_blockwise_fwd", source=src + "flash_blockwise_fwd.cu",
              replaces=tpu + "458",
              launches=(served_long + trained_long[3] + image[3] + graph[3]
-                       + coca[3]),
+                       + coca[3] + parallel[3]),
              max_abs_err=block["fwd_err"], **block["fwd"]),
         dict(name="flash_blockwise_dq", source=src + "flash_blockwise_bwd.cu",
              replaces=tpu + "522",
-             launches=trained_long[4] + image[4] + graph[4] + coca[4],
+             launches=(trained_long[4] + image[4] + graph[4] + coca[4]
+                       + parallel[4]),
              max_abs_err=block["bwd_err"][0], **block["dq"]),
         dict(name="flash_blockwise_dkv", source=src + "flash_blockwise_bwd.cu",
              replaces=tpu + "571",
-             launches=trained_long[5] + image[5] + graph[5] + coca[5],
+             launches=(trained_long[5] + image[5] + graph[5] + coca[5]
+                       + parallel[5]),
              max_abs_err=max(block["bwd_err"][1:]), **block["dkv"]),
     ]
     print(json.dumps({"kernels": [dict(row, route="cuda") for row in rows]}),

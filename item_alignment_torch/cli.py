@@ -56,8 +56,16 @@ dicts (``best_f1.pt``, ``text_finetune_epoch-N.pt``,
 ``coca_pretrain.pt``) and reads them or the JAX CLI's Flax ``.msgpack``
 files wherever the JAX CLI reads one (``engine/checkpoint.load_params``).
 ``--scan_steps`` and ``pred-text --scan_chunks/--xfer_guard`` steer XLA's
-dispatch and do nothing here.  ``--distributed`` raises with its ROADMAP
-item.
+dispatch and do nothing here.
+
+Parallelism runs one process per device (``parallel/``): launch the
+command in each process with ``torchrun --nproc_per_node N`` or with
+``--distributed --coordinator_address host:port --num_processes N
+--process_id i``, and give ``--mesh data,fsdp,tensor`` (the finetune and
+engine commands, and ``pkgm-pretrain``, whose ``--mesh`` shards the triple
+batches over ``data``).  The processes join over NCCL on ``--device cuda``
+and gloo on ``--device cpu``; every rank evaluates and predicts, and rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -79,10 +87,12 @@ from item_alignment_torch.config import (
     TrainConfig,
 )
 from item_alignment_torch.device import resolve_device
+from item_alignment_torch.parallel.mesh import (
+    maybe_initialize_distributed_from_args,
+)
 from item_alignment_torch.utils import logger
 from item_alignment_torch.utils.retry import retry_transient
 
-PARALLEL_ITEM = "ROADMAP Queue 1 #4: Parallelism"
 INERT = "accepted for the JAX CLI's command lines; no effect in the port"
 
 
@@ -178,8 +188,8 @@ def _common_train_flags(p: argparse.ArgumentParser) -> None:
     _distributed_flags(p)
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--mesh", default="-1,1,1",
-                   help="data,fsdp,tensor axis sizes (-1 = rest); the port "
-                        "runs on one device")
+                   help="data,fsdp,tensor axis sizes (-1 = rest), one "
+                        "process per device")
     p.add_argument("--do_train", action="store_true")
     p.add_argument("--do_eval", action="store_true")
     p.add_argument("--do_pred", action="store_true")
@@ -194,7 +204,9 @@ def _common_train_flags(p: argparse.ArgumentParser) -> None:
 
 def _distributed_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--distributed", action="store_true",
-                   help=f"multi-host training; not ported ({PARALLEL_ITEM})")
+                   help="join a process group (one process per device) "
+                        "before training; without the three flags below, "
+                        "torchrun's environment")
     p.add_argument("--coordinator_address", default=None)
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
@@ -204,8 +216,8 @@ def _engine_flags(p: argparse.ArgumentParser) -> None:
     """The engine flags of the commands without the finetune flag surface
     (``finetune-bert``, ``bert-pretrain``), as the JAX CLI's."""
     p.add_argument("--mesh", default="-1,1,1",
-                   help="data,fsdp,tensor axis sizes (-1 = rest); the port "
-                        "runs on one device")
+                   help="data,fsdp,tensor axis sizes (-1 = rest), one "
+                        "process per device")
     _distributed_flags(p)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--log_dir", default=None)
@@ -281,19 +293,12 @@ def _freeze_patterns(args) -> tuple:
     return tuple(json.loads(spec))
 
 
-def _refuse_distributed(args) -> None:
-    if args.distributed:
-        raise NotImplementedError(
-            f"--distributed is not ported yet ({PARALLEL_ITEM})")
-
-
 def _train_config(args, steps_per_epoch: int,
                   batch_size: Optional[int] = None) -> TrainConfig:
     """The finetune flags' TrainConfig; with ``batch_size`` (the commands
     of ``_engine_flags``, which have no batch-size, freeze or moment-dtype
     flags of their own) that batch for training and evaluation, as in the
     JAX CLI."""
-    _refuse_distributed(args)
     data, fsdp, tensor = (int(x) for x in args.mesh.split(","))
     return TrainConfig(
         seed=args.seed,
@@ -322,7 +327,11 @@ def _train_config(args, steps_per_epoch: int,
 
 
 def _dump_hyperparameters(args, out_dir: str) -> None:
-    """hyperparamter.txt dump (finetune_text.py:380-383)."""
+    """hyperparamter.txt dump (finetune_text.py:380-383), by rank 0."""
+    from item_alignment_torch.engine.checkpoint import is_writer
+
+    if not is_writer():
+        return
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "hyperparamter.txt"), "w") as w:
         for k, v in sorted(vars(args).items()):
@@ -641,6 +650,7 @@ def cmd_finetune_text(argv: List[str]) -> int:
     p.add_argument("--entity2id", default=None)
     p.add_argument("--relation2id", default=None)
     args = p.parse_args(argv)
+    maybe_initialize_distributed_from_args(args)
 
     from item_alignment_torch.data.tokenization import (
         load_kg_tokenizers,
@@ -710,6 +720,9 @@ def _finetune(args, model, cfg, device, build_ds, read_rows,
 
     train_ds = build_ds(read_rows(args.train_file))
     valid_ds = build_ds(read_rows(args.valid_file))
+    if args.do_train and train_ds is None:
+        raise FileNotFoundError(f"no training split {args.train_file} in "
+                                f"{args.data_dir}")
     out_dir = os.path.join(args.output_dir, run_dir_name(args))
     _dump_hyperparameters(args, out_dir)
 
@@ -779,6 +792,7 @@ def cmd_finetune_multimodal(argv: List[str]) -> int:
                         "models")
     p.add_argument("--image_size", type=int, default=224)
     args = p.parse_args(argv)
+    maybe_initialize_distributed_from_args(args)
     is_coca = "coca" in args.model_name
     if not (is_coca or "roberta_image" in args.model_name):
         raise ValueError(f"finetune-multimodal trains roberta_image* and "
@@ -858,6 +872,7 @@ def cmd_finetune_image(argv: List[str]) -> int:
                         "under --do_eval)")
     p.add_argument("--image_size", type=int, default=288)
     args = p.parse_args(argv)
+    maybe_initialize_distributed_from_args(args)
     if not any(a == "--eval_batch_size" or a.startswith("--eval_batch_size=")
                for a in argv):
         # the train batch's forward and backward fit, so its forward does
@@ -1365,10 +1380,12 @@ def cmd_pkgm_pretrain(argv: List[str]) -> int:
     p.add_argument("--do_eval", action="store_true")
     p.add_argument("--save_epochs", type=int, default=50)
     p.add_argument("--mesh", default=None,
-                   help="data,fsdp,tensor axis sizes; the port runs on one "
-                        f"device, others raise ({PARALLEL_ITEM})")
+                   help="data,fsdp,tensor axis sizes: shard the triple "
+                        "batches over the data axis (e.g. '-1,1,1'), one "
+                        "process per device (torchrun)")
     _device_flag(p)
     args = p.parse_args(argv)
+    maybe_initialize_distributed_from_args(args)
 
     from item_alignment_torch.kge import (
         KGETrainer,
@@ -1513,14 +1530,14 @@ def cmd_finetune_bert(argv: List[str]) -> int:
                         "the domain-pretrained backbone to start from")
     _engine_flags(p)
     args = p.parse_args(argv)
-    _refuse_distributed(args)
+    maybe_initialize_distributed_from_args(args)
 
     from item_alignment_torch.data.bert_data import (
         align_kwargs,
         pairs_to_field_dataset,
     )
     from item_alignment_torch.data.tokenization import load_text_tokenizer
-    from item_alignment_torch.engine.checkpoint import save_params
+    from item_alignment_torch.engine.checkpoint import is_writer, save_params
     from item_alignment_torch.engine.train import Trainer
     from item_alignment_torch.models.bert_legacy import (
         FIELD_MAX_LENS,
@@ -1570,8 +1587,9 @@ def cmd_finetune_bert(argv: List[str]) -> int:
     params = trainer._host_params()
     save_params(os.path.join(args.output_dir, "bert_align.pt"), params)
     w, b = sim_eval_weight(params)
-    np.savez(os.path.join(args.output_dir, "sim_eval_weight.npz"),
-             weight=w.numpy(), bias=b.numpy())
+    if is_writer():
+        np.savez(os.path.join(args.output_dir, "sim_eval_weight.npz"),
+                 weight=w.numpy(), bias=b.numpy())
     if trainer.best_params is not None:
         save_params(os.path.join(args.output_dir, "best_f1.pt"),
                     trainer.best_params)
@@ -1603,7 +1621,7 @@ def cmd_bert_pretrain(argv: List[str]) -> int:
     p.add_argument("--max_items", type=int, default=None)
     _engine_flags(p)
     args = p.parse_args(argv)
-    _refuse_distributed(args)
+    maybe_initialize_distributed_from_args(args)
 
     import random as pyrandom
 
@@ -1968,7 +1986,7 @@ def cmd_coca_pretrain(argv: List[str]) -> int:
     p.add_argument("--learning_rate", type=float, default=1e-4)
     _engine_flags(p)
     args = p.parse_args(argv)
-    _refuse_distributed(args)
+    maybe_initialize_distributed_from_args(args)
 
     from item_alignment_torch.data.datasets import ArrayDataset
     from item_alignment_torch.engine.checkpoint import save_params

@@ -12,7 +12,7 @@ reads ``dim_head``.
 In the port's ``Trainer``, ``TrainConfig.scan_steps`` and
 ``dropout_rng_impl`` have no effect (PyTorch runs each step eagerly, and the
 dropout masks are hashes of integer seeds), and a mesh of more than one
-device raises (ROADMAP Queue 1 #4: Parallelism).
+device needs a process of its own for each device (``parallel/mesh.py``).
 
 - ``interaction_type``:       one_tower | two_tower
 - ``classification_method``:  cls | vec_sim

@@ -49,6 +49,10 @@ __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
+// bn = b * bn_stride + n + bn_base: the head's index in the global [B, N]
+// grid of the step, so that a call on rows b0.. and heads n0.. of a larger
+// batch (bn_stride = the global head count, bn_base = b0 * bn_stride + n0)
+// draws that slice of the larger call's bits; (N, 0) for a whole batch
 __device__ __forceinline__ uint32_t head_key(uint32_t seed, uint32_t bn) {
   return mix32(mix32(seed ^ 0x9e3779b9U) ^ bn);
 }
@@ -153,6 +157,7 @@ struct FwdParams {
   float scale;
   uint32_t seed, threshold;
   float keep_p;
+  uint32_t bn_stride, bn_base;  // the keep bits' (b, n) index (see head_key)
 };
 
 // delta[b, n, i] = sum over h of g[b, i, n, h] * out[b, i, n, h] in fp32,

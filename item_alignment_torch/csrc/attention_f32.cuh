@@ -169,7 +169,7 @@ __device__ __forceinline__ void f32_fwd_block(const FwdParams& p) {
   // row g + 8 (t & 1) and takes the other row's word from lane t ^ 1
   uint32_t rk = 0u;
   if constexpr (DROP) {
-    const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+    const uint32_t hk = head_key(p.seed, uint32_t(b) * p.bn_stride + uint32_t(h) + p.bn_base);
     rk = row_key(hk, uint32_t(m0 + w0 + g + 8 * (t & 1)));
   }
 

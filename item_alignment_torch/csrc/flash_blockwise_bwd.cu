@@ -167,6 +167,7 @@ struct Params {
   float scale;
   uint32_t seed, threshold;
   float keep_p;
+  uint32_t bn_stride, bn_base;  // the keep bits' (b, n) index (head_key)
 };
 
 // TMA maps of the four inputs: the block's own pair and the looped pair
@@ -302,7 +303,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     const int t = lane & 3;
     const double* lse = p.lse + ((long long)b * p.N + h) * S;
     const float* delta = p.delta + ((long long)b * p.N + h) * S;
-    const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+    const uint32_t hk = head_key(p.seed, uint32_t(b) * p.bn_stride + uint32_t(h) + p.bn_base);
     const double log_keep = log(double(p.keep_p));
     float lse_hi[2], lse_lo[2], dkp[2];
     uint32_t rk[2];
@@ -433,7 +434,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     const int lane = threadIdx.x % 32;
     const double* lse = p.lse + ((long long)b * p.N + h) * S;
     const float* delta = p.delta + ((long long)b * p.N + h) * S;
-    const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+    const uint32_t hk = head_key(p.seed, uint32_t(b) * p.bn_stride + uint32_t(h) + p.bn_base);
     const double log_keep = log(double(p.keep_p));
     ring.produce(maps, n0, h, b, n_tiles, [&](uint32_t* words, int q0) {
       float* st = reinterpret_cast<float*>(words);
@@ -769,7 +770,7 @@ __global__ void __launch_bounds__(THREADS) flash_dq_f32(const Params p) {
 
   const double* lse = p.lse + ((long long)b * p.N + h) * S;
   const float* delta = p.delta + ((long long)b * p.N + h) * S;
-  const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+  const uint32_t hk = head_key(p.seed, uint32_t(b) * p.bn_stride + uint32_t(h) + p.bn_base);
   const double log_keep = log(double(p.keep_p));
   float lse_hi[2], lse_lo[2], dkp[2];
   uint32_t rk[2];
@@ -866,7 +867,7 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_f32(const Params p) {
   // the statistics of query q0 + tid (threads tid < LOOP)
   const double* lse = p.lse + ((long long)b * p.N + h) * S;
   const float* delta = p.delta + ((long long)b * p.N + h) * S;
-  const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+  const uint32_t hk = head_key(p.seed, uint32_t(b) * p.bn_stride + uint32_t(h) + p.bn_base);
   const double log_keep = log(double(p.keep_p));
   double lse_next = 0.0;
   float dkp_next = 0.f;
@@ -1052,7 +1053,8 @@ bool bad_args(int dtype, int B, int S, int N, unsigned int threshold) {
 // wants them); the outputs share one layout (o_*).  `bias`
 // may be null; `lse` (float64, from the forward) and `delta` (float32, from
 // ia_flash_delta) are contiguous [B, N, S].  threshold and keep_p as for
-// ia_flash_fwd.  Any S >= 1.  Each returns the cudaError_t of its launch.
+// ia_flash_fwd, and so are bn_stride and bn_base.  Any S >= 1.  Each
+// returns the cudaError_t of its launch.
 #define IA_FLASH_BWD_INPUTS                                                                     \
   int dtype, int head_dim, const void *q, const void *k, const void *v,                         \
       const void *g, const void *bias, const void *lse, const void *delta
@@ -1061,12 +1063,13 @@ bool bad_args(int dtype, int B, int S, int N, unsigned int threshold) {
       long long k_ss, long long k_sn, long long v_sb, long long v_ss, long long v_sn,           \
       long long g_sb, long long g_ss, long long g_sn, long long o_sb, long long o_ss,           \
       long long o_sn, long long bias_sb, float scale, unsigned int seed,                        \
-      unsigned int threshold, float keep_p, void *stream
+      unsigned int threshold, float keep_p, unsigned int bn_stride, unsigned int bn_base,       \
+      void *stream
 #define IA_FLASH_BWD_PARAMS(DQ, DK, DV)                                                         \
   Params{q,    k,    v,    g,    static_cast<const float*>(bias), static_cast<const double*>(lse), \
          static_cast<const float*>(delta), DQ, DK, DV, S, N,                                    \
          q_sb, q_ss, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss, v_sn, g_sb, g_ss, g_sn,                \
-         o_sb, o_ss, o_sn, bias_sb, scale, seed, threshold, keep_p}
+         o_sb, o_ss, o_sn, bias_sb, scale, seed, threshold, keep_p, bn_stride, bn_base}
 
 extern "C" {
 

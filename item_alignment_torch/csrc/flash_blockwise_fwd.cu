@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(Fwd<HD>::Regs::THREADS, Fwd<HD>::MIN_BLOCKS)
   // threshold to each half, whose bit 15 is then the keep bit
   uint32_t rk = 0, gather = 0, bump = 0;
   if constexpr (DROP) {
-    const uint32_t hk = head_key(p.seed, uint32_t(b) * uint32_t(p.N) + uint32_t(h));
+    const uint32_t hk = head_key(p.seed, uint32_t(b) * p.bn_stride + uint32_t(h) + p.bn_base);
     rk = row_key(hk, uint32_t(row0 + 8 * (t & 1)));
     const uint32_t a = 2 * (t & 1);
     gather = a | 0x40u | (a + 1) << 8 | 0x4000u;
@@ -330,20 +330,25 @@ extern "C" {
 // pointers must be 16-byte aligned and the other strides multiples of 8
 // and, where the size is above 1, positive (TMA).  `bias` may be null;
 // `lse` is a contiguous float64 [B, N, S].  threshold = round(rate * 256)
-// (0: no dropout), keep_p = 1 - threshold / 256.  Any S >= 1.  Returns the
+// (0: no dropout), keep_p = 1 - threshold / 256.  The keep bit of (b, n)
+// hashes b * bn_stride + n + bn_base (N and 0 for a whole batch; the
+// global head count and b0 * bn_stride + n0 for rows b0.. and heads n0.. of
+// a larger one).  Any S >= 1.  Returns the
 // cudaError_t of the launch (0 on success).
 int ia_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
                  const void* v, const void* bias, void* o, void* lse, int B, int S, int N,
                  long long q_sb, long long q_ss, long long q_sn, long long k_sb, long long k_ss,
                  long long k_sn, long long v_sb, long long v_ss, long long v_sn, long long o_sb,
                  long long o_ss, long long o_sn, long long bias_sb, float scale,
-                 unsigned int seed, unsigned int threshold, float keep_p, void* stream) {
+                 unsigned int seed, unsigned int threshold, float keep_p,
+                 unsigned int bn_stride, unsigned int bn_base, void* stream) {
   if (B <= 0 || S <= 0 || N <= 0 || (dtype != 0 && dtype != 1) || threshold > 255)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q,    k,    v,    static_cast<const float*>(bias),
                  o,    static_cast<double*>(lse),
                  S,    N,    q_sb, q_ss, q_sn, k_sb, k_ss, k_sn, v_sb, v_ss, v_sn,
-                 o_sb, o_ss, o_sn, bias_sb, scale, seed, threshold, keep_p};
+                 o_sb, o_ss, o_sn, bias_sb, scale, seed, threshold, keep_p,
+                 bn_stride,    bn_base};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 32) return launch_hd<32>(dtype, p, B, st);
   if (head_dim == 64) return launch_hd<64>(dtype, p, B, st);

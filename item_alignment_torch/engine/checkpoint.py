@@ -17,6 +17,11 @@ interchangeable.
 - ``save_params`` / ``load_params``: one file of a ``state_dict`` (read
   from a ``.pt`` or a Flax ``.msgpack``).
 - ``merge_param_sources``: the multi-source restore of the PKGM finetune.
+
+Under a process group the callers hand whole tensors (``engine/train.py``
+gathers the shards first) and only rank 0 writes; every rank waits at a
+barrier until the file is there.  The JAX package has every host write the
+same file, and several writers of one path race.
 """
 
 from __future__ import annotations
@@ -27,8 +32,20 @@ import re
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger("item_alignment_torch")
+
+
+def is_writer() -> bool:
+    """Whether this process writes the job's files: rank 0, or the only
+    process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _to_cpu(tree: Any) -> Any:
@@ -42,10 +59,12 @@ def _to_cpu(tree: Any) -> Any:
 
 
 def _atomic_save(obj: Any, path: str) -> None:
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = f"{path}.tmp"
-    torch.save(_to_cpu(obj), tmp)
-    os.replace(tmp, path)
+    if is_writer():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = f"{path}.tmp"
+        torch.save(_to_cpu(obj), tmp)
+        os.replace(tmp, path)
+    _barrier()
 
 
 class CheckpointManager:
@@ -64,8 +83,9 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any) -> None:
         _atomic_save(tree, self._path(step))
-        for old in self.all_steps()[:-self.keep] if self.keep else []:
-            os.unlink(self._path(old))
+        if is_writer():
+            for old in self.all_steps()[:-self.keep] if self.keep else []:
+                os.unlink(self._path(old))
 
     def restore(self, step: Optional[int] = None) -> Any:
         """The tree saved at ``step`` (the latest when None), on the CPU."""

@@ -10,6 +10,11 @@ the JAX package has no Pallas kernel for the optimizer.
 ``Optimizer`` is ``make_optimizer``'s chain: optional global-norm clipping,
 ``FusedAdamW``, zeroed updates for frozen parameters, and optional gradient
 accumulation (the running mean of ``optax.MultiSteps``).
+
+Sharded parameters (DTensors, ``parallel/sharding.py``) are updated on
+their local shards: the moments are shards of the same layout, the global
+norm is taken over the whole gradients, and ``state_dict`` /
+``load_state_dict`` hold whole tensors, so a checkpoint loads on any mesh.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterable, Mapping
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from item_alignment_torch.config import OptimizerConfig
 from item_alignment_torch.convert import flax_path
@@ -39,6 +45,12 @@ def freeze_mask(names: Iterable[str], patterns) -> Dict[str, bool]:
     pats = [str(p).replace(".", "/") for p in patterns]
     return {name: any(p in "/".join(flax_path(name)) for p in pats)
             for name in names}
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (a view: in-place updates reach the
+    DTensor), a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def linear_warmup_decay(cfg: OptimizerConfig) -> Callable[[int], float]:
@@ -70,9 +82,9 @@ class FusedAdamW:
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
         self.decay = [n for n in self.params if decay[n]] if weight_decay else []
         self.count = 0
-        self.mu = {n: torch.zeros_like(p, dtype=state_dtype)
+        self.mu = {n: torch.zeros_like(local(p), dtype=state_dtype)
                    for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p, dtype=state_dtype)
+        self.nu = {n: torch.zeros_like(local(p), dtype=state_dtype)
                    for n, p in self.params.items()}
 
     @torch.no_grad()
@@ -83,7 +95,7 @@ class FusedAdamW:
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
-        g32 = [grads[n].float() for n in names]
+        g32 = [local(grads[n]).float() for n in names]
         mu = torch._foreach_mul([self.mu[n].float() for n in names], self.b1)
         torch._foreach_add_(mu, g32, alpha=1.0 - self.b1)
         nu = torch._foreach_mul([self.nu[n].float() for n in names], self.b2)
@@ -96,7 +108,8 @@ class FusedAdamW:
         out = dict(zip(names, upd))
         if self.decay:
             torch._foreach_add_([out[n] for n in self.decay],
-                                [self.params[n].float() for n in self.decay],
+                                [local(self.params[n]).float()
+                                 for n in self.decay],
                                 alpha=self.wd)
         torch._foreach_mul_(upd, -lr)
         torch._foreach_copy_([self.mu[n] for n in names], mu)
@@ -126,10 +139,30 @@ class Optimizer:
         return {n: torch.zeros_like(p) if p.grad is None else p.grad
                 for n, p in self.params.items()}
 
+    def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of which ``t`` is this rank's shard laid out as
+        parameter ``name`` (a collective under a mesh)."""
+        p = self.params[name]
+        if not isinstance(p, DTensor):
+            return t
+        return DTensor.from_local(t, p.device_mesh, p.placements,
+                                  shape=p.shape, stride=p.stride(),
+                                  run_check=False).full_tensor()
+
+    def _shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole tensor ``t`` laid out as
+        parameter ``name``."""
+        from item_alignment_torch.parallel.sharding import distribute_like
+
+        p = self.params[name]
+        if not isinstance(p, DTensor):
+            return t.to(p.device)
+        return distribute_like(t.to(p.device), p).to_local().to(t.dtype)
+
     @torch.no_grad()
     def step(self) -> bool:
         """One mini-step; returns whether the parameters were updated."""
-        grads = self._grads()
+        grads = {n: local(g) for n, g in self._grads().items()}
         k = self.cfg.grad_accumulation_steps
         if k > 1:
             n = self.mini_step
@@ -141,9 +174,12 @@ class Optimizer:
                 return False
             grads, self.acc = self.acc, {}
         if self.cfg.max_grad_norm:
-            grads = clip_by_global_norm(grads, self.cfg.max_grad_norm)
+            # the norm of each whole gradient (gathered from its shards)
+            grads = clip_by_global_norm(
+                grads, self.cfg.max_grad_norm,
+                lambda n, g: torch.linalg.vector_norm(self._full(n, g).float()))
         upd = self.adamw.update(grads)
-        torch._foreach_add_([self.params[n] for n in self.trained],
+        torch._foreach_add_([local(self.params[n]) for n in self.trained],
                             [upd[n] for n in self.trained])
         return True
 
@@ -155,9 +191,12 @@ class Optimizer:
         """What a resumed run needs: the AdamW moments (in their storage
         dtype) and step count, which is also the schedule's position, and
         the gradient-accumulation window."""
-        return {"count": self.adamw.count, "mu": dict(self.adamw.mu),
-                "nu": dict(self.adamw.nu), "mini_step": self.mini_step,
-                "acc": dict(self.acc)}
+        def whole(tensors):
+            return {n: self._full(n, t) for n, t in tensors.items()}
+
+        return {"count": self.adamw.count, "mu": whole(self.adamw.mu),
+                "nu": whole(self.adamw.nu), "mini_step": self.mini_step,
+                "acc": whole(self.acc)}
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, object]) -> None:
@@ -170,19 +209,21 @@ class Optimizer:
                     raise TypeError(
                         f"moment {name} was saved as {theirs[name].dtype}, "
                         f"this optimizer stores {t.dtype}")
-                t.copy_(theirs[name])
+                t.copy_(self._shard(name, theirs[name]))
         self.adamw.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
-        self.acc = {n: t.to(self.params[n].device)
-                    for n, t in state["acc"].items()}
+        self.acc = {n: self._shard(n, t) for n, t in state["acc"].items()}
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
-                        ) -> Dict[str, torch.Tensor]:
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
+                        norm_of: Callable = None) -> Dict[str, torch.Tensor]:
     """Scale every gradient by max_norm / norm when the global norm is not
-    below max_norm (no host synchronisation)."""
+    below max_norm (no host synchronisation).  ``norm_of(name, grad)`` is a
+    gradient's norm (by default its own; the whole gradient's for a shard,
+    so that every rank scales by the same factor)."""
+    norm_of = norm_of or (lambda n, g: torch.linalg.vector_norm(g.float()))
     norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads.values()]))
+        torch.stack([norm_of(n, g) for n, g in grads.items()]))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     return {n: g * factor.to(g.dtype) for n, g in grads.items()}
 

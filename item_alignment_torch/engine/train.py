@@ -26,12 +26,24 @@ one ``backward()``, it is not given to the optimizer, and after the step it
 is updated from that gradient with draws seeded from ``(config.seed,
 step)``.  The deltas are part of the train-state checkpoint.
 
-Not ported yet, and raising: a mesh of more than one device (ROADMAP Queue
-1 #4: Parallelism).
+Under a process group (``parallel/mesh.py``, one process per device) the
+``Trainer`` takes its mesh from ``config.mesh`` and, before it builds the
+optimizer, shards the model by the rules of ``parallel/sharding.py``
+(tensor-parallel styles over ``tensor``, FSDP2 over ``data`` and ``fsdp``).
+Each rank then takes its data index's rows of every global batch; the
+fsdp and tensor ranks of one data index take the same rows, as JAX's
+``P("data")``.  The dropout masks are those of the global batch, sliced
+(``ops.dropout.batch_rows``), so a sharded step equals one device's step on
+the same batch.  The adversarial deltas stay whole on every rank (JAX's
+replicated train state): their gradient's rows are all-reduced over
+``data``.  The reported loss is the mean over the data ranks, eval outputs
+are gathered to every rank, ``best_params`` and checkpoints hold whole
+tensors (rank 0 writes them) and a checkpoint restores onto any mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -39,6 +51,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from item_alignment_torch.config import TrainConfig
@@ -48,12 +61,20 @@ from item_alignment_torch.engine import metrics as M
 from item_alignment_torch.engine.adversarial import MODES, update_deltas
 from item_alignment_torch.engine.checkpoint import (
     CheckpointManager,
+    is_writer,
     load_params,
     save_params,
 )
 from item_alignment_torch.engine.observability import EvalWriter, ScalarLogger
 from item_alignment_torch.engine.optim import Optimizer, make_optimizer
-from item_alignment_torch.ops.dropout import fold_seed
+from item_alignment_torch.ops.dropout import batch_rows, fold_seed
+from item_alignment_torch.parallel.mesh import AXIS_DATA, create_mesh
+from item_alignment_torch.parallel.sharding import (
+    batch_sharding,
+    full_state_dict,
+    process_slice,
+    shard_params,
+)
 from item_alignment_torch.utils import logger
 
 
@@ -90,11 +111,6 @@ class Trainer:
                  adversarial: Optional[Tuple[str, float, float]] = None,
                  noise_spec: Optional[Dict[str, Tuple[int, ...]]] = None,
                  log_dir: Optional[str] = None):
-        mesh = config.mesh
-        if mesh.data not in (-1, 1) or mesh.fsdp > 1 or mesh.tensor > 1:
-            raise NotImplementedError(
-                "the port's Trainer runs on one device; data/fsdp/tensor "
-                "meshes are (ROADMAP Queue 1 #4: Parallelism)")
         if adversarial:
             if adversarial[0] not in MODES:
                 raise ValueError(f"unknown adversarial mode {adversarial[0]}")
@@ -103,6 +119,18 @@ class Trainer:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
+        self.mesh = create_mesh(config.mesh, self.device.type)
+        self._sharded = False
+        self._rows: Optional[Tuple[int, int, int]] = None
+        if self.mesh is not None:
+            data = batch_sharding(self.mesh)[1]
+            for bs_name in ("train_batch_size", "eval_batch_size"):
+                bs = getattr(config, bs_name)
+                if bs % data:
+                    raise ValueError(
+                        f"{bs_name}={bs} must be divisible by the mesh data "
+                        f"axis ({data} ranks); adjust the batch size or the "
+                        "mesh")
         self.batch_transform = batch_transform or (lambda b: b)
         self.adversarial = adversarial
         self.deltas: Optional[Dict[str, torch.Tensor]] = None
@@ -115,14 +143,25 @@ class Trainer:
         self.step = 0
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
         self.scalars = self.eval_writer = None
-        if log_dir:
+        if log_dir and is_writer():
             self.scalars = ScalarLogger(os.path.join(log_dir, "scalars.jsonl"))
             self.eval_writer = EvalWriter(
                 os.path.join(log_dir, "eval_results.csv"),
                 ["epoch", "step", "loss", "best_f1", "best_threshold"])
 
     # ------------------------------------------------------------- setup
+    def shard(self) -> "Trainer":
+        """Shard the model on the mesh (once; nothing without a mesh).
+        Before it, the model's own ``state_dict`` and ``load_state_dict``
+        hold whole tensors as on one device; after it, ``load_state_dict``
+        still takes whole tensors and ``_host_params`` gathers them."""
+        if self.mesh is not None and not self._sharded:
+            shard_params(self.model, self.mesh)
+            self._sharded = True
+        return self
+
     def setup(self) -> "Trainer":
+        self.shard()
         self.optimizer = make_optimizer(self.config.optimizer,
                                         dict(self.model.named_parameters()))
         return self
@@ -131,7 +170,15 @@ class Trainer:
                       ) -> Dict[str, torch.Tensor]:
         """The batch on the device: ids and labels as int64, floats and
         uint8 images as they are (the image towers normalise uint8 on the
-        device; int64 images would move 8x the bytes)."""
+        device; int64 images would move 8x the bytes).  Under a mesh with
+        a data axis, this rank's rows of it (``_rows``: their offset, count
+        and the global batch)."""
+        self._rows = None
+        if self.mesh is not None and batch_sharding(self.mesh)[1] > 1:
+            n = len(next(iter(batch.values())))
+            rows = process_slice(n, mesh=self.mesh)
+            batch = {k: v[rows] for k, v in batch.items()}
+            self._rows = (rows.start, rows.stop - rows.start, n)
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v))
@@ -146,14 +193,30 @@ class Trainer:
         if self.optimizer is None:
             self.setup()
         seed = step_seed(self.config.seed, self.step)
-        deltas = {}
+        inputs = self._device_batch(batch)
+        rows = self._rows
+        deltas, passed = {}, {}
         if self.deltas is not None:
             deltas = {k: d.detach().requires_grad_()
                       for k, d in self.deltas.items()}
-        out = self.model(**self._device_batch(batch), **deltas,
-                         deterministic=False, dropout_seed=seed)
-        loss = _loss_of(out)
-        loss.backward()
+            passed = {k: d if rows is None else d[rows[0]:rows[0] + rows[1]]
+                      for k, d in deltas.items()}
+        # the backward regenerates the masks, so it runs in the rows too
+        with batch_rows(*rows) if rows else contextlib.nullcontext():
+            out = self.model(**inputs, **passed, deterministic=False,
+                             dropout_seed=seed)
+            loss = _loss_of(out)
+            loss.backward()
+        if self._sharded and all(p.grad is None
+                                 for p in self.optimizer.params.values()):
+            raise RuntimeError("the sharded model reduced no gradient: FSDP2 "
+                               "found no tensor in the model's output")
+        if rows is not None:
+            loss = self._data_mean(loss.detach())
+            for d in deltas.values():
+                # each data rank holds its rows' share of the mean's
+                # gradient; the sum over the ranks is the whole batch's
+                d.grad = self._data_mean(d.grad)
         self.optimizer.step()
         self.optimizer.zero_grad()
         if deltas:
@@ -201,11 +264,29 @@ class Trainer:
             out["mid_evals"] = mid_evals
         return out
 
+    def _data_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the data ranks (sum, then divide: gloo
+        has no average)."""
+        t = t.clone()
+        dist.all_reduce(t, group=self.mesh[AXIS_DATA].get_group())
+        return t / batch_sharding(self.mesh)[1]
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole batch's rows of ``t`` from every data rank."""
+        parts = [torch.empty_like(t)
+                 for _ in range(batch_sharding(self.mesh)[1])]
+        dist.all_gather(parts, t.contiguous(),
+                        group=self.mesh[AXIS_DATA].get_group())
+        return torch.cat(parts)
+
     @torch.no_grad()
     def _eval_outputs(self, batch: Dict[str, np.ndarray]):
+        self.shard()
         out = self.model(**self._device_batch(batch), deterministic=True)
-        return tuple(x.float().cpu().numpy()
-                     for x in (out.probs, out.src_embeds, out.tgt_embeds))
+        outs = [x.float() for x in (out.probs, out.src_embeds, out.tgt_embeds)]
+        if self._rows is not None:
+            outs = [self._gather_rows(x) for x in outs]
+        return tuple(x.cpu().numpy() for x in outs)
 
     def evaluate(self, dataset: ArrayDataset) -> Dict[str, Any]:
         cfg = self.config
@@ -235,11 +316,16 @@ class Trainer:
         written as 1-d "embeddings"; the scorer reads ``tgt_item_emb[0]``."""
         cfg = self.config
         threshold = cfg.threshold if threshold is None else threshold
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        with open(path, "w", encoding="utf-8") as w:
+        writer = is_writer()  # every rank computes; rank 0 writes
+        if writer:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with (open(path, "w", encoding="utf-8") if writer
+              else contextlib.nullcontext()) as w:
             for batch, meta in dataset.batches(cfg.eval_batch_size):
                 batch.pop("labels", None)
                 _, src_emb, tgt_emb = self._eval_outputs(batch)
+                if not writer:
+                    continue
                 n = meta["n_valid"]
                 src_ids = meta.get("src_item_id", [""] * n)
                 tgt_ids = meta.get("tgt_item_id", [""] * n)
@@ -254,8 +340,9 @@ class Trainer:
 
     # -------------------------------------------------- checkpoint/resume
     def _host_params(self) -> Dict[str, torch.Tensor]:
-        return {k: v.detach().cpu().clone()
-                for k, v in self.model.state_dict().items()}
+        """The model's whole parameters on the CPU (a collective when the
+        model is sharded)."""
+        return full_state_dict(self.model)
 
     def save_checkpoint(self, manager: CheckpointManager, epoch: int,
                         best_f1: float = 0.0, best_epoch: int = -1,
@@ -268,7 +355,7 @@ class Trainer:
         if self.optimizer is None:
             self.setup()
         tree = {
-            "params": self.model.state_dict(),
+            "params": self._host_params(),
             "opt_state": self.optimizer.state_dict(),
             "step": self.step,
             "meta": {"epoch": int(epoch), "best_f1": float(best_f1),

@@ -20,6 +20,13 @@ As in the JAX package:
 The step runs eagerly on one device (``"cuda"`` unless the caller asks for
 the CPU); the corrupted ids and the KG's index arrays stay there.  Adam is
 the port's ``FusedAdamW`` with no weight decay.
+
+With ``mesh`` (a ``MeshConfig`` or its three sizes) under a process group,
+as in JAX: the tables stay whole on every rank, each rank takes its data
+index's rows of every triple batch (the whole KG's corruption is drawn
+from one seed on every rank, so a rank's negatives are the global batch's,
+sliced), and the gradients are all-reduced over ``data`` (a mean loss
+weighs each rank's rows by their share of the batch).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from item_alignment_torch.config import MeshConfig, OptimizerConfig
 from item_alignment_torch.device import resolve_device
@@ -46,20 +54,16 @@ from item_alignment_torch.kge.sampling import (
     BernoulliNegativeSampler,
     UniformNegativeSampler,
 )
+from item_alignment_torch.parallel.mesh import AXIS_DATA, create_mesh
+from item_alignment_torch.parallel.sharding import batch_sharding, process_slice
 from item_alignment_torch.utils import logger
 
 
-def _check_mesh(mesh) -> None:
-    """None, or a mesh of one device: a ``MeshConfig`` or a sequence of
-    axis sizes, each 1 (a data axis of -1, "all devices", is one here)."""
-    if mesh is None:
-        return
-    sizes = ((mesh.data, mesh.fsdp, mesh.tensor)
-             if isinstance(mesh, MeshConfig) else tuple(mesh))
-    if sizes[0] not in (-1, 1) or any(int(s) != 1 for s in sizes[1:]):
-        raise NotImplementedError(
-            f"the port's KGE trainer runs on one device; the mesh {sizes} "
-            "is not ported yet (ROADMAP Queue 1 #4: Parallelism)")
+def _mesh_config(mesh) -> Optional[MeshConfig]:
+    """A ``MeshConfig`` from one or a sequence of its axis sizes."""
+    if mesh is None or isinstance(mesh, MeshConfig):
+        return mesh
+    return MeshConfig(*(int(s) for s in mesh))
 
 
 class KGETrainer:
@@ -71,8 +75,12 @@ class KGETrainer:
                  grad_accumulation_steps: int = 1, seed: int = 0,
                  save_dir: Optional[str] = None, save_epochs: int = 50,
                  mesh=None, device=None):
-        _check_mesh(mesh)
         self.device = resolve_device(device)
+        self.mesh = create_mesh(_mesh_config(mesh), self.device.type)
+        if self.mesh is not None and batch_size % batch_sharding(self.mesh)[1]:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by the mesh data "
+                f"axis ({batch_sharding(self.mesh)[1]})")
         self.model = model
         self.kg = kg
         self.loss_type = loss_type
@@ -107,9 +115,17 @@ class KGETrainer:
                   self.params.items()}
         pos, neg = self.model.forward(leaves, h, t, r, nh, nt)
         loss = kge_loss(self.loss_type, pos, neg, self.margin)
+        if self.mesh is not None and self.loss_type != "margin":
+            # a mean over this rank's rows, weighed by their share
+            loss = loss / batch_sharding(self.mesh)[1]
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()), allow_unused=True,
             materialize_grads=True)))
+        if self.mesh is not None:
+            group = self.mesh[AXIS_DATA].get_group()
+            loss = loss.detach().clone()
+            for t_ in (loss, *grads.values()):
+                dist.all_reduce(t_, group=group)
         with torch.no_grad():
             if self.accumulate > 1:
                 n = self.mini_step
@@ -141,6 +157,8 @@ class KGETrainer:
             idx = torch.as_tensor(order[: n_steps * bs].reshape(n_steps, bs),
                                   device=self.device).long()
             losses = []
+            if self.mesh is not None:  # this rank's rows of every batch
+                idx = idx[:, process_slice(bs, mesh=self.mesh)]
             for bidx in idx:
                 neg = torch.cat([bidx + i * kg.n_facts
                                  for i in range(self.n_neg)]) % nh.shape[0]
@@ -160,7 +178,10 @@ class KGETrainer:
         return {"history": history, "params": self.params}
 
     def save(self, path: str) -> None:
-        """An ``.npz`` of the parameters under the JAX package's keys."""
+        """An ``.npz`` of the parameters under the JAX package's keys
+        (rank 0 writes it under a process group)."""
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         np.savez(path, **params_to_numpy(self.params))
 

@@ -15,6 +15,12 @@ index and each site its place in the layer (``ops.dropout.fold_seed``).
 layer, "dots" keeps every dense-projection product (the counterpart of
 ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``) and recomputes
 the rest, and "mlp" is "dots" minus the [B, S, 4H] intermediate product.
+
+Under tensor parallelism (``parallel/sharding.py``) q/k/v and
+``intermediate`` are column-parallel and ``attention.output`` and
+``mlp_output`` row-parallel: ``SelfAttention`` then runs on its rank's heads,
+``head_offset`` onwards of ``num_attention_heads``, and hands both to the
+attention kernels so that their dropout draws those heads' bits.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -39,7 +46,7 @@ from item_alignment_torch.ops.attention import (
     make_attention_bias,
 )
 from item_alignment_torch.ops.dropout import ReplayDropout, fold_seed
-from item_alignment_torch.ops.quant import int8_matmul
+from item_alignment_torch.ops.quant import int8_matmul, int8_matmul_tensor_parallel
 
 ACT = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
@@ -59,6 +66,8 @@ class QuantDense(Dense):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if isinstance(self.weight, DTensor):
+            return int8_matmul_tensor_parallel(x, self.weight, self.bias, dt)
         return int8_matmul(x, self.weight, self.bias, out_dtype=dt)
 
 
@@ -81,29 +90,46 @@ class SelfAttention(nn.Module):
         self.key = dense(H, H, dt, std)
         self.value = dense(H, H, dt, std)
         self.output = dense(H, H, dt, std)
+        self.head_offset = 0  # this rank's first head under tensor parallelism
+
+    def _fused_qkv(self, hidden: torch.Tensor):
+        """q, k and v of one [3H, H] product instead of three; the
+        parameters stay separate, so checkpoints interchange with the
+        unfused path.  Under tensor parallelism the product takes this
+        rank's rows of each of the three, side by side, and its output
+        splits by the local width."""
+        dt = compute_dtype(self.config)
+        parts = (self.query, self.key, self.value)
+        w = [m.weight for m in parts]
+        b = [m.bias for m in parts]
+        if isinstance(w[0], DTensor):
+            mesh = w[0].device_mesh
+            w, b = (DTensor.from_local(torch.cat([t.to_local() for t in ts]),
+                                       mesh, [Shard(0)], run_check=False)
+                    for ts in (w, b))
+            x = DTensor.from_local(hidden, mesh, [Replicate()],
+                                   run_check=False)
+            qkv = F.linear(x.to(dt), w.to(dt), b.to(dt)).to_local()
+        else:
+            qkv = F.linear(hidden.to(dt), torch.cat(w).to(dt),
+                           torch.cat(b).to(dt))
+        return qkv.split(qkv.shape[-1] // 3, dim=-1)
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
                 deterministic: bool = True,
                 dropout_seed: Optional[int] = None) -> torch.Tensor:
         cfg = self.config
         B, S, H = hidden.shape
-        N, D = cfg.num_attention_heads, cfg.head_dim
+        D = cfg.head_dim
         if cfg.fuse_qkv and cfg.quant != "int8":
-            # one [3H, H] product instead of three; the parameters stay
-            # separate, so checkpoints interchange with the unfused path.
             # int8 quantizes each projection's activations on its own, as
             # the JAX package does
-            dt = compute_dtype(cfg)
-            w = torch.cat([self.query.weight, self.key.weight,
-                           self.value.weight]).to(dt)
-            b = torch.cat([self.query.bias, self.key.bias,
-                           self.value.bias]).to(dt)
-            qkv = F.linear(hidden.to(dt), w, b)
-            q, k, v = (t.reshape(B, S, N, D) for t in qkv.split(H, dim=-1))
+            q, k, v = self._fused_qkv(hidden)
         else:
-            q = self.query(hidden).reshape(B, S, N, D)
-            k = self.key(hidden).reshape(B, S, N, D)
-            v = self.value(hidden).reshape(B, S, N, D)
+            q, k, v = self.query(hidden), self.key(hidden), self.value(hidden)
+        # [B, S, heads, D]: every head, or this rank's under tensor
+        # parallelism
+        q, k, v = (t.reshape(B, S, -1, D) for t in (q, k, v))
         attend = (flash_attention if cfg.use_flash_attention
                   else dot_product_attention)
         rate = 0.0 if deterministic else cfg.attention_probs_dropout_prob
@@ -112,8 +138,9 @@ class SelfAttention(nn.Module):
                              "dropout seed")
         ctx = attend(q, k, v, bias, dropout_rate=rate,
                      dropout_seed=dropout_seed if rate > 0.0 else None,
-                     dtype=hidden.dtype)
-        return self.output(ctx.reshape(B, S, H))
+                     dtype=hidden.dtype, head_offset=self.head_offset,
+                     num_heads=cfg.num_attention_heads)
+        return self.output(ctx.reshape(B, S, -1))
 
 
 class TransformerLayer(nn.Module):

@@ -35,7 +35,7 @@ from item_alignment_torch.models.layers import Dense, StackedDense, take_rows
 from item_alignment_torch.models.losses import pair_loss
 from item_alignment_torch.models.outputs import PairClassifierOutput
 from item_alignment_torch.models.text import Device, _initialise
-from item_alignment_torch.ops.dropout import dropout, fold_seed
+from item_alignment_torch.ops.dropout import dropout, fold_seed, whole_batch
 from item_alignment_torch.ops.sparse import Adjacency, spmm
 
 
@@ -78,10 +78,12 @@ class GCNII(nn.Module):
             return dropout(x, self.rate, fold_seed(dropout_seed, site),
                            deterministic)
 
-        x = x0 = F.relu(self.linear(drop(features, 0)))
-        for l in range(self.config.gcn_layers):
-            x = F.relu(self.conv(drop(x, 1 + l), x0, adj, l))
-        return drop(x, 1 + self.config.gcn_layers)
+        # the sites drop graph nodes, the same on every data-parallel rank
+        with whole_batch():
+            x = x0 = F.relu(self.linear(drop(features, 0)))
+            for l in range(self.config.gcn_layers):
+                x = F.relu(self.conv(drop(x, 1 + l), x0, adj, l))
+            return drop(x, 1 + self.config.gcn_layers)
 
 
 class GCNTwoTower(nn.Module):

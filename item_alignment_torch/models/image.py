@@ -125,7 +125,7 @@ class MultiHeadDotProductAttention(nn.Module):
         if not deterministic and self.rate > 0.0:
             keep = dropout(torch.ones((1, 1, S, S), dtype=weights.dtype,
                                       device=x.device), self.rate,
-                           dropout_seed, deterministic)
+                           dropout_seed, deterministic, batch_major=False)
             weights = weights * keep
         ctx = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out(ctx.reshape(B, S, D))

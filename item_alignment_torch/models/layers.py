@@ -69,19 +69,23 @@ def embedding_lookup(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
     return take_rows(table.weight, ids)
 
 
-class Dense(nn.Module):
+class Dense(nn.Linear):
     """``weight [out, in]`` and ``bias [out]``, the transpose of Flax's
     ``kernel [in, out]``.  ``init_std`` is the normal init's deviation;
     None means Flax's default, LeCun normal.  ``use_bias=False`` has no
-    bias, as Flax's ``use_bias=False``."""
+    bias, as Flax's ``use_bias=False``.  An ``nn.Linear`` (whose own
+    initialisation it skips), so that torch's tensor-parallel styles
+    (``parallel/sharding.py``) take it."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: Optional[torch.dtype] = None,
                  init_std: Optional[float] = None, use_bias: bool = True):
-        super().__init__()
+        nn.Module.__init__(self)
+        self.in_features, self.out_features = in_features, out_features
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias \
-            else None
+        self.register_parameter(
+            "bias", nn.Parameter(torch.zeros(out_features)) if use_bias
+            else None)
         self.dtype = dtype
         self.init_std = init_std
 

@@ -100,14 +100,26 @@ def entry(name: str, fn: str, argtypes: str):
     return lib, f
 
 
-def launch_fwd(rate, seed, q, k, v, bias):
+def keep_index(N: int, bn_stride: Optional[int], bn_base: int):
+    """The kernels' (bn_stride, bn_base) as unsigned ints: the keep bit of
+    (b, n) hashes ``b * bn_stride + n + bn_base``; ``(N, 0)`` by default."""
+    stride = N if bn_stride is None else int(bn_stride)
+    if not (0 < stride < 2 ** 32 and 0 <= int(bn_base) < 2 ** 32):
+        raise ValueError(f"bn_stride {bn_stride} / bn_base {bn_base} out of "
+                         "the kernels' unsigned range")
+    return stride, int(bn_base)
+
+
+def launch_fwd(rate, seed, q, k, v, bias, bn_stride=None, bn_base=0):
     """(out, lse) by kernel #4: out ``[B, S, N, H]`` in q's dtype, lse
-    float64 ``[B, N, S]``."""
+    float64 ``[B, N, S]``; the keep bits at (bn_stride, bn_base)
+    (``keep_index``)."""
     check_launchable(q, k, v)
     check_tma(q, k, v)
     lib, fn = entry("flash_blockwise_fwd", "ia_flash_fwd",
-                    "ii" + "p" * 6 + "iii" + "l" * 13 + "fuufp")
+                    "ii" + "p" * 6 + "iii" + "l" * 13 + "fuufuup")
     B, S, N, H = q.shape
+    stride, base = keep_index(N, bn_stride, bn_base)
     t, keep_p = dropout_consts(rate)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, N, S), dtype=torch.float64, device=q.device)
@@ -117,7 +129,8 @@ def launch_fwd(rate, seed, q, k, v, bias):
                  v.data_ptr(), ptr(rows), out.data_ptr(), lse.data_ptr(),
                  B, S, N, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], 0 if rows is None else rows.stride(0),
-                 1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, cuda_stream(q))
+                 1.0 / math.sqrt(H), int(seed) & M32, t, keep_p, stride, base,
+                 cuda_stream(q))
     _build.check(lib, err, "attention forward")
     return out, lse
 
@@ -137,12 +150,14 @@ def launch_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return delta
 
 
-def _launch_bwd(fn_name, n_out, rate, seed, q, k, v, bias, g, lse, delta):
+def _launch_bwd(fn_name, n_out, rate, seed, q, k, v, bias, g, lse, delta,
+                bn_stride=None, bn_base=0):
     check_launchable(q, k, v, g)
     check_tma(q, k, v, g)
     lib, fn = entry("flash_blockwise_bwd", fn_name,
-                    "ii" + "p" * (7 + n_out) + "iii" + "l" * 16 + "fuufp")
+                    "ii" + "p" * (7 + n_out) + "iii" + "l" * 16 + "fuufuup")
     B, S, N, H = q.shape
+    stride, base = keep_index(N, bn_stride, bn_base)
     t, keep_p = dropout_consts(rate)
     outs = tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
                  for _ in range(n_out))
@@ -155,19 +170,21 @@ def _launch_bwd(fn_name, n_out, rate, seed, q, k, v, bias, g, lse, delta):
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *g.stride()[:3], *outs[0].stride()[:3],
                  0 if rows is None else rows.stride(0), 1.0 / math.sqrt(H),
-                 int(seed) & M32, t, keep_p, cuda_stream(q))
+                 int(seed) & M32, t, keep_p, stride, base, cuda_stream(q))
     _build.check(lib, err, f"attention backward ({fn_name})")
     return outs
 
 
-def launch_dq(rate, seed, q, k, v, bias, g, lse, delta) -> torch.Tensor:
+def launch_dq(rate, seed, q, k, v, bias, g, lse, delta, bn_stride=None,
+              bn_base=0) -> torch.Tensor:
     """dq by the dQ kernel, from the forward's float64 lse and fp32 delta
     (both ``[B, N, S]``)."""
     return _launch_bwd("ia_flash_dq", 1, rate, seed, q, k, v, bias, g, lse,
-                       delta)[0]
+                       delta, bn_stride, bn_base)[0]
 
 
-def launch_dkv(rate, seed, q, k, v, bias, g, lse, delta):
+def launch_dkv(rate, seed, q, k, v, bias, g, lse, delta, bn_stride=None,
+               bn_base=0):
     """(dk, dv) by the dK/dV kernel, from the same inputs as ``launch_dq``."""
     return _launch_bwd("ia_flash_dkv", 2, rate, seed, q, k, v, bias, g, lse,
-                       delta)
+                       delta, bn_stride, bn_base)

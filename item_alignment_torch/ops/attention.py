@@ -10,6 +10,11 @@ without dropout.  CUDA tensors launch them; CPU tensors run their plain
 versions; a failed build or launch raises (the JAX dispatcher's fallback to
 the plain path is not carried over).  Port of
 ``item_alignment_tpu/ops/attention.py``.
+
+Under tensor parallelism a call holds heads ``[head_offset, head_offset +
+N)`` of ``num_heads``, and under data parallelism rows ``b0..`` of the
+step's batch (``ops.dropout.batch_rows``): both dropout paths then drop
+that slice of what one call on the whole batch and all heads drops.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from item_alignment_torch.ops.cuda_attention_blockwise import (
     fused_attention_blockwise_dropout,
 )
 from item_alignment_torch.ops.cuda_attention_train import fused_attention_dropout
+from item_alignment_torch.ops.dropout import global_rows
 
 NEG_INF = -1e9  # matches BERT-style additive masking ((1-mask)*-10000 in HF)
 MAX_FUSED_SEQ = 512
@@ -45,20 +51,26 @@ def dot_product_attention(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     dtype: torch.dtype = torch.float32,
+    head_offset: int = 0,
+    num_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain masked multi-head attention: fp32 scores and softmax, probs
     cast to ``dtype`` before the product with v.  With a rate and a seed,
     each probability is kept with probability 1 - rate and survivors are
-    divided by 1 - rate, as JAX's bernoulli dropout does."""
+    divided by 1 - rate, as JAX's bernoulli dropout does; the draw is over
+    the global rows and ``num_heads`` heads, sliced to this call's."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bsnh,btnh->bnst", q.float(), k.float()) * scale
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1).to(dtype)
     if dropout_rate > 0.0 and dropout_seed is not None:
+        B, N = probs.shape[:2]
+        b0, total = global_rows()
         gen = torch.Generator(device=probs.device).manual_seed(dropout_seed)
-        keep = torch.rand(probs.shape, generator=gen,
-                          device=probs.device) < 1.0 - dropout_rate
+        draws = torch.rand((total or B, num_heads or N) + probs.shape[2:],
+                           generator=gen, device=probs.device)
+        keep = draws[b0:b0 + B, head_offset:head_offset + N] < 1.0 - dropout_rate
         probs = probs * keep.to(dtype) / (1.0 - dropout_rate)
     ct = torch.promote_types(probs.dtype, v.dtype)
     return torch.einsum("bnst,btnh->bsnh", probs.to(ct), v.to(ct))
@@ -72,6 +84,8 @@ def flash_attention(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     dtype: torch.dtype = torch.float32,
+    head_offset: int = 0,
+    num_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused attention.  With a rate and a seed it runs
     ``fused_attention_dropout`` (kernels #2/#3, the mask a hash of the
@@ -79,14 +93,20 @@ def flash_attention(
     counterparts (kernels #4-#6), which take any S.  CUDA tensors launch
     the kernels, CPU tensors take their plain versions."""
     dropout = dropout_rate > 0.0 and dropout_seed is not None
+    if dropout:
+        # the keep bits of rows b0.. and heads head_offset.. of the step's
+        # [total, num_heads] grid
+        stride = num_heads or q.shape[2]
+        keep_index = (stride, global_rows()[0] * stride + head_offset)
     if q.shape[1] > MAX_FUSED_SEQ:
         if dropout:
             out = fused_attention_blockwise_dropout(dropout_rate, dropout_seed,
-                                                    q, k, v, bias)
+                                                    q, k, v, bias, *keep_index)
         else:
             out = fused_attention_blockwise(q, k, v, bias)
     elif dropout:
-        out = fused_attention_dropout(dropout_rate, dropout_seed, q, k, v, bias)
+        out = fused_attention_dropout(dropout_rate, dropout_seed, q, k, v, bias,
+                                      *keep_index)
     else:
         out = fused_attention(q, k, v, bias)
     return out.to(dtype)

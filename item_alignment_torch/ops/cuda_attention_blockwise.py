@@ -79,38 +79,40 @@ BLOCK_KV = 64  # keys per tile in the forward kernel
 
 def fused_attention_blockwise_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None, bn_stride: Optional[int] = None,
+    bn_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #4: the online softmax of
     ``online_softmax_reference`` over the kernel's 64-key tiles.  Returns out
     ``[B, S, N, H]`` in q's dtype and lse ``[B, N, S]`` in float64.  It
     materialises ``[B, N, S, S]`` scores (and int64 hash words with
     dropout): keep B small where S is in the thousands."""
-    return train.online_softmax_reference(rate, seed, q, k, v, bias, BLOCK_KV)
+    return train.online_softmax_reference(rate, seed, q, k, v, bias, BLOCK_KV,
+                                          bn_stride, bn_base)
 
 
 def flash_dq_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], g: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor,
+    delta: torch.Tensor, bn_stride: Optional[int] = None, bn_base: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel #5: dq = ds k / sqrt(H) with ds of
     ``backward_terms_reference``.  ``lse`` float64 and ``delta`` fp32 are
     ``[B, N, S]``."""
     _, ds = train.backward_terms_reference(rate, seed, q, k, v, bias, g, lse,
-                                           delta)
+                                           delta, bn_stride, bn_base)
     return train.dq_reference(ds, k)
 
 
 def flash_dkv_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], g: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor,
+    delta: torch.Tensor, bn_stride: Optional[int] = None, bn_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #6: dk = ds^T q / sqrt(H) and
     dv = (keep * p_r)^T g."""
     pd, ds = train.backward_terms_reference(rate, seed, q, k, v, bias, g, lse,
-                                            delta)
+                                            delta, bn_stride, bn_base)
     return train.dkv_reference(pd, ds, q, g)
 
 
@@ -144,17 +146,20 @@ def _check_bwd(q, k, v, bias, g, lse, delta):
 
 
 def flash_fwd(rate: float, seed: int, q: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor, bias: Optional[torch.Tensor] = None
+              v: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              bn_stride: Optional[int] = None, bn_base: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #4: (out, lse).  q/k/v ``[B, S, N, H]`` of any S (float32 or
     bfloat16, H in 32/64/128 on CUDA), bias ``[B, 1, 1, S]`` or None,
-    ``rate`` in [0, 1), ``seed`` a 32-bit int."""
+    ``rate`` in [0, 1), ``seed`` a 32-bit int, ``bn_stride``/``bn_base``
+    the keep bits' index (``cuda_attention_train``)."""
     global FWD_LAUNCHES
     check_inputs(q, k, v, bias)
     dropout_consts(rate)
     if _device_kind(q, "fused_attention_blockwise") == "cpu":
-        return fused_attention_blockwise_reference(rate, seed, q, k, v, bias)
-    out = _launch_fwd(rate, seed, q, k, v, bias)
+        return fused_attention_blockwise_reference(rate, seed, q, k, v, bias,
+                                                   bn_stride, bn_base)
+    out = _launch_fwd(rate, seed, q, k, v, bias, bn_stride, bn_base)
     FWD_LAUNCHES += 1
     return out
 
@@ -171,30 +176,37 @@ def flash_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 def flash_dq(rate: float, seed: int, q: torch.Tensor, k: torch.Tensor,
              v: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
-             lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+             lse: torch.Tensor, delta: torch.Tensor,
+             bn_stride: Optional[int] = None, bn_base: int = 0
+             ) -> torch.Tensor:
     """Kernel #5: dq from the forward's lse, ``flash_delta``'s delta and
     the output gradient ``g``."""
     global DQ_LAUNCHES
     _check_bwd(q, k, v, bias, g, lse, delta)
     g = g.contiguous()
     if _device_kind(q, "fused_attention_blockwise") == "cpu":
-        return flash_dq_reference(rate, seed, q, k, v, bias, g, lse, delta)
-    dq = _launch_dq(rate, seed, q, k, v, bias, g, lse, delta)
+        return flash_dq_reference(rate, seed, q, k, v, bias, g, lse, delta,
+                                  bn_stride, bn_base)
+    dq = _launch_dq(rate, seed, q, k, v, bias, g, lse, delta, bn_stride,
+                    bn_base)
     DQ_LAUNCHES += 1
     return dq
 
 
 def flash_dkv(rate: float, seed: int, q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, bias: Optional[torch.Tensor], g: torch.Tensor,
-              lse: torch.Tensor, delta: torch.Tensor
+              lse: torch.Tensor, delta: torch.Tensor,
+              bn_stride: Optional[int] = None, bn_base: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #6: (dk, dv) from the same inputs as ``flash_dq``."""
     global DKV_LAUNCHES
     _check_bwd(q, k, v, bias, g, lse, delta)
     g = g.contiguous()
     if _device_kind(q, "fused_attention_blockwise") == "cpu":
-        return flash_dkv_reference(rate, seed, q, k, v, bias, g, lse, delta)
-    dkv = _launch_dkv(rate, seed, q, k, v, bias, g, lse, delta)
+        return flash_dkv_reference(rate, seed, q, k, v, bias, g, lse, delta,
+                                   bn_stride, bn_base)
+    dkv = _launch_dkv(rate, seed, q, k, v, bias, g, lse, delta, bn_stride,
+                      bn_base)
     DKV_LAUNCHES += 1
     return dkv
 
@@ -205,10 +217,10 @@ class _FusedAttentionBlockwiseDropout(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, rate, seed, q, k, v, bias):
-        out, lse = flash_fwd(rate, seed, q, k, v, bias)
+    def forward(ctx, rate, seed, q, k, v, bias, bn_stride, bn_base):
+        out, lse = flash_fwd(rate, seed, q, k, v, bias, bn_stride, bn_base)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.rate, ctx.seed = rate, seed
+        ctx.rate, ctx.seed, ctx.bn = rate, seed, (bn_stride, bn_base)
         return out
 
     @staticmethod
@@ -216,20 +228,22 @@ class _FusedAttentionBlockwiseDropout(torch.autograd.Function):
         q, k, v, bias, out, lse = ctx.saved_tensors
         g = g.contiguous()
         delta = flash_delta(g, out)
-        args = (ctx.rate, ctx.seed, q, k, v, bias, g, lse, delta)
+        args = (ctx.rate, ctx.seed, q, k, v, bias, g, lse, delta, *ctx.bn)
         dq = flash_dq(*args)
         dk, dv = flash_dkv(*args)
-        return None, None, dq, dk, dv, None
+        return None, None, dq, dk, dv, None, None, None
 
 
 def fused_attention_blockwise_dropout(rate: float, seed: int, q: torch.Tensor,
                                       k: torch.Tensor, v: torch.Tensor,
-                                      bias: Optional[torch.Tensor] = None
-                                      ) -> torch.Tensor:
+                                      bias: Optional[torch.Tensor] = None,
+                                      bn_stride: Optional[int] = None,
+                                      bn_base: int = 0) -> torch.Tensor:
     """Attention for any sequence length with inverted dropout on the
     probabilities, in q's dtype; differentiable in q, k and v."""
     return _FusedAttentionBlockwiseDropout.apply(float(rate), int(seed), q, k,
-                                                 v, bias)
+                                                 v, bias, bn_stride,
+                                                 int(bn_base))
 
 
 def fused_attention_blockwise(q: torch.Tensor, k: torch.Tensor,

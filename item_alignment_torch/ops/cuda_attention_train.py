@@ -23,7 +23,12 @@ Each wrapper launches its kernels for CUDA tensors and runs its plain version
 (``*_reference``) for CPU tensors; any other device raises.  The keep bit of
 score (b, n, i, j) is a hash of (seed, b, n, i, j) alone
 (``keep_mask_reference``; ``csrc/attention_common.cuh`` gives the formula),
-so the plain versions draw the same bits as the kernels.
+so the plain versions draw the same bits as the kernels.  Every function
+that draws them takes ``bn_stride`` and ``bn_base``: the pair (b, n) enters
+the hash as ``b * bn_stride + n + bn_base``, by default ``(N, 0)``.  A call
+on rows ``b0..`` and heads ``n0..`` of a larger batch of ``N_g`` heads (a
+data or tensor parallel rank's share) passes ``(N_g, b0 * N_g + n0)`` and
+draws that slice of the larger call's bits.
 """
 
 from __future__ import annotations
@@ -50,11 +55,14 @@ _PLAIN_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
 def keep_mask_reference(seed: int, B: int, N: int, S: int, threshold: int,
-                        like: torch.Tensor) -> torch.Tensor:
+                        like: torch.Tensor, bn_stride: Optional[int] = None,
+                        bn_base: int = 0) -> torch.Tensor:
     """Keep bits ``[B, N, S, S]`` of the attention kernels, computed with
-    int64 tensor ops on ``like``'s device."""
+    int64 tensor ops on ``like``'s device; (b, n) hashes as ``b *
+    bn_stride + n + bn_base`` (``bn_stride`` None: N)."""
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=like.device)  # noqa: E731
-    bn = ar(B)[:, None] * N + ar(N)[None, :]
+    stride = N if bn_stride is None else int(bn_stride)
+    bn = ar(B)[:, None] * stride + ar(N)[None, :] + int(bn_base)
     head = mix32(mix32((int(seed) & M32) ^ 0x9E3779B9) ^ bn)[:, :, None, None]
     i, j = ar(S)[:, None], ar(S)[None, :]
     row = mix32(head ^ i)
@@ -118,6 +126,7 @@ def _scores(q, k, bias):
 def online_softmax_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], block_n: int,
+    bn_stride: Optional[int] = None, bn_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernels (#2, and #4 of ``cuda_attention_blockwise``) step
     by step, over key tiles of ``block_n``: an online softmax from the finite
@@ -130,7 +139,8 @@ def online_softmax_reference(
     scores = _scores(q, k, bias)
     ct = scores.dtype
     vf = v.to(ct).permute(0, 2, 1, 3)
-    keep = keep_mask_reference(seed, B, N, S, t, q) if t else None
+    keep = keep_mask_reference(seed, B, N, S, t, q, bn_stride,
+                               bn_base) if t else None
     m = scores.new_full((B, N, S, 1), INIT_MAX)
     l = scores.new_zeros((B, N, S, 1))
     acc = scores.new_zeros((B, N, S, H))
@@ -153,11 +163,13 @@ def online_softmax_reference(
 
 def fused_attention_dropout_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None, bn_stride: Optional[int] = None,
+    bn_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #2: ``online_softmax_reference`` over
     the kernel's 64-key tiles.  Returns (out, lse)."""
-    return online_softmax_reference(rate, seed, q, k, v, bias, BLOCK_N)
+    return online_softmax_reference(rate, seed, q, k, v, bias, BLOCK_N,
+                                    bn_stride, bn_base)
 
 
 def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -170,7 +182,7 @@ def attention_delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 def backward_terms_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], g: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor,
+    delta: torch.Tensor, bn_stride: Optional[int] = None, bn_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The two score-shaped terms of the backward kernels (#3, and #5/#6 of
     ``cuda_attention_blockwise``), ``[B, N, S, S]`` in the accumulation
@@ -187,7 +199,7 @@ def backward_terms_reference(
     p_r = torch.exp((scores.double() - shift[..., None]).to(ct))
     dpd = gf @ vf.transpose(-1, -2)
     if t:
-        keep = keep_mask_reference(seed, B, N, S, t, q)
+        keep = keep_mask_reference(seed, B, N, S, t, q, bn_stride, bn_base)
         pd = torch.where(keep, p_r, torch.zeros_like(p_r))
         dpd = torch.where(keep, dpd, torch.zeros_like(dpd))
     else:
@@ -215,13 +227,14 @@ def dkv_reference(pd: torch.Tensor, ds: torch.Tensor, q: torch.Tensor,
 def fused_attention_dropout_bwd_reference(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], g: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor,
+    delta: torch.Tensor, bn_stride: Optional[int] = None, bn_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of kernel #3 (the TPU kernel's algebra):
     ``backward_terms_reference``, then dq = ds k / sqrt(H), dk = ds^T q /
     sqrt(H) and dv = (keep * p_r)^T g.  ``lse`` float64 and ``delta`` fp32
     are ``[B, N, S]``; returns dq, dk, dv in q's dtype."""
-    pd, ds = backward_terms_reference(rate, seed, q, k, v, bias, g, lse, delta)
+    pd, ds = backward_terms_reference(rate, seed, q, k, v, bias, g, lse, delta,
+                                      bn_stride, bn_base)
     return (dq_reference(ds, k), *dkv_reference(pd, ds, q, g))
 
 
@@ -229,17 +242,19 @@ def fused_attention_dropout_bwd_reference(
 # kernels
 # ---------------------------------------------------------------------------
 
-def _launch_bwd(rate, seed, q, k, v, bias, g, out, lse):
+def _launch_bwd(rate, seed, q, k, v, bias, g, out, lse, bn_stride=None,
+                bn_base=0):
     """Kernel #3's contract on the Hopper backward family: delta =
     rowsum(g * out), then the dQ and dK/dV kernels; (dq, dk, dv)."""
     delta = _launch.launch_delta(g, out)
-    args = (rate, seed, q, k, v, bias, g, lse, delta)
+    args = (rate, seed, q, k, v, bias, g, lse, delta, bn_stride, bn_base)
     return (_launch.launch_dq(*args), *_launch.launch_dkv(*args))
 
 
 def fused_attention_dropout_fwd(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None, bn_stride: Optional[int] = None,
+    bn_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #2's contract: (out, lse).  q/k/v ``[B, S, N, H]`` (float32 or
     bfloat16, H in 32/64/128 on CUDA), bias ``[B, 1, 1, S]`` or None,
@@ -249,8 +264,9 @@ def fused_attention_dropout_fwd(
     check_inputs(q, k, v, bias)
     dropout_consts(rate)
     if _device_kind(q, "fused_attention_dropout") == "cpu":
-        return fused_attention_dropout_reference(rate, seed, q, k, v, bias)
-    out = _launch.launch_fwd(rate, seed, q, k, v, bias)
+        return fused_attention_dropout_reference(rate, seed, q, k, v, bias,
+                                                 bn_stride, bn_base)
+    out = _launch.launch_fwd(rate, seed, q, k, v, bias, bn_stride, bn_base)
     FWD_LAUNCHES += 1
     return out
 
@@ -258,7 +274,7 @@ def fused_attention_dropout_fwd(
 def fused_attention_dropout_bwd(
     rate: float, seed: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor], g: torch.Tensor, out: torch.Tensor,
-    lse: torch.Tensor,
+    lse: torch.Tensor, bn_stride: Optional[int] = None, bn_base: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel #3's contract: (dq, dk, dv) from the forward's out and lse
     (float64 ``[B, N, S]``) and the output gradient ``g``.  On CUDA it
@@ -273,8 +289,10 @@ def fused_attention_dropout_bwd(
     g = g.contiguous()
     if _device_kind(q, "fused_attention_dropout") == "cpu":
         return fused_attention_dropout_bwd_reference(
-            rate, seed, q, k, v, bias, g, lse, attention_delta(g, out))
-    grads = _launch_bwd(rate, seed, q, k, v, bias, g, out, lse)
+            rate, seed, q, k, v, bias, g, lse, attention_delta(g, out),
+            bn_stride, bn_base)
+    grads = _launch_bwd(rate, seed, q, k, v, bias, g, out, lse, bn_stride,
+                        bn_base)
     BWD_LAUNCHES += 1
     return grads
 
@@ -284,24 +302,28 @@ class _FusedAttentionDropout(torch.autograd.Function):
     the seed.  The bias is a mask and gets no gradient."""
 
     @staticmethod
-    def forward(ctx, rate, seed, q, k, v, bias):
-        out, lse = fused_attention_dropout_fwd(rate, seed, q, k, v, bias)
+    def forward(ctx, rate, seed, q, k, v, bias, bn_stride, bn_base):
+        out, lse = fused_attention_dropout_fwd(rate, seed, q, k, v, bias,
+                                               bn_stride, bn_base)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.rate, ctx.seed = rate, seed
+        ctx.rate, ctx.seed, ctx.bn = rate, seed, (bn_stride, bn_base)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
         dq, dk, dv = fused_attention_dropout_bwd(ctx.rate, ctx.seed, q, k, v,
-                                                 bias, g, out, lse)
-        return None, None, dq, dk, dv, None
+                                                 bias, g, out, lse, *ctx.bn)
+        return None, None, dq, dk, dv, None, None, None
 
 
 def fused_attention_dropout(rate: float, seed: int, q: torch.Tensor,
                             k: torch.Tensor, v: torch.Tensor,
-                            bias: Optional[torch.Tensor] = None
+                            bias: Optional[torch.Tensor] = None,
+                            bn_stride: Optional[int] = None, bn_base: int = 0
                             ) -> torch.Tensor:
     """Attention with inverted dropout on the probabilities, in q's dtype;
-    differentiable in q, k and v."""
-    return _FusedAttentionDropout.apply(float(rate), int(seed), q, k, v, bias)
+    differentiable in q, k and v.  ``bn_stride``/``bn_base``: the keep
+    bits' index (the module docstring)."""
+    return _FusedAttentionDropout.apply(float(rate), int(seed), q, k, v, bias,
+                                        bn_stride, int(bn_base))

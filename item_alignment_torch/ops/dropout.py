@@ -23,11 +23,20 @@ same masks, without help from ``torch.utils.checkpoint``'s RNG stashing
 Draws come from a ``torch.Generator`` seeded with the site's seed on the
 tensor's device, so they differ between the CPU and the card (and from
 JAX's), but never between a forward and its backward.
+
+Under data parallelism each rank holds rows ``[b0, b0 + rows)`` of the
+step's global batch (``batch_rows``, which ``engine/train.py`` enters around
+a sharded step).  There a draw over a batch-major tensor is the slice of the
+draw over the global shape, so the ranks drop what one device would drop on
+the whole batch (JAX draws over the global shape under its mesh); it costs
+the ranks the whole batch's random numbers at each site.  ``global_rows``
+gives the attention kernels the same ``b0``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -73,11 +82,59 @@ def dropout_consts(rate: float) -> Tuple[int, float]:
     return t, 1.0 - t / 256.0
 
 
+# (b0, rows, total) of a data-parallel rank's share of the global batch
+_ROWS: Optional[Tuple[int, int, int]] = None
+
+
+@contextlib.contextmanager
+def batch_rows(b0: int, rows: int, total: int):
+    """Inside, the dropout draws of a batch-major tensor of ``rows`` rows
+    are rows ``[b0, b0 + rows)`` of the draw over ``total`` rows."""
+    global _ROWS
+    prev, _ROWS = _ROWS, ((b0, rows, total) if rows != total else None)
+    try:
+        yield
+    finally:
+        _ROWS = prev
+
+
+@contextlib.contextmanager
+def whole_batch():
+    """Inside, no ``batch_rows``: for dropout sites over tensors that every
+    data-parallel rank holds whole (a graph's nodes)."""
+    global _ROWS
+    prev, _ROWS = _ROWS, None
+    try:
+        yield
+    finally:
+        _ROWS = prev
+
+
+def global_rows() -> Tuple[int, Optional[int]]:
+    """(b0, total) of the current ``batch_rows``; (0, None) outside it."""
+    return (0, None) if _ROWS is None else (_ROWS[0], _ROWS[2])
+
+
+def draw_rows(shape, draw: Callable[[tuple], torch.Tensor],
+              batch_major: bool = True) -> torch.Tensor:
+    """``draw(shape)``, or under ``batch_rows`` (for a batch-major tensor)
+    this rank's rows of ``draw`` over the global batch."""
+    if _ROWS is None or not batch_major:
+        return draw(tuple(shape))
+    b0, rows, total = _ROWS
+    if shape[0] != rows:
+        raise ValueError(f"a batch-major dropout of {tuple(shape)} under a "
+                         f"data shard of {rows} rows")
+    return draw((total,) + tuple(shape[1:]))[b0:b0 + rows]
+
+
 def _replay_keep(seed: int, shape, device, threshold: int) -> torch.Tensor:
-    gen = torch.Generator(device=device).manual_seed(seed)
-    draws = torch.randint(0, 256, shape, generator=gen, device=device,
-                          dtype=torch.uint8)
-    return draws >= threshold
+    def draw(shape):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return torch.randint(0, 256, shape, generator=gen, device=device,
+                             dtype=torch.uint8)
+
+    return draw_rows(shape, draw) >= threshold
 
 
 class _ReplayDropout(torch.autograd.Function):
@@ -104,17 +161,21 @@ def replay_dropout(rate: float, seed: int, x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, seed: Optional[int],
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool, batch_major: bool = True) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, survivors
-    divided by 1 - rate."""
+    divided by 1 - rate.  ``batch_major=False`` for a tensor whose first
+    dimension is not the batch (graph nodes, a broadcast mask)."""
     if deterministic or rate == 0.0:
         return x
     if seed is None:
         raise ValueError("training-mode dropout needs a dropout seed")
     if rate == 1.0:
         return torch.zeros_like(x)
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    def draw(shape):
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        return torch.rand(shape, generator=gen, device=x.device)
+
+    keep = draw_rows(x.shape, draw, batch_major) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -18,6 +18,14 @@ exact either way.  ``INT_MM_LAUNCHES`` counts its calls.
 
 This is an inference knob (``ModelConfig.quant="int8"``): ``round`` has no
 gradient, so training keeps the float path.
+
+Under tensor parallelism (``int8_matmul_tensor_parallel``) a
+column-parallel product takes this rank's output channels, whose scales
+are their own; a row-parallel one holds a slice of the feature axis, so
+the per-token and per-channel absmax are all-reduced (max) over the tensor
+axis, and so are the int32 accumulators (sum, exact) before the
+dequantization: the result equals one device's bit for bit (the JAX
+package leaves those collectives to XLA).
 """
 
 from __future__ import annotations
@@ -25,17 +33,23 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 _EPS = 1e-8  # guards all-zero rows and channels (padding tokens)
 INT_MM_LAUNCHES = 0
 
 
-def quantize_rowwise(x: torch.Tensor):
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_rowwise(x: torch.Tensor, amax: Optional[torch.Tensor] = None):
     """[..., D] -> ``(x_q int8, scale [..., 1] fp32)`` with per-row absmax
-    scales, ``x ~= x_q * scale`` and ``scale = absmax / 127``."""
+    scales, ``x ~= x_q * scale`` and ``scale = absmax / 127``; ``amax``,
+    when given, is the rows' absmax over a wider feature axis."""
     xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
+    amax = row_absmax(x) if amax is None else amax
     scale = torch.clamp(amax, min=_EPS) / 127.0
     x_q = torch.clamp(torch.round(xf / scale), -127, 127)
     return x_q.to(torch.int8), scale
@@ -97,3 +111,37 @@ def int8_matmul(x: torch.Tensor, weight: torch.Tensor,
     x_q, x_scale = quantize_rowwise(x.reshape(-1, x.shape[-1]))
     y = int8_matmul_prequant(x_q, x_scale, weight, bias, out_dtype)
     return y.reshape(*lead, weight.shape[0])
+
+
+def int8_matmul_tensor_parallel(x, weight, bias, out_dtype: torch.dtype):
+    """``int8_matmul`` of a ``QuantDense`` under tensor parallelism:
+    ``weight`` (and ``x``) are DTensors over the tensor axis.  Column-
+    parallel (weight rows split): the whole ``x`` against this rank's
+    output channels.  Row-parallel (weight columns split): this rank's
+    feature slice of ``x``, with the absmax of every token and channel and
+    the int32 accumulators all-reduced over the axis."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = weight.device_mesh
+    xl = x.to_local() if isinstance(x, DTensor) else x
+    w = weight.to_local()
+    b = bias.to_local() if isinstance(bias, DTensor) else bias
+    lead = xl.shape[:-1]
+    x2 = xl.reshape(-1, xl.shape[-1])
+    if weight.placements[0] == Shard(0):
+        y = int8_matmul(x2, w, b, out_dtype).reshape(*lead, -1)
+        return DTensor.from_local(y, mesh, [Shard(y.dim() - 1)],
+                                  run_check=False)
+    group = mesh.get_group()
+    x_amax, w_amax = row_absmax(x2), row_absmax(w)
+    for amax in (x_amax, w_amax):
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    x_q, x_scale = quantize_rowwise(x2, x_amax)
+    w_q, w_scale = quantize_rowwise(w, w_amax)
+    acc = int8_mm(x_q, w_q.t()).contiguous()
+    dist.all_reduce(acc, group=group)
+    y = acc.float() * (x_scale * w_scale.reshape(1, -1))
+    if b is not None:
+        y = y + b.float()
+    return DTensor.from_local(y.to(out_dtype).reshape(*lead, -1), mesh,
+                              [Replicate()], run_check=False)

@@ -132,7 +132,7 @@ def test_dispatcher_raises_on_cuda_dropout(monkeypatch):
     nothing falls back to a plain version."""
     calls = []
 
-    def launch(rate, seed, q, k, v, bias):
+    def launch(rate, seed, q, k, v, bias, *keep_index):
         calls.append((q.shape[1], rate, seed))
         return torch.full_like(q, 3.0), torch.zeros(q.shape[0], q.shape[2],
                                                     q.shape[1], dtype=torch.float64)
@@ -166,7 +166,7 @@ def test_dispatcher_raises_on_cuda_long_sequence(monkeypatch):
     launched = []
     monkeypatch.setattr(
         cuda_attention_blockwise, "_launch_fwd",
-        lambda rate, seed, q, k, v, bias: launched.append(rate) or (
+        lambda rate, seed, q, k, v, bias, *keep_index: launched.append(rate) or (
             torch.ones_like(q), torch.zeros(1, 1, 520, dtype=torch.float64)))
     monkeypatch.setattr(cuda_attention, "_launch", lambda *a: pytest.fail(
         "the serving kernel took S > 512"))

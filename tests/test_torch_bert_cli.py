@@ -257,12 +257,39 @@ def test_pred_bert_reads_the_jax_msgpack(legacy, tmp_path):
         (tmp_path / "pt.jsonl").read_text()
 
 
-def test_cli_raises_for_distributed_legacy_runs(legacy, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        tcli.main(["finetune-bert", "--train_file",
-                   str(legacy / "train.jsonl"), "--output_dir",
-                   str(tmp_path), "--device", "cpu", "--distributed",
-                   *_common(legacy)])
+def test_cli_raises_for_distributed_legacy_runs(legacy, tmp_path,
+                                                monkeypatch):
+    """``--distributed`` with neither a coordinator nor torchrun's
+    environment raises; in a process group of one (gloo), ``finetune-bert``
+    trains through the sharding wrappers and writes the parameters of the
+    run without them."""
+    import torch
+    import torch.distributed as dist
+
+    from item_alignment_torch.parallel.dryrun import free_port
+
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["finetune-bert", "--train_file", str(legacy / "train.jsonl"),
+            "--device", "cpu", "--batch_size", "2", "--epochs", "1",
+            *_common(legacy)]
+    with pytest.raises(ValueError, match="--coordinator_address"):
+        tcli.main(argv + ["--output_dir", str(tmp_path / "x"),
+                          "--distributed"])
+    _run(tcli.main, argv + ["--output_dir", str(tmp_path / "one")])
+    try:
+        _run(tcli.main, argv + [
+            "--output_dir", str(tmp_path / "group"), "--distributed",
+            "--coordinator_address", f"127.0.0.1:{free_port()}",
+            "--num_processes", "1", "--process_id", "0"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    ours, theirs = (torch.load(tmp_path / d / "bert_align.pt")
+                    for d in ("group", "one"))
+    assert ours.keys() == theirs.keys()
+    for k in ours:
+        torch.testing.assert_close(ours[k], theirs[k], rtol=2e-5, atol=1e-6)
 
 
 TEXTCNN = {"hidden_size": 32, "num_hidden_layers": 1, "num_attention_heads": 4,

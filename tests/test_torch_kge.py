@@ -303,8 +303,9 @@ def test_kge_trainer_takes_a_one_device_mesh(mesh):
 
 @pytest.mark.parametrize("mesh", [(2, 1, 1), (1, 2, 1), MeshConfig(tensor=2)])
 def test_kge_trainer_raises_on_a_larger_mesh(mesh):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 #4: Parallelism"):
+    """Without a process group of as many processes, a larger mesh raises
+    and says how many to launch (parallel/mesh.py)."""
+    with pytest.raises(ValueError, match="launch 2 processes"):
         TTrainer(tmodels.make_kge_model("transe", 30, 4, 8), _kg(tgraph),
                  batch_size=64, n_epochs=1, device="cpu", mesh=mesh)
 

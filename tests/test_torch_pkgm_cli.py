@@ -250,7 +250,8 @@ def test_pkgm_pretrain_do_eval(corpus, tmp_path):
 
 
 def test_pkgm_pretrain_mesh_raises_with_the_roadmap_item(corpus):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 #4: Parallelism"):
+    """``--mesh 2,1,1`` reaches the KGE trainer's mesh, which in one
+    process raises and says how many processes to launch."""
+    with pytest.raises(ValueError, match="launch 2 processes"):
         tcli.main(_pretrain(corpus, "kge_mesh", "--epochs", "1", "--mesh",
                             "2,1,1"))

@@ -231,12 +231,14 @@ def test_dropout_training_is_reproducible():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=TMesh(data=2)), "Queue 1 #4: Parallelism"),
-    (dict(mesh=TMesh(fsdp=2)), "Queue 1 #4: Parallelism"),
+    (dict(mesh=TMesh(data=2)), "launch 2 processes"),
+    (dict(mesh=TMesh(fsdp=2)), "launch 2 processes"),
 ])
 def test_trainer_raises_on_what_is_not_ported(kw, match):
+    """A mesh of more devices than processes raises (the port runs one
+    process per device: parallel/mesh.py), before any work."""
     model = ttext.RobertaOneTower(TModel(**TINY), device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         TTrainer(model, TTrain(**kw), device="cpu")
     # adversarial training is ported (engine/adversarial.py): it builds,
     # with zero deltas of the noise spec's shapes
