@@ -286,11 +286,13 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
    with (bn_stride, bn_base) = (N, r0 * N + h0): out, lse, dq, dk, dv and
    the keep bits read back from each kernel equal the whole call's slice
    bit for bit.  (b) Phase 8's recipe through a process group of one over
-   NCCL, mesh (1,1,1), the model under FSDP2 and the tensor-parallel
-   styles: losses and parameters of one warm-up and three timed steps
-   against the same steps without the wrappers (1e-6 relative; bit for bit
-   is expected and the line says which), ms/step and the idle share of
-   both, 24 calls of #2's and #3's contracts a step.  (c) Two processes
+   NCCL, mesh (1,1,1), the model under FSDP2 (each layer, then the root;
+   a tensor axis of 1 takes no tensor-parallel style): losses and
+   parameters of one warm-up and five timed steps against the same steps
+   without a process group (1e-6 relative; bit for bit is expected and the
+   line says which), ms/step and the idle share of both, 24 calls of #2's
+   and #3's contracts a step; a third run with the tensor-parallel styles
+   put on by hand splits the wrappers' cost between them and FSDP2.  (c) Two processes
    on the one card over gloo, mesh (2,1,1), one step at hidden 256 through
    the kernels against the same step in one process (loss 1e-6 relative,
    gradients 1e-5 of the largest); (1,1,2) is left out (gloo's collectives
@@ -1693,13 +1695,15 @@ ATTENTION_KERNELS = ("attn_fwd_bf16", "attn_fwd_f32", "flash_fwd_bf16",
 
 
 def profile_step(step, step_ms: float, kernel_groups=KERNEL_GROUPS,
-                 top: int = 0) -> str:
+                 top: int = 0, host_ranges=()) -> str:
     """One more train step (``step()``) under torch.profiler: the device
     time of its kernels by group (``kernel_groups``: (name, substrings of
     a kernel's name) pairs, the rest "other"), the share of the unprofiled
     step time (``step_ms``) in which the device ran none, the six host
-    ops whose own kernels took the most device time and, with ``top``, the
-    ``top`` kernels that took the most."""
+    ops whose own kernels took the most device time, with ``top`` the
+    ``top`` kernels that took the most, and with ``host_ranges`` the host
+    time spent inside the ranges whose names start so (summed over their
+    calls; under the profiler, which slows the host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1739,7 +1743,19 @@ def profile_step(step, step_ms: float, kernel_groups=KERNEL_GROUPS,
             + ("; kernels: " + ", ".join(
                 f"{name} {ms:.2f} ms" for name, ms in sorted(
                     kernels.items(), key=lambda x: -x[1])[:top])
-               if top else ""))
+               if top else "")
+            + ("; host time in " + ", ".join(
+                "{} {:.2f} ms ({} calls)".format(prefix, *_host_range(
+                    prof, prefix)) for prefix in host_ranges)
+               if host_ranges else ""))
+
+
+def _host_range(prof, prefix: str) -> tuple:
+    """(ms, calls) of the host time inside the profiled ranges whose names
+    start with ``prefix``."""
+    events = [e for e in prof.key_averages() if e.key.startswith(prefix)]
+    return (sum(e.cpu_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
 
 
 def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
@@ -4835,13 +4851,18 @@ def phase_offsets(gen: torch.Generator) -> None:
 
 
 def _parallel_steps(mcfg: ModelConfig, tcfg: TrainConfig, seed: int,
-                    batches: list) -> dict:
+                    batches: list, prepare=None) -> dict:
     """Phase 8's steps (one warm-up, the rest timed) and one profiled step
-    through a ``Trainer``; the parameters are read before the profiled
-    step."""
+    through a ``Trainer`` (``prepare(trainer)`` runs before it shards the
+    model); the parameters are read before the profiled step."""
     model = RobertaOneTower(mcfg, seed=seed)
-    trainer = Trainer(model, tcfg).setup()
+    trainer = Trainer(model, tcfg)
+    if prepare is not None:
+        prepare(trainer)
+    trainer.setup()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     zero_counters()
     losses, times = [], []
     for batch in batches:
@@ -4851,28 +4872,56 @@ def _parallel_steps(mcfg: ModelConfig, tcfg: TrainConfig, seed: int,
         times.append(time.perf_counter() - t0)
         losses.append(loss.item())
     launches = counters()
+    memory = (f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+              f"allocated, {torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries}"
+              " allocator retries")
     step_ms = sum(times[1:]) / (len(times) - 1) * 1e3
     params = trainer._host_params()
-    profiled = profile_step(lambda: trainer.train_step(batches[-1]), step_ms)
+    profiled = profile_step(lambda: trainer.train_step(batches[-1]), step_ms,
+                            host_ranges=FSDP_RANGES)
     return dict(model=model, trainer=trainer, losses=losses, params=params,
-                step_ms=step_ms, launches=launches, profiled=profiled)
+                step_ms=step_ms, launches=launches, profiled=profiled,
+                memory=memory)
+
+
+# FSDP2's profiler ranges (torch/distributed/fsdp/_fully_shard): its hooks'
+# host time in 23b's profiled steps
+FSDP_RANGES = ("FSDP::root_pre_forward", "FSDP::pre_forward",
+               "FSDP::post_forward", "FSDP::pre_backward",
+               "FSDP::post_backward_reduce", "FSDP::post_backward_reshard",
+               "FSDP::root_post_backward_callback",
+               "RegisterPostBackwardFunctionBackward")
+
+
+def _tensor_styles(trainer) -> None:
+    """The tensor-parallel styles on the trainer's tensor axis of 1, which
+    ``shard_params`` leaves out there: their cost alone."""
+    from torch.distributed.tensor.parallel import parallelize_module
+
+    from item_alignment_torch.parallel import sharding as sh
+
+    specs = sh.tree_shardings(trainer.model, sh.mesh_sizes(trainer.mesh))
+    parallelize_module(trainer.model, trainer.mesh["tensor"],
+                       sh._tensor_plan(trainer.model, specs))
 
 
 def phase_parallel(cfg: ModelConfig, seed: int, gen: torch.Generator) -> tuple:
     """23b: phase 8's recipe (RoBERTa-large, batch 40, S=510, bf16, dropout
     0.1, bf16 moments) through the parallel layer: a process group of one
-    over NCCL, mesh (1,1,1), the model under FSDP2 and the tensor-parallel
-    styles.  Against the same steps without them: losses and parameters
-    within 1e-6 relative (bit for bit expected: a collective of one copies),
-    ms/step and the idle share of both, and 24 calls of #2's and #3's
-    contracts a step."""
+    over NCCL, mesh (1,1,1), where the model is under FSDP2 (on each layer,
+    then the root) and under no tensor-parallel style (the tensor axis is
+    1).  Against the same steps without a process group: losses and
+    parameters within 1e-6 relative (bit for bit expected: a collective of
+    one copies), ms/step and the idle share, and 24 calls of #2's and #3's
+    contracts a step.  A third run puts the tensor-parallel styles on by
+    hand as well, which splits the wrappers' cost between the two."""
     from torch.distributed.fsdp import FSDPModule
     from torch.distributed.tensor import DTensor
 
     from item_alignment_torch.parallel.dryrun import free_port
     from item_alignment_torch.parallel.mesh import initialize_distributed
 
-    B, S, steps = 40, cfg.pair_seq_len, 4
+    B, S, steps = 40, cfg.pair_seq_len, 6
     ids, mask = pair_batch(B * steps, S, cfg.vocab_size, gen)
     labels = torch.randint(0, 2, (B * steps,), generator=gen, device="cuda")
     batches = [{"input_ids": ids[i * B:(i + 1) * B].cpu().numpy(),
@@ -4885,50 +4934,69 @@ def phase_parallel(cfg: ModelConfig, seed: int, gen: torch.Generator) -> tuple:
                            state_dtype="bfloat16"))
     mcfg = cfg.replace(hidden_dropout_prob=0.1,
                        attention_probs_dropout_prob=0.1)
-    plain = _parallel_steps(mcfg, tcfg, seed, batches)
-    del plain["model"], plain["trainer"]
+    runs = {"plain": _parallel_steps(mcfg, tcfg, seed, batches)}
+    del runs["plain"]["model"], runs["plain"]["trainer"]
     torch.cuda.empty_cache()
     initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
     try:
         check(torch.distributed.get_backend() == "nccl",
               f"phase 23b: backend {torch.distributed.get_backend()}")
-        wrapped = _parallel_steps(mcfg, tcfg, seed, batches)
-        model = wrapped["model"]
-        query = model.roberta.encoder.layer_0.attention.query.weight
-        check(isinstance(model, FSDPModule) and isinstance(query, DTensor)
-              and wrapped["trainer"].mesh is not None,
-              "phase 23b: the model is not under the wrappers")
-        placements = query.placements
-        del wrapped["model"], wrapped["trainer"], model, query
+        for tag, prepare in (("fsdp2", None), ("fsdp2+tp", _tensor_styles)):
+            run = runs[tag] = _parallel_steps(mcfg, tcfg, seed, batches,
+                                              prepare)
+            model = run["model"]
+            layer = model.roberta.encoder.layer_0
+            query = layer.attention.query.weight
+            check(isinstance(model, FSDPModule) and isinstance(layer, FSDPModule)
+                  and isinstance(query, DTensor)
+                  and run["trainer"].mesh is not None,
+                  f"phase 23b {tag}: the model is not under the wrappers")
+            run["placements"] = query.placements
+            del run["model"], run["trainer"], model, layer, query
+            torch.cuda.empty_cache()
     finally:
         torch.distributed.destroy_process_group()
-    torch.cuda.empty_cache()
-    exact = (plain["losses"] == wrapped["losses"] and all(
-        torch.equal(p, wrapped["params"][n])
-        for n, p in plain["params"].items()))
-    worst = max(_rel(wrapped["params"][n], p)
-                for n, p in plain["params"].items())
-    loss_rel = max(abs(a - b) / abs(b) for a, b in
-                   zip(wrapped["losses"], plain["losses"]))
-    check(worst <= 1e-6 and loss_rel <= 1e-6,
-          f"phase 23b: the wrapped steps leave the plain ones: losses "
-          f"{wrapped['losses']} vs {plain['losses']}, parameters {worst:.3e}")
+    plain, wrapped = runs["plain"], runs["fsdp2"]
     expect = per_step(short=steps)
-    check(wrapped["launches"] == expect, f"phase 23b: launches (#1..#6) "
-          f"{wrapped['launches']} over {steps} steps, expected {expect}")
-    for tag, run in (("without the wrappers", plain),
-                     ("one NCCL rank, FSDP2 + TP", wrapped)):
-        print(f"phase 23b parallel {tag}: losses "
+    for tag in ("fsdp2", "fsdp2+tp"):
+        run = runs[tag]
+        run["exact"] = (plain["losses"] == run["losses"] and all(
+            torch.equal(p, run["params"][n])
+            for n, p in plain["params"].items()))
+        worst = max(_rel(run["params"][n], p)
+                    for n, p in plain["params"].items())
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(run["losses"], plain["losses"]))
+        run["rel"] = max(worst, loss_rel)
+        check(run["rel"] <= 1e-6,
+              f"phase 23b {tag}: the wrapped steps leave the plain ones: "
+              f"losses {run['losses']} vs {plain['losses']}, parameters "
+              f"{worst:.3e}")
+        check(run["launches"] == expect, f"phase 23b {tag}: launches "
+              f"(#1..#6) {run['launches']} over {steps} steps, expected "
+              f"{expect}")
+    for tag, name in (("plain", "without a process group"),
+                      ("fsdp2", "one NCCL rank, FSDP2 (the (1,1,1) path)"),
+                      ("fsdp2+tp", "one NCCL rank, FSDP2 + the tensor-"
+                                   "parallel styles put on by hand")):
+        run = runs[tag]
+        print(f"phase 23b parallel {name}: losses "
               f"{[round(x, 6) for x in run['losses']]}; {run['step_ms']:.2f} "
               f"ms/step over {steps - 1} timed steps "
-              f"({B / run['step_ms'] * 1e3:.2f} train pairs/s); profile of "
-              f"one more step: {run['profiled']}", flush=True)
-    print(f"phase 23b parallel: mesh (1,1,1) over NCCL (the query weight "
-          f"{placements}) against the plain Trainer: "
-          + ("bit for bit" if exact else
-             f"within {max(worst, loss_rel):.3e} relative (not bit for bit)")
-          + f"; wrapper cost {wrapped['step_ms'] - plain['step_ms']:+.2f} "
-          f"ms/step; launches #1..#6 {wrapped['launches']}", flush=True)
+              f"({B / run['step_ms'] * 1e3:.2f} train pairs/s), "
+              f"{run['memory']}; profile of one more step: "
+              f"{run['profiled']}", flush=True)
+    both = runs["fsdp2+tp"]
+    print("phase 23b parallel: mesh (1,1,1) over NCCL against the plain "
+          "Trainer: " + "; ".join(
+              f"{tag} (the query weight {runs[tag]['placements']}) "
+              + ("bit for bit" if runs[tag]["exact"] else
+                 f"within {runs[tag]['rel']:.3e} relative (not bit for bit)")
+              for tag in ("fsdp2", "fsdp2+tp"))
+          + f"; wrapper cost: FSDP2 {wrapped['step_ms'] - plain['step_ms']:+.2f}"
+          f" ms/step, the tensor-parallel styles on top "
+          f"{both['step_ms'] - wrapped['step_ms']:+.2f} ms/step; launches "
+          f"#1..#6 {wrapped['launches']}", flush=True)
     return wrapped["launches"]
 
 

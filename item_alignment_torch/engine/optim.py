@@ -26,6 +26,7 @@ from torch.distributed.tensor import DTensor
 
 from item_alignment_torch.config import OptimizerConfig
 from item_alignment_torch.convert import flax_path
+from item_alignment_torch.parallel.sharding import distribute_like, full_tensor
 
 
 def decay_mask(names: Iterable[str]) -> Dict[str, bool]:
@@ -140,8 +141,8 @@ class Optimizer:
                 for n, p in self.params.items()}
 
     def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """The whole tensor of which ``t`` is this rank's shard laid out as
-        parameter ``name`` (a collective under a mesh)."""
+        """The whole tensor of which ``t`` (a moment) is this rank's shard
+        laid out as parameter ``name`` (a collective under a mesh)."""
         p = self.params[name]
         if not isinstance(p, DTensor):
             return t
@@ -152,8 +153,6 @@ class Optimizer:
     def _shard(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's shard of the whole tensor ``t`` laid out as
         parameter ``name``."""
-        from item_alignment_torch.parallel.sharding import distribute_like
-
         p = self.params[name]
         if not isinstance(p, DTensor):
             return t.to(p.device)
@@ -162,7 +161,7 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> bool:
         """One mini-step; returns whether the parameters were updated."""
-        grads = {n: local(g) for n, g in self._grads().items()}
+        grads = self._grads()
         k = self.cfg.grad_accumulation_steps
         if k > 1:
             n = self.mini_step
@@ -174,10 +173,7 @@ class Optimizer:
                 return False
             grads, self.acc = self.acc, {}
         if self.cfg.max_grad_norm:
-            # the norm of each whole gradient (gathered from its shards)
-            grads = clip_by_global_norm(
-                grads, self.cfg.max_grad_norm,
-                lambda n, g: torch.linalg.vector_norm(self._full(n, g).float()))
+            grads = clip_by_global_norm(grads, self.cfg.max_grad_norm)
         upd = self.adamw.update(grads)
         torch._foreach_add_([local(self.params[n]) for n in self.trained],
                             [upd[n] for n in self.trained])
@@ -196,7 +192,7 @@ class Optimizer:
 
         return {"count": self.adamw.count, "mu": whole(self.adamw.mu),
                 "nu": whole(self.adamw.nu), "mini_step": self.mini_step,
-                "acc": whole(self.acc)}
+                "acc": {n: full_tensor(t) for n, t in self.acc.items()}}
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, object]) -> None:
@@ -212,20 +208,28 @@ class Optimizer:
                 t.copy_(self._shard(name, theirs[name]))
         self.adamw.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
-        self.acc = {n: self._shard(n, t) for n, t in state["acc"].items()}
+        self.acc = {n: distribute_like(t, self.params[n])
+                    if isinstance(self.params[n], DTensor)
+                    else t.to(self.params[n].device)
+                    for n, t in state["acc"].items()}
 
 
-def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float,
-                        norm_of: Callable = None) -> Dict[str, torch.Tensor]:
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
+                        ) -> Dict[str, torch.Tensor]:
     """Scale every gradient by max_norm / norm when the global norm is not
-    below max_norm (no host synchronisation).  ``norm_of(name, grad)`` is a
-    gradient's norm (by default its own; the whole gradient's for a shard,
-    so that every rank scales by the same factor)."""
-    norm_of = norm_of or (lambda n, g: torch.linalg.vector_norm(g.float()))
-    norm = torch.linalg.vector_norm(
-        torch.stack([norm_of(n, g) for n, g in grads.items()]))
+    below max_norm (no host synchronisation).  A sharded gradient (a
+    DTensor) counts whole: the norm of the gradients of each mesh reduces
+    over its ranks, so every rank scales by the same factor.  The scaled
+    gradients are this rank's shards."""
+    by_mesh: Dict[object, list] = {}
+    for g in grads.values():
+        mesh = g.device_mesh if isinstance(g, DTensor) else None
+        by_mesh.setdefault(mesh, []).append(g)
+    norm = torch.linalg.vector_norm(torch.stack([
+        full_tensor(torch.nn.utils.get_total_norm([g.float() for g in gs]))
+        for gs in by_mesh.values()]))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    return {n: g * factor.to(g.dtype) for n, g in grads.items()}
+    return {n: local(g) * factor.to(g.dtype) for n, g in grads.items()}
 
 
 def make_optimizer(cfg: OptimizerConfig, params: Mapping[str, torch.Tensor]

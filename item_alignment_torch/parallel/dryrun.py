@@ -9,9 +9,11 @@ result it must equal.
 
 ``spawn(fn, world, *args)`` runs ``fn(*args)`` in ``world`` processes joined
 by ``parallel/mesh.initialize_distributed`` (gloo on the CPU, NCCL on CUDA;
-one process per device) and returns rank 0's result.  The tests drive it on
-the CPU; ``python -m item_alignment_torch.parallel.dryrun --world N`` runs
-``dryrun_multichip`` in N processes.
+one process per device) and returns rank 0's result.  Every function runs
+on the card unless it is given ``device="cpu"``, as the tests give it;
+``python -m item_alignment_torch.parallel.dryrun --world N`` runs
+``dryrun_multichip`` in N processes, one card each (``--device cpu``: on
+the CPU).
 
 - ``text_step``: one ``Trainer`` step of a tiny ``RobertaOneTower``: the
   loss, the whole gradients handed to the optimizer, the updated
@@ -48,12 +50,16 @@ from item_alignment_torch.config import (
     OptimizerConfig,
     TrainConfig,
 )
+from item_alignment_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[2]
 
 TINY = dict(vocab_size=120, hidden_size=32, num_hidden_layers=2,
             num_attention_heads=4, intermediate_size=64, max_seq_len=4,
             max_seq_len_pv=4, max_position_embeddings=64)
+# the dry run's text width: heads of 32, which the CUDA attention kernels
+# take (TINY's heads of 8 run on the CPU alone)
+DRY_WIDTH = dict(hidden_size=128, intermediate_size=256)
 # JAX's test_multichip_scaling.py schedule: warmup 1 of 8 steps
 OPT = dict(learning_rate=1e-3, total_steps=8)
 
@@ -68,7 +74,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(fn: Callable, world: int, *args, device: str = "cpu",
+def spawn(fn: Callable, world: int, *args, device=None,
           timeout: float = 120.0, backend: Optional[str] = None) -> Any:
     """``fn(*args)`` in ``world`` new processes (``fn`` a module-level
     function of an importable module), one process group over them (on
@@ -112,10 +118,15 @@ def spawn(fn: Callable, world: int, *args, device: str = "cpu",
         return torch.load(os.path.join(tmp, "out.pt"), weights_only=False)
 
 
-def run_all(calls) -> list:
-    """Several calls in one process group: ``calls`` is a list of (name of
-    a function of this module, args); their results in order."""
-    return [globals()[name](*args) for name, args in calls]
+def run_all(calls, device=None) -> list:
+    """Several calls in one process group, each on ``device``: ``calls`` is
+    a list of (name of a function of this module, args[, kwargs]); their
+    results in order."""
+    out = []
+    for name, args, *kw in calls:
+        kwargs = kw[0] if kw else {}
+        out.append(globals()[name](*args, device=device, **kwargs))
+    return out
 
 
 def _worker(rank: int, spec_path: str) -> None:
@@ -161,7 +172,7 @@ def text_batch(cfg: ModelConfig, B: int, seed: int = 0) -> Dict[str, np.ndarray]
             "labels": (np.arange(B) % 2).astype(np.int32)}
 
 
-def _trainer(model, mesh, B: int, device: str, **kw):
+def _trainer(model, mesh, B: int, device, **kw):
     from item_alignment_torch.engine.train import Trainer
 
     tcfg = TrainConfig(seed=0, train_batch_size=B, eval_batch_size=B,
@@ -190,7 +201,7 @@ def _capture_grads(trainer) -> Dict[str, torch.Tensor]:
 
 
 def text_step(mesh=None, dropout: float = 0.0, state=None, B: int = 8,
-              steps: int = 1, device: str = "cpu", dtype: str = "float32",
+              steps: int = 1, device=None, dtype: str = "float32",
               width: Optional[dict] = None, **opt) -> Dict[str, Any]:
     """``steps`` Trainer steps of the tiny RobertaOneTower (weights from
     seed 0, or ``state``; ``width`` overrides ``TINY``: the CUDA kernels
@@ -213,7 +224,40 @@ def text_step(mesh=None, dropout: float = 0.0, state=None, B: int = 8,
                    trainer.optimizer.state_dict()["mu"].items()}}
 
 
-def eval_probs(mesh=None, quant: Optional[str] = None, device: str = "cpu",
+def held_param_bytes(mesh=None, device=None, layers: int = 4,
+                     B: int = 8) -> Dict[str, int]:
+    """The parameter bytes this rank holds as each attention block starts,
+    at most over one training step of a ``layers``-layer tiny
+    RobertaOneTower (``peak``), beside the whole model's bytes (``whole``)
+    and one layer's (``layer``).  FSDP2 gathers a block only while it runs,
+    so over an fsdp axis of f the peak is the root's parameters, one whole
+    layer and 1/f of each other layer."""
+    from item_alignment_torch.engine.optim import local
+    from item_alignment_torch.models.encoder import SelfAttention
+    from item_alignment_torch.models.text import RobertaOneTower
+
+    cfg = text_config(0.0, num_hidden_layers=layers)
+    model = RobertaOneTower(cfg, device=device, seed=0)
+
+    def nbytes(params):
+        return sum(local(p).numel() * p.element_size() for p in params)
+
+    whole = nbytes(model.parameters())
+    layer = nbytes(model.roberta.encoder.layer_0.parameters())
+    trainer = _trainer(model, mesh, B, device).setup()
+    peak = [0]
+
+    def held(*_):
+        peak[0] = max(peak[0], nbytes(model.parameters()))
+
+    for m in model.modules():
+        if isinstance(m, SelfAttention):
+            m.register_forward_pre_hook(held)
+    trainer.train_step(text_batch(cfg, B))
+    return {"peak": peak[0], "whole": whole, "layer": layer}
+
+
+def eval_probs(mesh=None, quant: Optional[str] = None, device=None,
                B: int = 8) -> np.ndarray:
     """``Trainer.evaluate``'s probabilities of a RobertaOneTower at JAX's
     test width (hidden 64, 4 heads, FFN 128) from seed 0."""
@@ -227,7 +271,7 @@ def eval_probs(mesh=None, quant: Optional[str] = None, device: str = "cpu",
 
 
 def resume_steps(mesh, directory: str, restore_from: Optional[str] = None,
-                 device: str = "cpu", B: int = 8) -> Dict[str, Any]:
+                 device=None, B: int = 8) -> Dict[str, Any]:
     """Two steps, a train-state checkpoint in ``directory``, one more step;
     then a new ``Trainer`` restores the checkpoint (or the one in
     ``restore_from``, written elsewhere) and takes that step again."""
@@ -257,7 +301,7 @@ LEGACY_LENS = {"pvs": 24, "title": 16, "cate": 8, "cate_path": 12,
 
 
 def legacy_adversarial_steps(mesh=None, mode: str = "PGD",
-                             device: str = "cpu", B: int = 8,
+                             device=None, B: int = 8,
                              steps: int = 2) -> Dict[str, Any]:
     """Two steps of the legacy ``BertAlignModel`` (12 heads of 8, dropout
     0.1) with adversarial noise on its pvs and title fields: the deltas
@@ -308,7 +352,7 @@ def _step_result(trainer, batch) -> Dict[str, Any]:
     return {"loss": loss, "grads": grads}
 
 
-def nfnet_step(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
+def nfnet_step(mesh=None, device=None, B: int = 8) -> Dict[str, Any]:
     """``ImageTwoTower`` over a one-block NFNet at 32 px, dropout 0.1."""
     from item_alignment_torch.models import image as im
 
@@ -328,14 +372,15 @@ def nfnet_step(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
     return _step_result(_trainer(model, mesh, B, device), batch)
 
 
-def coca_step(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
-    """``CoCaForItemAlignment`` (``sum``) at JAX's dry-run width, fp32,
+def coca_step(mesh=None, device=None, B: int = 8) -> Dict[str, Any]:
+    """``CoCaForItemAlignment`` (``sum``) at JAX's dry-run depth, with heads
+    of 32 (JAX's are 16 wide, which the CUDA kernels do not take), fp32,
     dropout 0.1 in its text towers."""
     from item_alignment_torch.models.multimodal import CoCaForItemAlignment
 
-    cfg = ModelConfig(model_name="coca", ensemble="sum", hidden_size=64,
+    cfg = ModelConfig(model_name="coca", ensemble="sum", hidden_size=128,
                       num_hidden_layers=1, num_attention_heads=4,
-                      intermediate_size=128, vocab_size=100,
+                      intermediate_size=256, vocab_size=100,
                       max_position_embeddings=128, image_hidden_size=24,
                       multimodal_depth=1, coca_heads=4, ff_mult=2,
                       image_size=16, patch_size=8, hidden_dropout_prob=0.1,
@@ -350,7 +395,7 @@ def coca_step(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
     return _step_result(_trainer(model, mesh, B, device), batch)
 
 
-def gcn_step(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
+def gcn_step(mesh=None, device=None, B: int = 8) -> Dict[str, Any]:
     """``GCNTwoTower`` at dropout 0.1: the graph and its features whole on
     every rank (each runs the whole spmm and draws the same graph dropout),
     the pair batch over ``data``; loss and whole gradients."""
@@ -364,6 +409,7 @@ def gcn_step(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
         shard_params,
     )
 
+    device = resolve_device(device)
     rs = np.random.RandomState(0)
     n, f = 24, 8
     feats = torch.as_tensor(rs.randn(n, f).astype(np.float32), device=device)
@@ -375,7 +421,7 @@ def gcn_step(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
     model = GCNTwoTower(cfg, device=device, seed=0)
     pairs = {"src": rs.randint(0, n, B), "tgt": rs.randint(0, n, B),
              "labels": np.arange(B) % 2}
-    dmesh = create_mesh(_mesh(mesh), torch.device(device).type)
+    dmesh = create_mesh(_mesh(mesh), device.type)
     rows, ctx = slice(0, B), contextlib.nullcontext()
     if dmesh is not None:
         shard_params(model, dmesh)
@@ -398,7 +444,7 @@ def gcn_step(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
                       for k, p in model.named_parameters()}}
 
 
-def kge_epoch(mesh=None, device: str = "cpu") -> Dict[str, Any]:
+def kge_epoch(mesh=None, device=None) -> Dict[str, Any]:
     """One epoch of the PKGM KGE trainer over a 160-fact KG at batch 16
     (JAX's ``test_kge_family_sharded_epoch_matches_unsharded``)."""
     from item_alignment_torch.kge import KGETrainer, KnowledgeGraph, make_kge_model
@@ -417,7 +463,7 @@ def kge_epoch(mesh=None, device: str = "cpu") -> Dict[str, Any]:
             "params": {k: v.detach().cpu() for k, v in out["params"].items()}}
 
 
-def family_steps(mesh=None, device: str = "cpu", B: int = 8) -> Dict[str, Any]:
+def family_steps(mesh=None, device=None, B: int = 8) -> Dict[str, Any]:
     return {"nfnet": nfnet_step(mesh, device, B),
             "coca": coca_step(mesh, device, B),
             "gcn": gcn_step(mesh, device, B),
@@ -448,7 +494,7 @@ def check_process_slices(B: int, counts=(1, 2, 4, 8)) -> None:
         assert rows == list(range(B)), (pc, rows)
 
 
-def dryrun_multichip(device: str = "cpu") -> Dict[str, float]:
+def dryrun_multichip(device=None) -> Dict[str, float]:
     """One sharded step of each family on the mesh ``mesh_factors`` picks
     for this process group; the losses (rank 0 prints them)."""
     from item_alignment_torch.parallel.mesh import rank, world_size
@@ -456,7 +502,8 @@ def dryrun_multichip(device: str = "cpu") -> Dict[str, float]:
     n = world_size()
     mesh = mesh_factors(n)
     B = 2 * mesh[0] * 4
-    losses = {"text": text_step(mesh, 0.1, B=B, device=device)["losses"][0]}
+    losses = {"text": text_step(mesh, 0.1, B=B, device=device,
+                                width=DRY_WIDTH)["losses"][0]}
     fam = family_steps(mesh, device, B)
     losses.update({k: v["loss"] for k, v in fam.items()})
     check_process_slices(B)
@@ -474,7 +521,8 @@ def main(argv=None) -> int:
     p.add_argument("--rank", type=int, default=None)
     p.add_argument("--spec", default=None)
     p.add_argument("--world", type=int, default=2)
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default=None,
+                   help="cuda (the default, one card a process) or cpu")
     args = p.parse_args(argv)
     if args.spec is not None:
         _worker(args.rank, args.spec)

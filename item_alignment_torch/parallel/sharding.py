@@ -16,15 +16,20 @@ a Dense ``weight [out, in]`` reads the kernel's spec backwards, so q/k/v
 and the MLP-up weights split their rows over ``tensor`` and their columns
 over ``fsdp``.
 
-``shard_params`` applies the rules with PyTorch's own tools, in place:
-``parallelize_module`` with ``ColwiseParallel``/``RowwiseParallel`` on each
-Dense that the rules split over ``tensor`` (the encoder's attention then
-runs on its rank's heads: ``models/encoder.py``), then one FSDP2
-``fully_shard`` over the ``("data", "fsdp")`` sub-mesh, which replicates over
-``data`` and shards over ``fsdp`` on the dimension the rules give (dim 0
-where they give none: FSDP2 shards every parameter it holds).  The model's
-``load_state_dict`` then takes full tensors too, and ``full_state_dict``
-gathers them back.
+``shard_params`` applies the rules with PyTorch's own tools, in place.
+When the tensor axis is above 1, ``parallelize_module`` puts
+``ColwiseParallel``/``RowwiseParallel`` on each Dense that the rules split
+over ``tensor`` (the encoder's attention then runs on its rank's heads:
+``models/encoder.py``); at tensor 1 the rules still name the axis, as JAX's
+do, but nothing is split, so no module takes those styles.  Then FSDP2
+``fully_shard`` over the ``("data", "fsdp")`` sub-mesh, which replicates
+over ``data`` and shards over ``fsdp`` on the dimension the rules give (dim
+0 where they give none: FSDP2 shards every parameter it holds), goes on
+each block (``_blocks``: a transformer layer, an image block, a GCN layer)
+and then on the root, which keeps the rest.  A block's parameters are
+gathered only while it runs and resharded after its forward, so the fsdp
+axis cuts the parameters a rank holds.  The model's ``load_state_dict``
+then takes full tensors too, and ``full_state_dict`` gathers them back.
 
 Batches ride the ``data`` axis alone, as JAX's ``P("data")``: the fsdp and
 tensor ranks of one data index see the same rows (``batch_sharding``,
@@ -166,6 +171,22 @@ def _tensor_plan(model: nn.Module, specs: Dict[str, Spec]) -> dict:
     return plan
 
 
+def _blocks(model: nn.Module) -> list:
+    """The modules that FSDP2 gathers one at a time, innermost first."""
+    from item_alignment_torch.models.encoder import TransformerLayer
+    from item_alignment_torch.models.graph import GCN2Layer
+    from item_alignment_torch.models.image import NFBlock, PreActBottleneck, ViTBlock
+    from item_alignment_torch.models.multimodal import (
+        CrossAttention,
+        ParallelTransformerBlock,
+    )
+
+    kinds = (TransformerLayer, ViTBlock, PreActBottleneck, NFBlock,
+             ParallelTransformerBlock, CrossAttention, GCN2Layer)
+    return [m for m in reversed(list(model.modules()))
+            if isinstance(m, kinds) and m is not model]
+
+
 def shard_params(model: nn.Module, mesh) -> nn.Module:
     """Shard ``model``'s parameters in place by the rules (module
     docstring); a None mesh leaves the model as it is."""
@@ -178,8 +199,8 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
 
     sizes = mesh_sizes(mesh)
     specs = tree_shardings(model, sizes)
-    plan = _tensor_plan(model, specs)
     tensor = sizes[AXIS_TENSOR]
+    plan = _tensor_plan(model, specs) if tensor > 1 else {}
     t_rank = mesh[AXIS_TENSOR].get_local_rank()
     for name, m in model.named_modules():
         if isinstance(m, SelfAttention) and f"{name}.query" in plan:
@@ -194,8 +215,9 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
     for n, p in model.named_parameters():
         spec = specs[n]
         fsdp_dim[id(p)] = spec.index(AXIS_FSDP) if AXIS_FSDP in spec else 0
-    fully_shard(model, mesh=mesh[AXIS_DATA, AXIS_FSDP],
-                shard_placement_fn=lambda p: Shard(fsdp_dim[id(p)]))
+    for m in _blocks(model) + [model]:
+        fully_shard(m, mesh=mesh[AXIS_DATA, AXIS_FSDP],
+                    shard_placement_fn=lambda p: Shard(fsdp_dim[id(p)]))
     model.register_load_state_dict_pre_hook(_distribute_full_tensors)
     return model
 

@@ -37,6 +37,9 @@ from item_alignment_tpu.parallel import sharding as jsh  # noqa: E402
 torch.set_num_threads(1)
 
 MESHES4 = [(4, 1, 1), (1, 4, 1), (2, 1, 2), (1, 2, 2)]
+FUSED = {"fuse_qkv": True}
+FUSED_MESHES = [(1, 2, 2), (2, 1, 2)]
+CLIP = {"max_grad_norm": 1e-2}  # below the gradients' norm: every step clips
 RATES = (0.0, 0.1)
 STEP_TOL = dict(rtol=2e-5, atol=1e-6)
 
@@ -251,6 +254,17 @@ def test_attention_of_a_slice_is_the_slice_of_the_whole(S):
         torch.testing.assert_close(a, b[sl], rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("fn", ["text_step", "eval_probs", "gcn_step",
+                                "kge_epoch", "dryrun_multichip"])
+def test_dry_run_takes_the_card_unless_given_the_cpu(monkeypatch, fn):
+    """Like every entry point of the port, the dry run's functions and its
+    command line default to the card, and raise without one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(dryrun, fn)()
+    assert dryrun.spawn.__kwdefaults__["device"] is None
+
+
 # ---------------------------------------------------------------------------
 # process groups
 # ---------------------------------------------------------------------------
@@ -258,23 +272,30 @@ def test_attention_of_a_slice_is_the_slice_of_the_whole(S):
 @pytest.fixture(scope="module")
 def four():
     calls = [("text_step", (m, r)) for m in MESHES4 for r in RATES]
+    calls += [("text_step", (m, 0.1), {"width": FUSED}) for m in FUSED_MESHES]
+    calls += [("text_step", (m, 0.1), CLIP) for m in FUSED_MESHES]
     calls += [("eval_probs", (m, q)) for q in (None, "int8")
               for m in ((2, 2, 1), (2, 1, 2))]
     calls += [("legacy_adversarial_steps", ((2, 1, 2),))]
-    out = dryrun.spawn(dryrun.run_all, 4, calls, timeout=120)
+    calls += [("held_param_bytes", (m,)) for m in ((1, 4, 1), (4, 1, 1))]
+    out = dryrun.spawn(dryrun.run_all, 4, calls, "cpu", device="cpu",
+                       timeout=120)
     return dict(zip([str(c) for c in calls], out))
 
 
 @pytest.fixture(scope="module")
 def one_device():
-    return {r: dryrun.text_step(None, r) for r in RATES}
+    out = {r: dryrun.text_step(None, r, device="cpu") for r in RATES}
+    out["fused"] = dryrun.text_step(None, 0.1, device="cpu", width=FUSED)
+    out["clip"] = dryrun.text_step(None, 0.1, device="cpu", **CLIP)
+    return out
 
 
 @pytest.fixture(scope="module")
 def eight(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("parallel8")
     # a one-device checkpoint for the (2,2,2) ranks to restore
-    single = dryrun.resume_steps(None, str(tmp / "single"))
+    single = dryrun.resume_steps(None, str(tmp / "single"), device="cpu")
     calls = [("text_step", ((2, 2, 2), r)) for r in RATES]
     calls += [("resume_steps", ((2, 2, 2), str(tmp / "sharded"))),
               ("resume_steps", ((2, 2, 2), str(tmp / "again"),
@@ -282,7 +303,8 @@ def eight(tmp_path_factory):
               ("family_steps", ((2, 2, 2),)),
               ("gcn_step", ((8, 1, 1),)), ("kge_epoch", ((8, 1, 1),)),
               ("dryrun_multichip", ())]
-    out = dryrun.spawn(dryrun.run_all, 8, calls, timeout=120)
+    out = dryrun.spawn(dryrun.run_all, 8, calls, "cpu", device="cpu",
+                       timeout=120)
     return dict(zip(["text0", "text1", "resume", "resume_single", "families",
                      "gcn8", "kge8", "dryrun"], out), single=single,
                 tmp=tmp)
@@ -305,6 +327,35 @@ def test_sharded_step_equals_one_device(four, one_device, mesh, rate):
                  f"{mesh} dropout {rate}")
 
 
+@pytest.mark.parametrize("mesh", FUSED_MESHES)
+def test_sharded_fused_qkv_step_equals_one_device(four, one_device, mesh):
+    """``fuse_qkv`` under tensor=2, dropout 0.1: each rank's product takes
+    its rows of q, k and v side by side and splits them by the local
+    width; its backward all-reduces the input's gradient over tensor."""
+    _assert_step(four[str(("text_step", (mesh, 0.1), {"width": FUSED}))],
+                 one_device["fused"], f"{mesh} fuse_qkv dropout 0.1")
+
+
+@pytest.mark.parametrize("mesh", FUSED_MESHES)
+def test_sharded_clipped_step_equals_one_device(four, one_device, mesh):
+    """Global-norm clipping under fsdp and tensor: the norm is the whole
+    gradients', reduced from each mesh's shards, so every rank scales by
+    the one-device factor."""
+    _assert_step(four[str(("text_step", (mesh, 0.1), CLIP))],
+                 one_device["clip"], f"{mesh} clipped dropout 0.1")
+
+
+def test_fsdp_gathers_one_block_at_a_time(four):
+    """Over fsdp=4 a rank holds, as each layer starts, the root's
+    parameters, that layer whole and a quarter of each other layer (FSDP2
+    on every layer, then the root); over data=4 it holds them all."""
+    sharded = four[str(("held_param_bytes", ((1, 4, 1),)))]
+    replicated = four[str(("held_param_bytes", ((4, 1, 1),)))]
+    whole, layer = sharded["whole"], sharded["layer"]
+    assert replicated["peak"] == whole
+    assert sharded["peak"] == whole - 3 * (layer - layer // 4)
+
+
 @pytest.mark.parametrize("rate", RATES)
 def test_sharded_step_equals_one_device_on_222(eight, one_device, rate):
     _assert_step(eight[f"text{int(rate > 0)}"], one_device[rate],
@@ -321,7 +372,8 @@ def test_tensor_parallel_eval_equals_tensor_1(four, quant):
     tp2 = four[str(("eval_probs", ((2, 1, 2), quant)))]
     assert np.isfinite(tp1).all() and len(np.unique(tp1)) > 1
     np.testing.assert_allclose(tp2, tp1, rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(tp1, dryrun.eval_probs(None, quant),
+    np.testing.assert_allclose(tp1, dryrun.eval_probs(None, quant,
+                                                      device="cpu"),
                                rtol=2e-5, atol=2e-6)
 
 
@@ -333,7 +385,7 @@ def test_adversarial_deltas_follow_the_one_device_run(four):
     in exact arithmetic: softmax ignores a shift shared by all keys), so
     they are held to 1e-4, the rest to 1e-6."""
     got = four[str(("legacy_adversarial_steps", ((2, 1, 2),)))]
-    ref = dryrun.legacy_adversarial_steps(None)
+    ref = dryrun.legacy_adversarial_steps(None, device="cpu")
     np.testing.assert_allclose(got["losses"], ref["losses"], rtol=2e-5)
     for part in ("deltas", "params"):
         for n, t in ref[part].items():
@@ -367,7 +419,7 @@ def test_port_step_on_212_equals_jax_step_on_212():
         jt.state, loss = jt._train_step(jt.state, jt._device_batch(batch))
         losses.append(float(loss))
     ours = dryrun.spawn(dryrun.text_step, 4, (2, 1, 2), 0.0, state, 8, 2,
-                        timeout=120)
+                        "cpu", device="cpu", timeout=120)
     np.testing.assert_allclose(ours["losses"], losses, rtol=0, atol=1e-4)
     theirs = state_dict_from_flax(jax.tree_util.tree_map(
         np.asarray, {"params": jt.state.params}))
@@ -391,7 +443,7 @@ def test_checkpoint_moves_between_one_device_and_222(eight, tmp_path):
     """A state saved on (2,2,2) loads on one device, and one saved on one
     device loads on (2,2,2): either way the next step is the other run's."""
     on_one = dryrun.resume_steps(None, str(tmp_path / "x"),
-                                 str(eight["tmp"] / "sharded"))
+                                 str(eight["tmp"] / "sharded"), device="cpu")
     np.testing.assert_allclose(on_one["resumed"], eight["resume"]["continued"],
                                rtol=2e-5)
     np.testing.assert_allclose(eight["resume_single"]["resumed"],
@@ -403,7 +455,7 @@ def test_checkpoint_moves_between_one_device_and_222(eight, tmp_path):
 
 @pytest.fixture(scope="module")
 def families():
-    return dryrun.family_steps(None)
+    return dryrun.family_steps(None, "cpu")
 
 
 @pytest.mark.parametrize("family", ["nfnet", "coca", "gcn"])
