@@ -19,7 +19,8 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
    dynamic shared memory, and from the SASS their TF32 tensor-core
    products (HMMA.1688.F32.TF32) and scalar FMAs: each must hold TF32
    products and fewer than a third as many FFMAs (no scalar-FMA product
-   loop), and none may spill.
+   loop), and none may spill.  Then the native data loader's host library
+   (``csrc/ia_data.cpp``) by g++: its build seconds and path.
 3. kernel: the serving kernel (#1) against its plain PyTorch version on the
    card at the serving shapes (B=64, S=510 and S=255, N=16, H=64, bf16), at
    S=510 on the split views of a fused QKV projection, and at small fp32
@@ -68,7 +69,11 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
    (batch 40, S=510, dropout 0.1, fused AdamW with bf16 moments) takes one
    warm-up step and three timed steps through the port's ``Trainer``, then
    one more under ``torch.profiler`` for the device time by kernel group
-   and the device's idle share.
+   and the device's idle share; then one more step under
+   ``utils/flops.count_flops``: its model FLOP within 1% above three times
+   tests/test_flops.py:70's hand count of the encoder (plus, under remat,
+   the attention products the "dots" policy replays), and its share of 989
+   TFLOP/s at the timed ms/step.  Phase 14 does the same at S=1024.
 9. remat: RoBERTa-large at batch 4 with dropout 0.1 and one seed; the
    gradients with each ``remat_policy`` equal those without remat.  It runs
    after phase 8: run before it, it slowed phase 8's host side (the device
@@ -159,7 +164,11 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
    ``image_embedding.json`` of 3072 floats an item from --seed and the
    vocab's ``[unused99]`` at row 99, at configs/roberta_image_large.json's
    width in bf16 with random weights.  (a) ``prepare --with_image``: TSVs
-   of 9 columns whose image columns parse to the written vectors.  (b)
+   of 9 columns whose image columns parse to the written vectors and are
+   the file's own array text byte for byte (the native span scan);
+   ``read_embedding_spans`` timed against ``json.load`` + ``format_rows``
+   on the file, both giving the same texts; a row of NaN, +inf and -inf
+   dumped and read back by ``json.loads``.  (b)
    ``finetune-multimodal --model_name roberta_image_large --ensemble
    begin`` one-tower (max_seq_len 50 + 205, S=510, batch 32, dropout 0.1)
    trains 5 steps, evaluates and predicts: losses finite, the layout's
@@ -228,7 +237,8 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
    1e-6 of the host's ``normalize``; then the step through a ``Trainer``
    (one warm-up and three timed optimizer steps of 4 micro-batches, one
    micro-batch under ``torch.profiler`` split into convolutions,
-   elementwise and the rest, its model FLOP by ``FlopCounterMode``), and at
+   elementwise and the rest, its model FLOP by ``utils/flops.count_flops``,
+   which must equal ``FlopCounterMode``'s there), and at
    288 px in fp32 with dropout 0 the gradient mean that the optimizer hands
    AdamW after 4 micro-batches of 4 pairs within 1e-4 of each parameter's
    max|ref| of one batch of the 16.  (c) ViT-L/16 at 384
@@ -355,6 +365,7 @@ from item_alignment_torch.data.bert_data import (
     build_pretrain_examples,
     pairs_to_field_dataset,
 )
+from item_alignment_torch.data import native_loader
 from item_alignment_torch.data.datasets import ArrayDataset
 from item_alignment_torch.data.prepare import load_item_info, read_finetune_tsv
 from item_alignment_torch import kge
@@ -390,6 +401,7 @@ from item_alignment_torch.ops import cuda_attention_train as cat
 from item_alignment_torch.ops import quant
 from item_alignment_torch.ops import sparse
 from item_alignment_torch.ops.attention import make_attention_bias
+from item_alignment_torch.utils.flops import count_flops
 
 ROOT = Path(__file__).resolve().parent
 # H100 SXM datasheet peaks (dense): bf16 tensor cores, fp32 without them, HBM
@@ -443,12 +455,17 @@ def ragged_mask(B: int, S: int, gen: torch.Generator, lo: int = 1
     return (torch.arange(S, device="cuda")[None, :] < lens[:, None]).long()
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def phase_card() -> str:
     check(torch.cuda.is_available(), "no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(card, flush=True)
@@ -490,6 +507,10 @@ def phase_build() -> None:
     _build.build()
     print(f"phase 2 build: {time.perf_counter() - t0:.3f} s for "
           f"{len(_build.SOURCES)} sources in parallel", flush=True)
+    native_loader.get_lib()  # the host library of the data path, by g++
+    info = native_loader.BUILD_INFO
+    print(f"  csrc/ia_data.cpp (the native data loader): g++ "
+          f"{info['seconds']:.3f} s, {info['path']}", flush=True)
     for name in _build.SOURCES:
         info = _build.BUILD_INFO[name]
         print(f"  {name}.cu: {info['seconds']:.3f} s "
@@ -1818,6 +1839,7 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
     step_ms = sum(times[1:]) / (steps - 1) * 1e3
     profiled = profile_step(lambda: trainer.train_step(batches[-1]),
                             step_ms)
+    flop_line = step_flop(trainer, batches[-1], mcfg, B, remat, step_ms)
     print(f"{name}: RoBERTa-large batch {B} S={S} dropout 0.1, "
           f"fused AdamW bf16 moments, remat={remat}: losses "
           f"{[round(x, 6) for x in losses]}; {step_ms:.2f} ms/step over "
@@ -1828,9 +1850,36 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
           + ", ".join(f"{n.split('.')[-2]} {v:.3e}" for n, v in moved.items()),
           flush=True)
     print(f"{name}: profile of one more step: {profiled}", flush=True)
+    print(f"{name}: {flop_line}; {card_line()}", flush=True)
     del model, trainer
     torch.cuda.empty_cache()
     return dict(launches=launches)
+
+
+def step_flop(trainer, batch, cfg: ModelConfig, B: int, remat: bool,
+              step_ms: float) -> str:
+    """One more train step under ``utils/flops.count_flops``: its model
+    FLOP must be within 1% above three times tests/test_flops.py:70's hand
+    count of the encoder's forward (the forward and the backward's two
+    transposed products of each), plus, under remat, the attention's
+    products, which the "dots" policy replays (it keeps the dense ones)."""
+    flop = count_flops(lambda: trainer.train_step(batch))
+    S, H, L = cfg.pair_seq_len, cfg.hidden_size, cfg.num_hidden_layers
+    attn = L * 4 * B * S * S * H
+    hand = L * 2 * B * S * (4 * H * H + 2 * H * cfg.intermediate_size) + attn
+    check(not remat or cfg.remat_policy == "dots",
+          f"remat policy {cfg.remat_policy}: the count expects dots")
+    expect = 3 * hand + (attn if remat else 0)
+    check(expect <= flop <= 1.01 * expect,
+          f"model FLOP of a step {flop} vs {expect} (3 x the encoder's hand "
+          f"count{' + the remat replay' if remat else ''}; within 1% above)")
+    mfu = flop / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    return (f"model FLOP of a step (utils/flops.count_flops, forward, "
+            f"backward{' and the remat replay' if remat else ''}) "
+            f"{flop / 1e12:.4f} TFLOP, {flop / expect:.5f} x the hand count "
+            f"{expect / 1e12:.4f}; at {step_ms:.2f} ms/step "
+            f"{flop / (step_ms / 1e3) / 1e12:.1f} TFLOP/s, {mfu:.4f} of "
+            f"989 TFLOP/s")
 
 
 def phase_repeat(cfg: ModelConfig, seed: int, gen: torch.Generator, B: int,
@@ -2895,6 +2944,52 @@ def _multimodal_probs(cfg: ModelConfig, state: dict, ds) -> dict:
     return probs
 
 
+def embedding_file_text(path: Path, rows: dict) -> str:
+    """The TSVs' image columns must be the file's own array text byte for
+    byte (the native span scan slices it; the file's arrays are read here
+    with a regular expression, not by the port's reader); the span scan
+    and the ``json.load`` path give the same texts of this file, timed
+    against each other; NaN, +inf and -inf dumped and read back by
+    ``json.loads`` and the span scan."""
+    from item_alignment_torch.data.images import (
+        embedding_texts,
+        load_embedding_json,
+        write_embedding_json,
+    )
+
+    own = dict(re.findall(r'"([^"]*)": \[([^\]]*)\]',
+                          path.read_text(encoding="utf-8")))
+    cols = [(r[1], r[4]) for split in rows.values() for r in split] + [
+        (r[5], r[8]) for split in rows.values() for r in split]
+    bad = [iid for iid, col in cols if col != own[iid]]
+    check(not bad, f"phase 18a: {len(bad)} TSV image columns are not the "
+          f"file's own text (first {bad[:3]})")
+    t0 = time.perf_counter()
+    spans = dict(native_loader.read_embedding_spans(str(path)))
+    span_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_embedding_json(str(path))
+    load_s = time.perf_counter() - t0
+    check(spans == loaded == own, "phase 18a: the span scan, json.load and "
+          "the file's own text disagree")
+    nonfinite = path.parent / "nonfinite.json"
+    texts = embedding_texts(np.array([[np.nan, np.inf, -np.inf, 1.5]],
+                                     np.float32))
+    write_embedding_json(["x"], texts, str(nonfinite))
+    back = json.loads(nonfinite.read_text(encoding="utf-8"))["x"]
+    check(texts == ["NaN,Infinity,-Infinity,1.5"] and math.isnan(back[0])
+          and back[1:] == [math.inf, -math.inf, 1.5]
+          and native_loader.read_embedding_spans(str(nonfinite))
+          == [("x", texts[0])],
+          f"phase 18a: the non-finite dump {texts} read back as {back}")
+    mb = path.stat().st_size / 2 ** 20
+    return (f"{len(cols)} TSV image columns equal the file's own text; "
+            f"read_embedding_spans {span_s:.3f} s vs json.load + "
+            f"format_rows {load_s:.3f} s ({load_s / span_s:.1f}x) on "
+            f"{len(spans)} x {IMAGE_WIDTH} floats ({mb:.1f} MiB); "
+            f"NaN/+inf/-inf dumped as {texts[0]!r}, read back by json.loads")
+
+
 def phase_multimodal(seed: int, card: str) -> tuple:
     """Phase 18: ``prepare --with_image``, RobertaImage-large
     ``finetune-multimodal`` one-tower (``begin``, then ``end``) and
@@ -2942,6 +3037,8 @@ def phase_multimodal(seed: int, card: str) -> tuple:
         column = np.asarray(rows["test"][0][4].split(","), np.float32)
         check(np.array_equal(column, images[ids.index(rows["test"][0][1])]),
               "phase 18a: a TSV image column differs from its vector")
+        native_read = embedding_file_text(
+            processed / "image_embedding.json", rows)
         for name, n in (("mm_step.tsv", MM_BATCH),
                         ("mm_tt_train.tsv", 2 * MM_BATCH)):
             (processed / name).write_text("".join(
@@ -2952,6 +3049,7 @@ def phase_multimodal(seed: int, card: str) -> tuple:
               f"columns: {len(rows['train'])} train, {len(rows['valid'])} "
               f"valid, {len(rows['test'])} test rows, command "
               f"{walls['prepare --with_image']:.3f} s; {card}", flush=True)
+        print(f"phase 18a native loader: {native_read}; {card}", flush=True)
 
         raw_cfg = json.loads((ROOT / "configs" / "roberta_image_large.json"
                               ).read_text())
@@ -4088,11 +4186,16 @@ def phase_images(seed: int, card: str) -> tuple:
         train_peak = torch.cuda.max_memory_allocated()
         profiled = profile_step(lambda: trainer.train_step(batches[0]),
                                 micro_ms, IMAGE_GROUPS, top=8)
-        with FlopCounterMode(display=False) as flops:
+        def micro_batch():
             model(**trainer._device_batch(batches[1]), deterministic=False,
                   dropout_seed=0).loss.backward()
+
+        flop = count_flops(micro_batch)
+        with FlopCounterMode(display=False) as flops:  # no attention here
+            micro_batch()
         model.zero_grad(set_to_none=True)
-        flop = flops.get_total_flops()
+        check(flop == flops.get_total_flops(), f"phase 20b: count_flops "
+              f"{flop} vs FlopCounterMode {flops.get_total_flops()}")
         mfu = flop / (micro_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
         del model, trainer
         gc.collect()
@@ -4123,7 +4226,8 @@ def phase_images(seed: int, card: str) -> tuple:
               f"ms a micro-batch ({NF_BATCH / micro_ms * 1e3:.2f} train "
               f"pairs/s, {2 * NF_BATCH / micro_ms * 1e3:.2f} images/s), peak "
               f"memory {train_peak / 2 ** 30:.2f} GiB; model FLOP of a "
-              f"micro-batch (FlopCounterMode, forward and backward) "
+              f"micro-batch (utils/flops.count_flops, equal to "
+              f"FlopCounterMode's; forward and backward) "
               f"{flop / 1e12:.3f} TFLOP, {flop / (micro_ms / 1e3) / 1e12:.1f}"
               f" TFLOP/s, {mfu:.3f} of 989 TFLOP/s; one micro-batch: "
               f"{profiled}; gradient accumulation at {IMG_DUMP} px fp32: the "

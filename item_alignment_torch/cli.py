@@ -458,6 +458,7 @@ def _load_image_embedding(args):
         dump_image_embeddings,
         load_embedding_json,
     )
+    from item_alignment_torch.data.native_loader import read_embedding_spans
     from item_alignment_torch.models.image import (
         backbone_for,
         init_image_weights,
@@ -465,7 +466,11 @@ def _load_image_embedding(args):
 
     out_path = os.path.join(args.output_dir, "image_embedding.json")
     if os.path.isfile(out_path):
-        emb = load_embedding_json(out_path)
+        # the ids and the arrays' own text, sliced by the native scan; a
+        # file it refuses is read with json.load and reformatted
+        spans = read_embedding_spans(out_path)
+        emb = (dict(spans) if spans is not None
+               else load_embedding_json(out_path))
         logger.info(f"loaded image embeddings for {len(emb)} items")
         return emb
     if not (args.finetuned or args.pretrained_model_path):

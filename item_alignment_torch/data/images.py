@@ -22,9 +22,11 @@ bit:
   and ``crop_largest_detection``;
 - the embedding text: ``embedding_texts``, ``embedding_texts_from_mapping``
   and ``write_embedding_json``.  Each vector is a row of comma-joined
-  ``%.9g`` decimals, which give every fp32 value back exactly.  The port
-  formats in Python (the JAX package's native formatter writes the same
-  text for finite values).
+  ``%.9g`` decimals, which give every fp32 value back exactly, and NaN,
+  +inf and -inf as ``json.dump`` spells them (``NaN``, ``Infinity``,
+  ``-Infinity``), so the JSON written is JSON.  The rows come from the
+  native formatter (``data/native_loader.format_rows``), as in the JAX
+  package.
 """
 
 from __future__ import annotations
@@ -140,9 +142,11 @@ def device_resize_normalize(images_u8: torch.Tensor, image_size: int
 
 # ---------------------------------------------------------- offline dumps
 def embedding_texts(mat: np.ndarray) -> List[str]:
-    """[n, d] floats -> comma-joined ``%.9g`` rows, one per vector."""
-    return [",".join(f"{x:.9g}" for x in row)
-            for row in np.asarray(mat).tolist()]
+    """[n, d] floats -> comma-joined ``%.9g`` rows of their fp32 values, one
+    per vector, through the native formatter."""
+    from item_alignment_torch.data.native_loader import format_rows
+
+    return format_rows(mat)
 
 
 def embedding_texts_from_mapping(raw: Dict[str, Sequence[float]]

@@ -16,9 +16,9 @@ reference's ``data_prepare.py``:
 - reproducible train/valid split with ``prev_valid`` pinning (882-928)
 - easy-negative augmentation from cross-category pairs (1030-1128)
 
-``read_finetune_tsv`` reads with a plain Python reader that gives the rows
-of the JAX package's native scanner (``native_loader.read_tsv_fast``); the
-native scanner itself is ROADMAP Queue 1 #12.  ``segment_title`` calls
+``read_tsv`` and ``read_finetune_tsv`` read through the native scanner
+(``data/native_loader.read_tsv_fast``), as the JAX package does.
+``segment_title`` calls
 ``jieba`` when it is called and raises ``ImportError`` without it.
 
 Known reference bug NOT reproduced: ``relation_filter`` reads
@@ -362,17 +362,12 @@ def write_tsv(rows: Sequence[Tuple], path: str, shuffle: bool = False,
 
 
 def read_tsv(path: str) -> List[Tuple[str, ...]]:
-    """Tab-separated rows of a UTF-8 file, as the JAX package's native
-    scanner gives them: lines end at ``\\n`` only (a ``\\r`` stays in the
-    last field), fields split at every tab, and only empty lines are
-    skipped."""
-    with open(path, "rb") as f:
-        data = f.read()
-    lines = data.split(b"\n")
-    if data.endswith(b"\n"):
-        lines.pop()
-    return [tuple(field.decode("utf-8") for field in line.split(b"\t"))
-            for line in lines if line]
+    """Tab-separated rows of a UTF-8 file, by the native scanner: lines end
+    at ``\\n`` only (a ``\\r`` stays in the last field), fields split at
+    every tab, and only empty lines are skipped."""
+    from item_alignment_torch.data.native_loader import read_tsv_fast
+
+    return read_tsv_fast(path)
 
 
 def read_finetune_tsv(path: str, id_dict: Optional[Dict] = None,

@@ -22,8 +22,13 @@ another segmentation gives other WordPiece ids (``商品`` -> ``商 ##品``).
   with ``ensemble == "begin"`` each text gets an ``[unused99] [SEP]``
   prefix, and the one-tower records the tgt image token's position per
   pair (data.py:623-753).
+- the pv-pair variant (``rows_to_pv_pair_dataset``, data.py:756-783):
+  ``[CLS] src_title [SEP] tgt_title [SEP] jieba(pv_pair_text) [SEP]``, its
+  token types bumped by one after the second [SEP].
 - CoCa: each item's text and its uint8 image (``build_multimodal_pair_
-  dataset``, data.py:933-989).
+  dataset``, data.py:933-989), and the pretraining examples, one item's
+  text and image each (``build_multimodal_pretrain_dataset``,
+  data.py:872-930).
 
 The image token is ``[unused99]``, id 99, as the JAX package hard-codes it.
 The tokenizer does not treat it as special: it comes out as id 99 only when
@@ -364,6 +369,75 @@ def rows_to_image_two_tower_dataset(
         meta["tgt_item_id"].append(tgt_item_id)
     arrays = {k: np.asarray(v, np.int32) for k, v in feats.items()}
     arrays.update({k: np.stack(v) for k, v in img_feats.items()})
+    return ArrayDataset(arrays, meta)
+
+
+def rows_to_pv_pair_dataset(rows: Sequence, tok, max_seq_len: int,
+                            max_seq_len_pv: int) -> ArrayDataset:
+    """The pv-pair text layout (RobertaOneTowerPvPairDataset,
+    data.py:756-783; not on the reference's final pipeline): rows
+    ``(label, src_id, src_title, tgt_id, tgt_title, pv_pair_text)``, the
+    pair ``src_title`` / ``tgt_title [SEP] jieba(pv_pair_text)`` padded to
+    ``2 * max_seq_len + max_seq_len_pv``, token types + 1 after the second
+    [SEP]."""
+    feats: Dict[str, list] = {"input_ids": [], "token_type_ids": [],
+                              "attention_mask": [], "labels": []}
+    meta = {"src_item_id": [], "tgt_item_id": []}
+    max_length = 2 * max_seq_len + max_seq_len_pv
+    for (label, src_item_id, src_title, tgt_item_id, tgt_title,
+         pv_pair_text) in rows:
+        tgt_text = " ".join((tgt_title, tok.sep_token,
+                             segment_pvs(pv_pair_text)))
+        enc = tok(text=src_title, text_pair=tgt_text, max_length=max_length,
+                  padding="max_length", truncation="longest_first")
+        ids = enc["input_ids"]
+        i1 = ids.index(tok.sep_token_id)
+        i2 = ids.index(tok.sep_token_id, i1 + 1)
+        tt = enc["token_type_ids"]
+        feats["input_ids"].append(ids)
+        feats["token_type_ids"].append(tt[:i2 + 1] + [t + 1 for t in tt[i2 + 1:]])
+        feats["attention_mask"].append(enc["attention_mask"])
+        feats["labels"].append(int(label))
+        meta["src_item_id"].append(src_item_id)
+        meta["tgt_item_id"].append(tgt_item_id)
+    arrays = {k: np.asarray(v, np.int32) for k, v in feats.items()}
+    return ArrayDataset(arrays, meta)
+
+
+def build_multimodal_pretrain_dataset(
+    items: Sequence[Dict], tok, image_loader, max_seq_len: int,
+    image_size: int, bos: bool = False,
+) -> ArrayDataset:
+    """CoCa pretraining examples (MultimodalDataset, data.py:872-930): each
+    item's ``title [SEP] jieba(pvs)`` (with a ``[BOS]`` first when ``bos``)
+    padded to ``max_seq_len``, and its image through the eval transform as
+    post-transform uint8 ``[S, S, 3]``.  ``items`` are dicts with ``title``,
+    ``pvs``, ``image_path`` and ``item_id``; ``image_loader(path)`` gives
+    HWC uint8 or None, and an item whose image does not load is dropped."""
+    from item_alignment_torch.data.images import eval_transform
+
+    feats: Dict[str, list] = {"input_ids": [], "attention_mask": [],
+                              "token_type_ids": [], "images": []}
+    meta = {"item_id": []}
+    for item in items:
+        img = image_loader(item["image_path"])
+        if img is None:
+            continue
+        text = build_item_text(item.get("title", ""), item.get("pvs", ""),
+                               tok.sep_token)
+        if bos:
+            text = f"{tok.bos_token} {text}"
+        enc = tok(text=text, max_length=max_seq_len, padding="max_length",
+                  truncation="longest_first")
+        for k in ("input_ids", "attention_mask", "token_type_ids"):
+            feats[k].append(enc[k])
+        feats["images"].append(eval_transform(img, image_size,
+                                              normalized=False))
+        meta["item_id"].append(item.get("item_id", ""))
+    arrays = {k: np.asarray(v, np.int32) for k, v in feats.items()
+              if k != "images"}
+    arrays["images"] = np.stack(feats["images"]) if feats["images"] else \
+        np.zeros((0, image_size, image_size, 3), np.uint8)
     return ArrayDataset(arrays, meta)
 
 

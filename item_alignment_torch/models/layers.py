@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from item_alignment_torch.utils.flops import count_as
+
 
 ONE_HOT_ROWS = 2048  # tables up to this many rows take the one-hot product
 # ... unless the one-hot matrix (rows x ids) would exceed this many elements
@@ -49,7 +51,10 @@ class _EmbeddingLookup(torch.autograd.Function):
         n = ctx.shape[0]
         rows = torch.arange(n, device=g.device)
         if n <= ONE_HOT_ROWS and n * flat.shape[0] <= ONE_HOT_ELEMS:
-            grad = (rows[:, None] == flat[None, :]).to(g.dtype) @ g
+            # a scatter-add as a product: no model FLOP, as JAX counts the
+            # transpose of its gather
+            grad = count_as(0, torch.matmul,
+                            (rows[:, None] == flat[None, :]).to(g.dtype), g)
         else:
             order = torch.sort(flat, stable=True).indices
             lengths = torch.zeros_like(rows).index_add_(0, flat,

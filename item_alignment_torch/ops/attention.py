@@ -31,6 +31,7 @@ from item_alignment_torch.ops.cuda_attention_blockwise import (
 )
 from item_alignment_torch.ops.cuda_attention_train import fused_attention_dropout
 from item_alignment_torch.ops.dropout import global_rows
+from item_alignment_torch.utils.flops import count_attention
 
 NEG_INF = -1e9  # matches BERT-style additive masking ((1-mask)*-10000 in HF)
 MAX_FUSED_SEQ = 512
@@ -91,7 +92,15 @@ def flash_attention(
     ``fused_attention_dropout`` (kernels #2/#3, the mask a hash of the
     seed), otherwise ``fused_attention``; at S > 512 their blockwise
     counterparts (kernels #4-#6), which take any S.  CUDA tensors launch
-    the kernels, CPU tensors take their plain versions."""
+    the kernels, CPU tensors take their plain versions.  Under a FLOP
+    counter (``utils/flops.py``) a call counts its model FLOPs, whichever
+    runs it."""
+    return count_attention(_flash_attention, q, k, v, bias, dropout_rate,
+                           dropout_seed, dtype, head_offset, num_heads)
+
+
+def _flash_attention(q, k, v, bias, dropout_rate, dropout_seed, dtype,
+                     head_offset, num_heads) -> torch.Tensor:
     dropout = dropout_rate > 0.0 and dropout_seed is not None
     if dropout:
         # the keep bits of rows b0.. and heads head_offset.. of the step's

@@ -36,6 +36,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from item_alignment_torch.utils.flops import count_as
+
 _EPS = 1e-8  # guards all-zero rows and channels (padding tokens)
 INT_MM_LAUNCHES = 0
 
@@ -81,7 +83,8 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if pad_k or pad_n:
         b = F.pad(b, (0, pad_n, 0, pad_k))
     INT_MM_LAUNCHES += 1
-    return torch._int_mm(a, b)[:M, :N]
+    # a FLOP counter counts the product's own shape, not the padding
+    return count_as(2 * M * N * K, torch._int_mm, a, b)[:M, :N]
 
 
 def int8_matmul_prequant(x_q: torch.Tensor, x_scale: torch.Tensor,

@@ -184,3 +184,31 @@ def test_broken_image_is_none_and_missing_pil_raises(tmp_path, monkeypatch):
     assert J.load_image(str(good)) is None  # the reference's fault
     with pytest.raises(ImportError, match="PIL"):
         T.load_image(str(good))
+
+
+def test_nonfinite_embedding_text_matches_jax(tmp_path):
+    """NaN, +inf and -inf are written as JAX's native formatter writes
+    them (``json.dump``'s spelling), so the dump is JSON and the port's
+    ``prepare --with_image`` reads it back, by its spans and by
+    ``json.load``."""
+    import argparse
+
+    from item_alignment_torch import cli as tcli
+    from item_alignment_torch.data import native_loader as TN
+    from item_alignment_tpu.data import native_loader as JN
+
+    m = np.array([[np.nan, np.inf, -np.inf, 1.5]], np.float32)
+    ours = T.embedding_texts(m)
+    assert JN.get_lib() is not None
+    assert ours == JN.format_rows(m) == J.embedding_texts(m)
+    assert ours == ["NaN,Infinity,-Infinity,1.5"]
+    assert TN.format_rows_reference(m) == ours
+    path = tmp_path / "image_embedding.json"
+    T.write_embedding_json(["a"], ours, str(path))
+    loaded = json.loads(path.read_text(encoding="utf-8"))
+    assert np.isnan(loaded["a"][0]) and loaded["a"][1:] == [
+        float("inf"), float("-inf"), 1.5]
+    assert TN.read_embedding_spans(str(path)) == [("a", ours[0])]
+    assert T.load_embedding_json(str(path)) == {"a": ours[0]}
+    assert tcli._load_image_embedding(argparse.Namespace(
+        output_dir=str(tmp_path))) == {"a": ours[0]}

@@ -26,6 +26,7 @@ from item_alignment_torch.convert import (
     flax_from_state_dict,
     state_dict_from_flax,
 )
+from item_alignment_torch.data import native_loader as tnative
 from item_alignment_torch.data.prepare import read_tsv
 from item_alignment_torch.engine.checkpoint import load_params, save_params
 
@@ -101,34 +102,36 @@ def _tsvs(d):
 @pytest.mark.parametrize("native", [False, True])
 def test_prepare_with_image_matches_jax(corpus, tmp_path, native,
                                         monkeypatch):
-    """Against JAX's ``json.load`` path the TSVs are equal byte for byte.
-    JAX's native path keeps the file's array text as it is, so there the
-    text differs and the vectors, parsed as fp32, are equal."""
+    """The TSVs of both CLIs are equal byte for byte.  With the native span
+    scan both keep the file's own array text (``json.dump``'s ``", "`` made
+    ``","``); where both scans are refused, both read the file with
+    ``json.load`` and write ``%.9g`` text."""
+    ours_dir = corpus / "processed"
     if native:
         if native_loader.get_lib() is None:
             pytest.skip("native/ia_data.cpp does not build here")
     else:
         monkeypatch.setattr(native_loader, "read_embedding_spans",
                             lambda path: None)
+        monkeypatch.setattr(tnative, "read_embedding_spans",
+                            lambda path: None)
+        ours_dir = tmp_path / "torch"
+        _prepare(tcli.main, corpus / "raw", ours_dir,
+                 corpus / "image_embedding.json")
     _prepare(jcli.main, corpus / "raw", tmp_path / "jax",
              corpus / "image_embedding.json")
-    ours, theirs = _tsvs(corpus / "processed"), _tsvs(tmp_path / "jax")
-    rows = read_tsv(str(corpus / "processed" / "finetune_train_train.tsv"))
+    ours, theirs = _tsvs(ours_dir), _tsvs(tmp_path / "jax")
+    rows = read_tsv(str(ours_dir / "finetune_train_train.tsv"))
     assert len(rows) == 10 and {len(r) for r in rows} == {9}
-    if not native:
-        assert ours == theirs
-        return
-    assert ours != theirs
-    for name in ours:
-        a = read_tsv(str(corpus / "processed" / name))
-        b = read_tsv(str(tmp_path / "jax" / name))
-        assert len(a) == len(b)
-        for ra, rb in zip(a, b):
-            assert ra[:4] + ra[5:8] == rb[:4] + rb[5:8]
-            for col in (4, 8):
-                np.testing.assert_array_equal(
-                    np.asarray(ra[col].split(","), np.float32),
-                    np.asarray(rb[col].split(","), np.float32))
+    assert ours == theirs
+    raw = json.loads((corpus / "image_embedding.json").read_text())
+    for r in rows:
+        for iid, col in ((r[1], r[4]), (r[5], r[8])):
+            vec = np.asarray(raw[iid], np.float32)
+            np.testing.assert_array_equal(
+                np.asarray(col.split(","), np.float32), vec)
+            own = ",".join(map(repr, raw[iid]))
+            assert (col == own) == native, (col, own)
 
 
 def _flags(corpus, out, *extra):

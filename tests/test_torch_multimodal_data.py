@@ -166,3 +166,69 @@ def test_embedding_json_round_trip_matches_jax(tmp_path, monkeypatch):
     assert timg.embedding_texts_from_mapping(loaded) == \
         jimg.embedding_texts_from_mapping(loaded)
     assert timg.embedding_texts_from_mapping({}) == {}
+
+
+# ------------------------------------------------- the last two builders
+def _image_loader(path):
+    """tests/test_multimodal_data.py's loader: None for a broken image,
+    else an image that depends on the path alone."""
+    if "bad" in str(path) or not path:
+        return None
+    seed = sum(map(ord, path)) % 100
+    return np.random.RandomState(seed).randint(0, 255, (40, 52, 3), np.uint8)
+
+
+@pytest.mark.parametrize("bos", [False, True])
+def test_multimodal_pretrain_builder_matches_jax(tokenizers, bos):
+    """The inputs of tests/test_multimodal_data.py:34-50 and a long title
+    that truncation cuts: a broken image drops its item, and arrays and
+    meta are equal to JAX's."""
+    _, ours_tok, jax_tok = tokenizers
+    items = [
+        {"item_id": "a", "title": "商品", "pvs": "品牌:a", "image_path": "a.png"},
+        {"item_id": "b", "title": "商品", "pvs": "a:b", "image_path": "bad.png"},
+        {"item_id": "c", "title": "商品", "pvs": "", "image_path": "c.png"},
+        {"item_id": "d", "title": "商品 a b 1 2 3 4 5 6 7 8 9",
+         "pvs": "a:1;b:2", "image_path": "d.png"},
+    ]
+    ours = ttok.build_multimodal_pretrain_dataset(
+        items, ours_tok, _image_loader, max_seq_len=12, image_size=16, bos=bos)
+    theirs = jtok.build_multimodal_pretrain_dataset(
+        items, jax_tok, _image_loader, max_seq_len=12, image_size=16, bos=bos)
+    _same(ours, theirs)
+    assert ours.meta["item_id"] == ["a", "c", "d"]
+    assert ours.arrays["images"].shape == (3, 16, 16, 3)
+    assert ours.arrays["images"].dtype == np.uint8
+    if bos:
+        assert (ours.arrays["input_ids"][:, 1] == ours_tok.bos_token_id).all()
+    empty = ttok.build_multimodal_pretrain_dataset(
+        items[1:2], ours_tok, _image_loader, max_seq_len=12, image_size=16)
+    _same(empty, jtok.build_multimodal_pretrain_dataset(
+        items[1:2], jax_tok, _image_loader, max_seq_len=12, image_size=16))
+    assert empty.arrays["images"].shape == (0, 16, 16, 3)
+
+
+def test_pv_pair_dataset_matches_jax(tmp_path):
+    """tests/test_type_constraints.py:57-70's vocab and row, plus a row
+    that truncation cuts and one with no pvs: token types go up by one
+    after the second [SEP], and arrays and meta are equal to JAX's."""
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)] + \
+        ["[UNK]", "[CLS]", "[SEP]", "[MASK]", ":", ";", "a", "b", "商", "品"] \
+        + ["<S>"]
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab), encoding="utf-8")
+    ours_tok = ttok.load_text_tokenizer(str(tmp_path))
+    jax_tok = jtok.load_text_tokenizer(str(tmp_path))
+    rows = [("1", "s0", "商品 a", "t0", "商品 b", "a:1;b:0"),
+            ("0", "s1", "商 品 a b a b a b a b", "t1", "品 a b a b a b",
+             "a:b;b:a;a:a;b:b"),
+            ("1", "s2", "a", "t2", "b", "")]
+    ours = ttok.rows_to_pv_pair_dataset(rows, ours_tok, max_seq_len=6,
+                                        max_seq_len_pv=8)
+    theirs = jtok.rows_to_pv_pair_dataset(rows, jax_tok, max_seq_len=6,
+                                          max_seq_len_pv=8)
+    _same(ours, theirs)
+    ids, tt = ours.arrays["input_ids"], ours.arrays["token_type_ids"]
+    assert ids.shape == (3, 2 * 6 + 8)
+    for r in range(3):
+        seps = np.flatnonzero(ids[r] == ours_tok.sep_token_id)
+        assert tt[r, seps[1] + 1] == tt[r, seps[1]] + 1

@@ -104,7 +104,9 @@ def test_port_imports_no_jax():
             "item_alignment_torch/data/yolo.py",
             "item_alignment_torch/ops/sparse.py",
             "item_alignment_torch/models/graph.py",
-            "item_alignment_torch/utils/flax_msgpack.py"} <= names
+            "item_alignment_torch/utils/flax_msgpack.py",
+            "item_alignment_torch/data/native_loader.py",
+            "item_alignment_torch/utils/flops.py"} <= names
     bad = {f"{p.relative_to(ROOT)}: {name}" for p in files
            for name in _imported_roots(p) if name in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -295,6 +297,29 @@ def test_kernel_source_ships_with_the_package():
                                       "flash_blockwise_fwd", "fused_attention"]
     assert {f"{name}.cu" for name in _build.SOURCES} == {
         p.name for p in _build.CSRC.glob("*.cu")}
+
+
+def test_native_loader_source_ships_with_the_package():
+    """``csrc/ia_data.cpp`` is the port's own copy of the JAX loader's four
+    C functions, shipped as package data (the root ``native/`` directory is
+    not installed), and host code, not a kernel: ``_build`` does not build
+    it."""
+    import tomllib
+
+    from item_alignment_torch.data import native_loader
+    from item_alignment_torch.ops import _build
+
+    source = ROOT / "item_alignment_torch" / "csrc" / "ia_data.cpp"
+    assert native_loader.SOURCE == source and source.is_file()
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    assert "csrc/*.cpp" in data["tool"]["setuptools"]["package-data"][
+        "item_alignment_torch"]
+    text = source.read_text()
+    for fn in ("tsv_index", "format_float_rows", "emb_json_spans",
+               "count_char"):
+        assert f"int64_t {fn}(" in text
+    assert "ia_data" not in _build.SOURCES
+    assert native_loader.BUILD_DIR == ROOT / "build" / "native"
 
 
 def test_kernels_are_built_at_first_use_not_at_import(monkeypatch, tmp_path):
