@@ -127,15 +127,28 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
    predicts: losses finite, 24
    calls of #2's and of #3's contracts a step, #1 in every eval and
    prediction batch, and the prediction file equal to a direct forward of
-   the saved ``best_f1.pt`` within 2e-2.  ``finetune-text`` two-tower
+   the saved ``best_f1.pt`` within 2e-2.  (16b) ``finetune-text
+   --scan_steps 8`` and ``--scan_steps 1`` train the same 18 batches
+   (chunks of 8, 8, 1, 1 against 18 of one) with the loss logged every 3
+   steps: the parameters equal bit for bit, the loss logged at the steps
+   the JAX Trainer's rule gives ([8, 16, 18] and [3, 6, ..., 18]), 24
+   calls of #2's and #3's contracts a step, ms/step of both (host clock
+   between the first and last logged losses); a third ``--scan_steps 8``
+   run under ``torch.profiler`` counts one pinned host-to-device copy a
+   batch key a chunk and equals the others bit for bit.
+   ``finetune-text`` two-tower
    trains two steps; ``mine`` on its weights (512 items at S=255, 10 pairs
    an item) runs in bf16, with ``--cache_quant int8`` and with ``--quant
    int8 --cache_quant int8``: bf16 within 2e-2 of 64 direct two-tower
    forwards, the int8 cache within 0.01 and int8 dense projections within
    0.05 of bf16 (the JAX package's own limits), ``torch._int_mm`` 6 x 24
    times an encode batch.  ``pred-text`` on every entity of ``prepare``'s
-   ``entity2id.txt`` (over 1024) at S=64, bf16 and int8: [n, 1024], finite,
-   int8 within 8% of bf16 (relative, Frobenius).  ``ops/quant.int8_mm`` is
+   ``entity2id.txt`` (over 1024) at S=64, bf16 and int8 with
+   ``--scan_chunks 8 --xfer_guard`` and bf16 with ``--scan_chunks 1``: [n,
+   1024], finite, ``--scan_chunks`` 8 and 1 equal bit for bit, #1 24 times
+   an encode of 256 rows (groups of 8 padded), int8 within 8% of bf16
+   (relative, Frobenius); a pageable host-to-device copy under the guard
+   raises and a pinned non-blocking one goes through.  ``ops/quant.int8_mm`` is
    exact on the card at the encoder's product shapes.  Wall times of every
    command, ``mine``'s pairs/s and the CLI's ms/step.
 17. PKGM: on the phase 16 corpus, ``prepare``'s KG maps grown to
@@ -376,6 +389,7 @@ from item_alignment_torch.data.tokenization import (
     rows_to_one_tower_dataset,
     rows_to_pkgm_dataset,
 )
+from item_alignment_torch.device import transfer_guard
 from item_alignment_torch.engine.checkpoint import load_params
 from item_alignment_torch.engine.inference import (
     TwoTowerInference,
@@ -2077,6 +2091,56 @@ POOLED_INT8_REL = 0.08
 # the schedule horizon of phase 8 and bench.py: with --epochs 1 alone the
 # schedule would decay over these few steps at the full learning rate
 TOTAL_STEPS = "16000"
+# phase 16b: --scan_steps 8 and 1 over 18 steps logged every 3: chunks of
+# 8, 8, 1, 1, logged where a chunk end crosses a multiple of 3, as JAX's
+# Trainer logs (item_alignment_tpu/engine/train.py:282)
+SCAN_RUN_STEPS, SCAN_LOG_STEPS = 18, 3
+
+
+def chunk_log_steps(steps: int, scan: int, log: int) -> list:
+    """The steps at which the JAX Trainer logs the loss: after each chunk
+    (full chunks of ``scan``, then one step each) whose end crosses a
+    multiple of ``log``."""
+    ends = list(range(scan, steps - steps % scan + 1, scan)) + list(
+        range(steps - steps % scan + 1, steps + 1))
+    return [e for prev, e in zip([0] + ends, ends) if e // log > prev // log]
+
+
+def check_transfer_guard() -> str:
+    """Under ``--xfer_guard``'s guard a pinned non-blocking copy goes
+    through and a pageable (synchronizing) one raises; the guard leaves
+    the sync debug mode as it found it.  Returns what the pageable copy
+    did."""
+    with transfer_guard(torch.device("cuda")):
+        torch.ones(4).pin_memory().to("cuda", non_blocking=True)
+    try:
+        with transfer_guard(torch.device("cuda")):
+            torch.ones(4).to("cuda")
+        pageable = "went through"
+    except RuntimeError as e:
+        pageable = f"raised ({str(e).splitlines()[0]})"
+    check(pageable.startswith("raised")
+          and torch.cuda.get_sync_debug_mode() == 0,
+          f"phase 16: a pageable copy under the guard {pageable}")
+    return pageable
+
+
+def h2d_copies(run) -> dict:
+    """``run()`` under torch.profiler: its host-to-device copies counted by
+    the profiler's name for them (``Memcpy HtoD (Pinned -> Device)`` for
+    the staged batches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    copies = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name.startswith(
+                "Memcpy HtoD"):
+            copies[e.name] = copies.get(e.name, 0) + 1
+    return copies
 
 
 def check_int8_products(gen: torch.Generator) -> str:
@@ -2304,6 +2368,74 @@ def phase_entry_points(seed: int, card: str) -> tuple:
               f"{len(rows)} test predictions vs a direct forward of "
               f"best_f1.pt max diff {diff:.3e}; {card}", flush=True)
 
+        # 1b. --scan_steps 8 and 1 on the same 18 batches: the parameters
+        # bit for bit, the losses logged at JAX's chunk ends, one staged
+        # host-to-device copy a key a chunk (under the profiler, in a third
+        # run), ms/step of each between the first and last logged losses
+        with open(prep[-1]["train"], encoding="utf-8") as r:
+            lines = r.readlines()
+        n_scan = SCAN_RUN_STEPS * 40
+        (processed / "scan_train.tsv").write_text(
+            "".join((lines * -(-n_scan // len(lines)))[:n_scan]),
+            encoding="utf-8")
+        keys = len(next(rows_to_one_tower_dataset(
+            read_finetune_tsv(str(processed / "scan_train.tsv")), tok, 50,
+            205).batches(40))[0])
+        scan_ms, scan_params, copies = {}, {}, {}
+        for run, scan in (("8", 8), ("1", 1), ("8 profiled", 8)):
+            tag = run.replace(" ", "_")
+            argv = ft + ["--do_train", "--train_file", "scan_train.tsv",
+                         "--valid_file", "none.tsv", "--scan_steps",
+                         str(scan), "--log_steps", str(SCAN_LOG_STEPS),
+                         "--output_dir", str(root / f"scan_{tag}"),
+                         "--log_dir", str(root / f"scan_{tag}_logs")]
+            zero_counters()
+            if run.endswith("profiled"):
+                copies = h2d_copies(lambda: run_cli(argv))
+            else:
+                _, walls[f"finetune-text --scan_steps {run}"] = run_cli(argv)
+            launches = counters()
+            tally((0,) * 6)
+            check(launches == (0, LAYERS * SCAN_RUN_STEPS,
+                               LAYERS * SCAN_RUN_STEPS, 0, 0, 0),
+                  f"phase 16b: --scan_steps {run} launches (#1..#6) "
+                  f"{launches} over {SCAN_RUN_STEPS} steps")
+            logged = [(x["step"], x["time"]) for x in map(json.loads, open(
+                root / f"scan_{tag}_logs" / "scalars.jsonl"))
+                if x["tag"] == "train/loss"]
+            want = chunk_log_steps(SCAN_RUN_STEPS, scan, SCAN_LOG_STEPS)
+            check([k for k, _ in logged] == want, f"phase 16b: --scan_steps "
+                  f"{run} logged the loss at steps {logged}, JAX's rule "
+                  f"gives {want}")
+            (k0, t0), (k1, t1) = logged[0], logged[-1]
+            scan_ms[run] = 1e3 * (t1 - t0) / (k1 - k0)
+            scan_params[run] = load_params(str(
+                root / f"scan_{tag}" / "roberta_large-v1-one_tower-cls-NA-ce"
+                / "text_finetune_epoch-1.pt"))
+            shutil.rmtree(root / f"scan_{tag}")
+        ref = scan_params.pop("1")
+        for run, state in scan_params.items():
+            same = state.keys() == ref.keys() and all(
+                torch.equal(state[k], ref[k]) for k in ref)
+            check(same, f"phase 16b: --scan_steps {run} parameters differ "
+                  "from --scan_steps 1's")
+        del scan_params, ref
+        chunks = SCAN_RUN_STEPS // 8 + SCAN_RUN_STEPS % 8
+        pinned = copies.get("Memcpy HtoD (Pinned -> Device)", 0)
+        check(pinned == keys * chunks, f"phase 16b: {pinned} pinned "
+              f"host-to-device copies at --scan_steps 8, want {keys} keys x "
+              f"{chunks} chunks; all copies {copies}")
+        print(f"phase 16b finetune-text --scan_steps: {SCAN_RUN_STEPS} steps "
+              f"at batch 40 S=510 bf16, parameters at --scan_steps 8 (twice)"
+              f" equal --scan_steps 1's bit for bit; loss logged at "
+              f"{chunk_log_steps(SCAN_RUN_STEPS, 8, SCAN_LOG_STEPS)} and "
+              f"{chunk_log_steps(SCAN_RUN_STEPS, 1, SCAN_LOG_STEPS)} (JAX's "
+              f"rule); host-to-device copies at --scan_steps 8 {copies} "
+              f"({keys} keys x {chunks} chunks staged); "
+              f"{scan_ms['8']:.2f} ms/step at --scan_steps 8, "
+              f"{scan_ms['1']:.2f} at 1 (host clock between the first and "
+              f"last logged losses; not a claim); {card}", flush=True)
+
         # 2. two-tower: two steps, then mine three ways on its weights
         with open(prep[-1]["train"], encoding="utf-8") as r:
             head = [next(r) for _ in range(80)]
@@ -2413,18 +2545,28 @@ def phase_entry_points(seed: int, card: str) -> tuple:
               "--config_file", str(cfg_json), "--max_seq_len", "64",
               "--batch_size", "256", "--num_workers", "0",
               "--allow_random_weights"]
+        pageable = check_transfer_guard()
         feats = {}
-        for name, extra in (("bf16", []), ("int8", ["--quant", "int8"])):
+        for name, extra in (
+                ("bf16", ["--scan_chunks", "8", "--xfer_guard"]),
+                ("bf16 --scan_chunks 1", ["--scan_chunks", "1"]),
+                ("int8", ["--quant", "int8", "--xfer_guard"])):
             zero_counters()
             quant.INT_MM_LAUNCHES = 0
-            out, walls[f"pred-text {name}"] = run_cli(
-                pt + extra + ["--output", str(root / f"feat_{name}.npy")])
+            out, walls[f"pred-text {name}"] = run_cli(pt + extra + [
+                "--output", str(root / f"feat_{len(feats)}.npy")])
             feats[name] = np.load(out[-1]["output"])
-            check(counters()[0] == LAYERS * -(-n_ents // 256)
+            # each group of K batches is padded to full batches of 256
+            K = 1 if name.endswith("1") else 8
+            encodes = K * -(-n_ents // (256 * K))
+            check(counters()[0] == LAYERS * encodes
                   and quant.INT_MM_LAUNCHES == (name == "int8") * 6 * LAYERS
-                  * -(-n_ents // 256), f"phase 16: pred-text {name} launches "
-                  f"{counters()}, torch._int_mm {quant.INT_MM_LAUNCHES}")
+                  * encodes, f"phase 16: pred-text {name} launches "
+                  f"{counters()}, torch._int_mm {quant.INT_MM_LAUNCHES}, "
+                  f"{encodes} encodes")
             tally((0,) * 6)
+        check(np.array_equal(feats["bf16"], feats["bf16 --scan_chunks 1"]),
+              "phase 16: pred-text --scan_chunks 8 differs from 1")
         pooled = np.abs(feats["int8"] - feats["bf16"]).max()
         rel = float(np.linalg.norm(feats["int8"] - feats["bf16"])
                     / np.linalg.norm(feats["bf16"]))
@@ -2436,7 +2578,9 @@ def phase_entry_points(seed: int, card: str) -> tuple:
         check(rel <= POOLED_INT8_REL, f"phase 16: pred-text int8 vs bf16 "
               f"features differ by {rel} (relative)")
         print(f"phase 16 pred-text: {n_ents} entities at S=64, features "
-              f"{feats['bf16'].shape}, int8 vs bf16 relative (Frobenius) "
+              f"{feats['bf16'].shape}, --scan_chunks 8 --xfer_guard equal to "
+              f"--scan_chunks 1 bit for bit; a pageable copy under the guard "
+              f"{pageable}; int8 vs bf16 relative (Frobenius) "
               f"{rel:.3e} (limit {POOLED_INT8_REL}), max diff {pooled:.3e}; "
               f"int8 products exact on the card at {products}; {card}",
               flush=True)
@@ -4107,6 +4251,8 @@ def phase_images(seed: int, card: str) -> tuple:
         shard_mb = sum(os.path.getsize(p) for v in written.values()
                        for p in v) / 2 ** 20
         out = root / "output"
+        # --scan_steps 1: the 8 micro-batches would be one chunk of the
+        # default 8, logged once; each is logged, so the stamps time it
         res, walls["finetune-image"] = run_cli([
             "finetune-image", "--data_dir", str(root), "--output_dir",
             str(out), "--shards", *written["train"], "--valid_shards",
@@ -4116,7 +4262,7 @@ def phase_images(seed: int, card: str) -> tuple:
             str(NF_BATCH), "--gradient_accumulation_steps", str(NF_ACCUM),
             "--learning_rate", "1e-4", "--epochs", "1", "--bf16",
             "--do_train", "--do_eval", "--log_steps", "1", "--log_dir",
-            str(root / "logs_img"), "--seed", str(seed)])
+            str(root / "logs_img"), "--scan_steps", "1", "--seed", str(seed)])
         losses, cli_ms = _finetune_ms(root / "logs_img")
         run_dir = out / "eca_nfnet_l0-v6-two_tower-cls-NA-ce"
         micro = IMG_PAIRS["train"] // NF_BATCH

@@ -55,8 +55,11 @@ dicts (``best_f1.pt``, ``text_finetune_epoch-N.pt``,
 ``bert_align.pt``, ``bert_pretrain.pt``, ``gcn_params.pt``,
 ``coca_pretrain.pt``) and reads them or the JAX CLI's Flax ``.msgpack``
 files wherever the JAX CLI reads one (``engine/checkpoint.load_params``).
-``--scan_steps`` and ``pred-text --scan_chunks/--xfer_guard`` steer XLA's
-dispatch and do nothing here.
+``--scan_steps K`` groups training into chunks of K steps, one batch
+transfer a chunk, with the loss logged and evaluations run at chunk ends,
+as in the JAX CLI; ``pred-text --scan_chunks K`` encodes K batches a host
+transfer, and ``--xfer_guard`` makes a synchronizing host-to-device copy
+inside its encode loop an error.
 
 Parallelism runs one process per device (``parallel/``): launch the
 command in each process with ``torchrun --nproc_per_node N`` or with
@@ -86,14 +89,16 @@ from item_alignment_torch.config import (
     OptimizerConfig,
     TrainConfig,
 )
-from item_alignment_torch.device import resolve_device
+from item_alignment_torch.device import resolve_device, transfer_guard
 from item_alignment_torch.parallel.mesh import (
     maybe_initialize_distributed_from_args,
 )
 from item_alignment_torch.utils import logger
 from item_alignment_torch.utils.retry import retry_transient
 
-INERT = "accepted for the JAX CLI's command lines; no effect in the port"
+SCAN_STEPS = ("train steps a chunk: its batches go to the device in one "
+              "transfer, and its last loss is logged when it crosses a "
+              "multiple of --log_steps; 1 = per step")
 
 
 def run_dir_name(args) -> str:
@@ -159,7 +164,7 @@ def _common_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--threshold", type=float, default=0.5)
     p.add_argument("--eval_every_steps", type=int, default=None,
                    help="step-based mid-epoch eval cadence")
-    p.add_argument("--scan_steps", type=int, default=8, help=INERT)
+    p.add_argument("--scan_steps", type=int, default=8, help=SCAN_STEPS)
     p.add_argument("--early_stopping_patience", type=int, default=None,
                    help="stop after N evals without best-F1 improvement")
     p.add_argument("--checkpoint_dir", default=None,
@@ -224,7 +229,7 @@ def _engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log_steps", type=int, default=100)
     p.add_argument("--seed", type=int, default=2345)
     p.add_argument("--eval_every_steps", type=int, default=None)
-    p.add_argument("--scan_steps", type=int, default=8, help=INERT)
+    p.add_argument("--scan_steps", type=int, default=8, help=SCAN_STEPS)
     p.add_argument("--early_stopping_patience", type=int, default=None)
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--resume", action="store_true")
@@ -1246,14 +1251,20 @@ def cmd_pred_text(argv: List[str]) -> int:
                         "the encoder")
     p.add_argument("--max_seq_len", type=int, default=64)
     p.add_argument("--batch_size", type=int, default=256)
-    p.add_argument("--scan_chunks", type=int, default=8, help=INERT)
+    p.add_argument("--scan_chunks", type=int, default=8,
+                   help="batches encoded per host-to-device transfer (the "
+                        "rows are padded to full groups)")
     p.add_argument("--num_workers", type=int, default=8,
                    help="tokenizer processes (0 = serial)")
     p.add_argument("--allow_random_weights", action="store_true",
                    help="escape hatch for tests and smoke runs")
     p.add_argument("--quant", default=None, choices=["int8"],
                    help="int8 path for the encoder's dense projections")
-    p.add_argument("--xfer_guard", action="store_true", help=INERT)
+    p.add_argument("--xfer_guard", action="store_true",
+                   help="fail on any synchronizing host->device copy in the "
+                        "encode loop (each group goes over in one explicit "
+                        "non-blocking copy from pinned memory); on --device "
+                        "cpu there is no transfer to guard")
     _device_flag(p)
     args = p.parse_args(argv)
 
@@ -1348,17 +1359,35 @@ def cmd_pred_text(argv: List[str]) -> int:
         backbone.load_state_dict(state)
         logger.info(f"overlaid finetuned encoder from {args.file_state_dict}")
 
-    B, n = args.batch_size, len(ids_all)
+    B, K = args.batch_size, max(int(args.scan_chunks), 1)
+    (n, S), per = ids_all.shape, B * K
+    n_groups = -(-n // per)
+    if n_groups * per > n:
+        # pad the tail to a full [K, B] group, as the JAX CLI does: every
+        # encode takes B rows at the same offsets whatever K is, so the
+        # features do not depend on K; the padded rows are sliced off below
+        pad = ((0, n_groups * per - n), (0, 0))
+        ids_all, mask_all = np.pad(ids_all, pad), np.pad(mask_all, pad)
+    pin = device.type == "cuda"
+
+    def encode_group(g: int) -> np.ndarray:
+        rows = slice(g * per, (g + 1) * per)
+        host = [torch.empty((K, B, S), dtype=torch.long, pin_memory=pin)
+                .copy_(torch.from_numpy(a[rows].reshape(K, B, S)))
+                for a in (ids_all, mask_all)]
+        with transfer_guard(device, args.xfer_guard):
+            ids, mask = (h.to(device, non_blocking=True) for h in host)
+            out = torch.cat([pooler(backbone(ids[k], mask[k])[-1])
+                             for k in range(K)])
+        return out.float().cpu().numpy()
+
     feats = []
     with torch.inference_mode():
-        for g, s in enumerate(range(0, n, B)):
-            ids = torch.from_numpy(ids_all[s: s + B]).long().to(device)
-            mask = torch.from_numpy(mask_all[s: s + B]).long().to(device)
-            feats.append(retry_transient(
-                lambda: pooler(backbone(ids, mask)[-1]).float().cpu().numpy()))
-            if (g + 1) % 10 == 0 or s + B >= n:
-                logger.info(f"pred-text: {min(s + B, n)}/{n} encoded")
-    matrix = np.concatenate(feats) if feats else \
+        for g in range(n_groups):
+            feats.append(retry_transient(lambda: encode_group(g)))
+            if (g + 1) % 10 == 0 or g + 1 == n_groups:
+                logger.info(f"pred-text: {min((g + 1) * per, n)}/{n} encoded")
+    matrix = np.concatenate(feats)[:n] if feats else \
         np.zeros((0, cfg.hidden_size), np.float32)
     np.save(args.output, matrix)
     print(json.dumps({"output": args.output, "shape": list(matrix.shape)}))

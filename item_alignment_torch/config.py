@@ -9,8 +9,10 @@ unchanged.  The port does not read ``gcn_edge_chunk`` and
 the order itself) nor ``gcn_scan_layers`` (its GCNII always stacks the
 layers' kernels; ``convert.py`` reads both Flax trees); neither package
 reads ``dim_head``.
-In the port's ``Trainer``, ``TrainConfig.scan_steps`` and
-``dropout_rng_impl`` have no effect (PyTorch runs each step eagerly, and the
+In the port's ``Trainer``, ``TrainConfig.scan_steps`` groups an epoch's
+steps into chunks whose batches go to the device together and at whose
+ends the loss is logged and evaluations run, as in the JAX ``Trainer``
+(each step still runs eagerly); ``dropout_rng_impl`` has no effect (the
 dropout masks are hashes of integer seeds), and a mesh of more than one
 device needs a process of its own for each device (``parallel/mesh.py``).
 
@@ -275,7 +277,8 @@ class TrainConfig:
     eval_every_steps: Optional[int] = None   # step-based eval
     early_stopping_patience: Optional[int] = None  # evals without F1 gain
     dropout_rng_impl: str = "rbg"            # no effect in the port
-    scan_steps: int = 8                      # no effect in the port
+    scan_steps: int = 8                      # steps a chunk: one batch
+                                             # transfer, loss logged at ends
     mesh: MeshConfig = field(default_factory=MeshConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
 

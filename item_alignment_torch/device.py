@@ -1,8 +1,10 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the guard of
+``pred-text --xfer_guard``."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 import torch.distributed
@@ -22,3 +24,22 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             and torch.distributed.is_initialized():
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def transfer_guard(device: torch.device, on: bool = True) -> Iterator[None]:
+    """With ``on`` and a CUDA ``device``, a synchronizing copy inside the
+    block raises (``torch.cuda.set_sync_debug_mode("error")``): a
+    host-to-device copy from pageable memory, say, where an explicit
+    non-blocking copy from pinned memory goes through.  It stands in for
+    JAX's ``transfer_guard_host_to_device("disallow")``.  On the CPU there
+    is no transfer to guard."""
+    if not (on and device.type == "cuda"):
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)

@@ -8,12 +8,22 @@ seed is a pure function of ``(config.seed, step)``, so a run is reproduced
 from its config, and ``step`` stands in for the JAX train state's
 ``dropout_rng`` in a checkpoint.
 
+``train_epoch`` runs an epoch in chunks of ``config.scan_steps`` steps,
+as the JAX ``Trainer`` runs one ``lax.scan`` a chunk: the chunk size is
+lowered until it divides ``eval_every_steps``, full chunks run first and
+the remainder one step at a time.  A chunk's batches are stacked to
+``[K, B, ...]`` in pinned host memory and go to the device in one
+non-blocking copy per key; the host reads a loss only at a chunk end that
+crosses a multiple of ``log_steps``, and evaluates at chunk ends.  Each
+step is the step ``train_step`` runs, with its own seeds, so any
+``scan_steps`` gives the same parameters as ``scan_steps=1``.
+
 With ``config.checkpoint_dir``, ``fit`` saves the full train state every
 ``checkpoint_every_epochs`` epochs through ``engine/checkpoint.py``
 (parameters, optimizer moments and step count, ``step``, and the loop's
 bookkeeping), keeps the best-F1 parameters in ``best_f1.pt`` beside them,
 and with ``config.resume`` continues from the latest checkpoint.  With
-``log_dir``, the train loss at every ``log_steps`` and each epoch's eval go
+``log_dir``, the train loss logged at chunk ends and each epoch's eval go
 to ``scalars.jsonl`` and ``eval_results.csv`` there, as in the JAX
 ``Trainer``.
 
@@ -47,7 +57,7 @@ import contextlib
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,34 +176,54 @@ class Trainer:
                                         dict(self.model.named_parameters()))
         return self
 
+    def _stage(self, batches: List[Dict[str, np.ndarray]]
+               ) -> Dict[str, torch.Tensor]:
+        """K host batches on the device as ``[K, B, ...]`` tensors: ids and
+        labels as int64, floats and uint8 images as they are (the image
+        towers normalise uint8 on the device; int64 images would move 8x
+        the bytes).  On the card each key is stacked in pinned memory and
+        copied in one non-blocking transfer; the caching host allocator
+        does not hand a pinned block out again before its copy has
+        completed.  Under a mesh with a data axis, this rank's rows of each
+        batch (``_rows``: their offset, count and the global batch)."""
+        self._rows = None
+        n = len(next(iter(batches[0].values())))
+        rows = slice(0, n)
+        if self.mesh is not None and batch_sharding(self.mesh)[1] > 1:
+            rows = process_slice(n, mesh=self.mesh)
+            self._rows = (rows.start, rows.stop - rows.start, n)
+        pin = self.device.type == "cuda"
+        out = {}
+        for k in batches[0]:
+            parts = [torch.as_tensor(np.asarray(b[k])[rows]) for b in batches]
+            dtype = parts[0].dtype
+            if not parts[0].is_floating_point() and dtype != torch.uint8:
+                dtype = torch.long
+            host = torch.empty((len(parts),) + parts[0].shape, dtype=dtype,
+                               pin_memory=pin)
+            for i, part in enumerate(parts):
+                host[i] = part
+            out[k] = host.to(self.device, non_blocking=True)
+        return out
+
     def _device_batch(self, batch: Dict[str, np.ndarray]
                       ) -> Dict[str, torch.Tensor]:
-        """The batch on the device: ids and labels as int64, floats and
-        uint8 images as they are (the image towers normalise uint8 on the
-        device; int64 images would move 8x the bytes).  Under a mesh with
-        a data axis, this rank's rows of it (``_rows``: their offset, count
-        and the global batch)."""
-        self._rows = None
-        if self.mesh is not None and batch_sharding(self.mesh)[1] > 1:
-            n = len(next(iter(batch.values())))
-            rows = process_slice(n, mesh=self.mesh)
-            batch = {k: v[rows] for k, v in batch.items()}
-            self._rows = (rows.start, rows.stop - rows.start, n)
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(np.asarray(v))
-            if not t.is_floating_point() and t.dtype != torch.uint8:
-                t = t.long()
-            out[k] = t.to(self.device, non_blocking=True)
-        return self.batch_transform(out)
+        """One host batch on the device (``_stage`` of one), through
+        ``batch_transform``."""
+        return self.batch_transform(
+            {k: v[0] for k, v in self._stage([batch]).items()})
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """One step on a host batch; returns the loss (still on the
         device, so the host does not wait)."""
+        return self._step(self._device_batch(batch))
+
+    def _step(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One step on a batch already on the device (its rows under a
+        mesh are ``_rows``)."""
         if self.optimizer is None:
             self.setup()
         seed = step_seed(self.config.seed, self.step)
-        inputs = self._device_batch(batch)
         rows = self._rows
         deltas, passed = {}, {}
         if self.deltas is not None:
@@ -238,13 +268,22 @@ class Trainer:
         steps = 0
         mid_evals = []
         loss = None
-        # drop_last: the padded partial batch would duplicate rows into the
-        # gradient; shuffling re-covers the dropped tail across epochs
-        for batch, _ in dataset.batches(cfg.train_batch_size, shuffle=True,
-                                        seed=cfg.seed + epoch, drop_last=True):
-            loss = self.train_step(batch)
-            steps += 1
-            if steps % cfg.log_steps == 0:
+        # the chunk divides the eval cadence, so step-based evals fire at
+        # the same steps as in the JAX Trainer
+        chunk = max(int(cfg.scan_steps), 1)
+        if cfg.eval_every_steps:
+            while cfg.eval_every_steps % chunk:
+                chunk -= 1
+
+        def run_chunk(pending):
+            nonlocal steps, loss
+            staged = self._stage(pending)
+            for i in range(len(pending)):
+                loss = self._step(self.batch_transform(
+                    {k: v[i] for k, v in staged.items()}))
+            prev = steps
+            steps += len(pending)
+            if steps // cfg.log_steps > prev // cfg.log_steps:
                 losses.append(float(loss))
                 logger.info(f"epoch {epoch} step {steps} loss {losses[-1]:.4f} "
                             f"({(time.time() - t0) / steps:.3f}s/step)")
@@ -257,6 +296,18 @@ class Trainer:
                 mid_evals.append({"step": steps, "best_f1": ev.get("best_f1")})
                 logger.info(f"epoch {epoch} step {steps} "
                             f"eval f1 {ev.get('best_f1', float('nan')):.4f}")
+
+        # drop_last: the padded partial batch would duplicate rows into the
+        # gradient; shuffling re-covers the dropped tail across epochs
+        pending = []
+        for batch, _ in dataset.batches(cfg.train_batch_size, shuffle=True,
+                                        seed=cfg.seed + epoch, drop_last=True):
+            pending.append(batch)
+            if len(pending) == chunk:
+                run_chunk(pending)
+                pending = []
+        for batch in pending:  # the remainder, one step a chunk
+            run_chunk([batch])
         out = {"epoch": epoch, "steps": steps,
                "loss": float(loss) if steps else float("nan"),
                "wall_s": time.time() - t0}

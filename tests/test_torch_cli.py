@@ -8,7 +8,8 @@ The JAX CLI trains a tiny one-tower and a tiny two-tower with
 ``--device cpu``, must then reproduce the JAX CLI's outputs on the msgpack
 files within 1e-4: ``finetune-text``'s evaluation and prediction file,
 ``mine`` plain, with ``--cache_quant int8`` and with ``--quant int8``, and
-``pred-text`` with and without ``--quant int8``.
+``pred-text`` with and without ``--quant int8``, and at any
+``--scan_chunks``.
 """
 
 import csv
@@ -241,6 +242,37 @@ def test_pred_text_matches_jax(corpus, jax_one_tower, hf_dir, capsys,
         corpus / "processed" / "entity2id.txt").readlines()), 32)
     assert a.dtype == np.float32 and np.isfinite(a).all()
     np.testing.assert_allclose(a, b, rtol=0, atol=TOL)
+
+
+def test_pred_text_scan_chunks_and_xfer_guard(corpus, hf_dir, capsys):
+    """``--scan_chunks 3`` pads the rows to full groups of 3·B and gives
+    exactly the features of ``--scan_chunks 1``; both lie within 1e-5 of
+    the JAX CLI's.  ``--xfer_guard`` is accepted on ``--device cpu``, where
+    there is no host-to-device transfer to guard."""
+    n = len(open(corpus / "processed" / "entity2id.txt").readlines())
+    B = 4
+    assert n > 3 * B and n % (3 * B)  # a padded tail group
+
+    def argv(out, *extra):
+        return ["pred-text", "--entity2id",
+                str(corpus / "processed" / "entity2id.txt"),
+                "--item_info", str(corpus / "raw" / "item_info.jsonl"),
+                "--vocab_path", str(corpus / "vocab"),
+                "--output", str(corpus / out),
+                "--model_name", "roberta_tiny",
+                "--config_file", str(corpus / "tiny.json"),
+                "--max_seq_len", "12", "--batch_size", str(B),
+                "--num_workers", "0", "--pretrained_model_path", str(hf_dir),
+                "--xfer_guard", *extra]
+
+    ref = np.load(_run(jcli.main, argv("jk3.npy", "--scan_chunks", "3"),
+                       capsys)[-1]["output"])
+    feats = {k: np.load(_run(tcli.main, argv(
+        f"tk{k}.npy", "--scan_chunks", str(k), "--device", "cpu"),
+        capsys)[-1]["output"]) for k in (3, 1)}
+    assert feats[3].shape == (n, 32) and np.isfinite(feats[3]).all()
+    np.testing.assert_array_equal(feats[3], feats[1])
+    np.testing.assert_allclose(feats[1], ref, rtol=0, atol=1e-5)
 
 
 def _learnable_corpus(d):
