@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
+run in the order 1-6, 11, 7-9, 12-15, 10, 16-24:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -320,6 +320,27 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-23:
    the kernels against the same step in one process (loss 1e-6 relative,
    gradients 1e-5 of the largest); (1,1,2) is left out (gloo's collectives
    on CUDA tensors crashed a rank).
+24. the reproduction pipeline: ``item_alignment_torch/pipeline/train.sh``
+   (steps 0-9) then ``predict.sh`` (p0-p8) as ``bash`` children under
+   ``set -euo pipefail``, at the scripts' own ``configs/*.json`` (RoBERTa-
+   large, PKGM-large, RobertaImage-large, TextCNN, RoBERTa-base),
+   ``eca_nfnet_l0`` at ``IMG_SIZE`` 800 and ``IMG_EMB_SIZE`` 288, 1024-wide
+   GCN features, ``EPOCHS=KGE_EPOCHS=BERT_EPOCHS=1``, on a corpus that
+   ``pipeline/synth_corpus.py`` makes from --seed (4,000 items, 2,000
+   train, 200 valid and 200 test pairs, 64 image pairs, 3,000 values, a
+   random eca_nfnet_l0 under timm's names).  ``IA`` is a client of
+   ``serve_cli``: each of the 24 ``ia-torch`` commands runs ``cli.main``
+   in a child forked from one process that imported torch and the port
+   once (the jieba stand-in on the children's ``PYTHONPATH`` where jieba
+   is missing) and records its return code, the parameter files it reads
+   (each must exist before its step), its launches of #1-#6 and whether
+   it rebuilt a kernel library.  Each step's mark and the scripts' rc 0;
+   #1 in every eval and prediction, #2 = #3 in every finetune of an
+   attention model (#2 = 2 x #3 under step 4's ``--remat``), none of
+   #1-#3 elsewhere, #4-#6 nowhere; ``result.zip`` validated by the port's
+   ``validate_submission`` with a row for each distinct test pair, its
+   fused scores finite.  Each step's wall seconds and the whole
+   pipeline's, beside the card's name and power limit.
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -336,8 +357,8 @@ commands (``bert-pretrain``: #2 and #3 12 calls a step; ``finetune-bert``:
 60 a batch; TextCNN none; #4-#6 none anywhere), phase 20's image
 commands (a and b; none of #1-#6), phase 21's graph commands (none) and
 phase 22's CoCa commands (as above) and phase 23b (24 calls of #2's and
-#3's contracts a step); the kernels line adds the launches of phases
-16-23.  The
+#3's contracts a step), and each command of phase 24 in its own process
+(as above); the kernels line adds the launches of phases 16-24.  The
 line before the last is one JSON object with the six kernels' numbers (the
 rows of #1 and #2 with an ``f32`` object too: phase 19e's fp32 ms,
 library_ms, bound_ms and bound_by at B=8, S=512, N=12); the last line is
@@ -354,6 +375,8 @@ import math
 import os
 import re
 import shutil
+import signal
+import socket
 import gc
 import io
 import random
@@ -362,7 +385,9 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import types
+import zipfile
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -415,6 +440,11 @@ from item_alignment_torch.ops import cuda_attention_train as cat
 from item_alignment_torch.ops import quant
 from item_alignment_torch.ops import sparse
 from item_alignment_torch.ops.attention import make_attention_bias
+from item_alignment_torch.pipeline.synth_corpus import (
+    nfnet_tower,
+    random_nfnet,
+    timm_nfnet_state_dict,
+)
 from item_alignment_torch.utils.flops import count_flops
 
 ROOT = Path(__file__).resolve().parent
@@ -2162,23 +2192,43 @@ def check_int8_products(gen: torch.Generator) -> str:
     return ", ".join(out)
 
 
+# the stand-in for jieba where the card's machine has none: phase 24 also
+# writes it as a module file for its child processes
+JIEBA_STAND_IN = '''"""A whitespace stand-in for jieba (chip_smoke.py's segmenter)."""
+STAND_IN = True
+
+
+def cut(text):
+    return iter(text.split())
+'''
+
+
 @contextlib.contextmanager
-def segmenter():
+def segmenter(module_dir: Path | None = None):
     """jieba where it is installed; otherwise a stand-in module whose
-    ``cut`` splits on whitespace, registered for this phase only.  Phase 16
-    holds the card path against direct calls on the same token ids, so the
-    segmentation only has to be the same on both sides; the CPU tests hold
-    the port's tokenization against JAX's with the real jieba."""
+    ``cut`` splits on whitespace, registered for this phase only and, with
+    ``module_dir``, written there as ``jieba.py`` for the phase's child
+    processes (phase 24 puts the directory on their ``PYTHONPATH``: the
+    tokenizer pools spawn workers, which do not inherit ``sys.modules``).
+    Phase 16 holds the card path against direct calls on the same token
+    ids, so the segmentation only has to be the same on both sides; the
+    CPU tests hold the port's tokenization against JAX's with the real
+    jieba."""
     try:
         import jieba
     except ImportError:
         jieba = None
+    if getattr(jieba, "STAND_IN", False):
+        yield "a whitespace stand-in (jieba is not installed)"
+        return
     if jieba is not None:
         yield f"jieba {getattr(jieba, '__version__', '')}".strip()
         return
     stand_in = types.ModuleType("jieba")
-    stand_in.cut = lambda text: iter(text.split())
+    exec(JIEBA_STAND_IN, stand_in.__dict__)
     sys.modules["jieba"] = stand_in
+    if module_dir is not None:
+        (module_dir / "jieba.py").write_text(JIEBA_STAND_IN)
     try:
         yield "a whitespace stand-in (jieba is not installed)"
     finally:
@@ -3846,63 +3896,18 @@ def write_image_corpus(root: Path, seed: int) -> dict:
     return files
 
 
-def _nfnet():
-    """The tower that ``build_model`` gives eca_nfnet_l0, on the CPU."""
-    from item_alignment_torch.models.image import backbone_for
-
-    with torch.device("cpu"):
-        return backbone_for("eca_nfnet_l0", ModelConfig())
-
-
-def timm_nfnet_state_dict(tower) -> dict:
-    """The port NFNet's weights under timm 0.6.5's ``eca_nfnet_l0`` names
-    and shapes (the reverse of ``utils/timm_import.convert_timm_nfnet``),
-    with a 1000-class ``head.fc`` as timm's has."""
-    out = {}
-    for name, value in tower.state_dict().items():
-        mod, leaf = name.rsplit(".", 1)
-        if mod.startswith("stem"):
-            mod = f"stem.conv{int(mod[4:]) + 1}"
-        elif mod.startswith("stage"):
-            stage, part = mod.split(".", 1)
-            s, b = stage[len("stage"):].split("_block")
-            part = "downsample.conv" if part == "downsample" else part
-            mod = f"stages.{s}.{b}.{part}"
-        if leaf == "gain":
-            value = value.reshape(-1, 1, 1, 1)
-        if leaf == "conv":  # ECA's Conv1d
-            mod, leaf = f"{mod}.conv", "weight"
-        out[f"{mod}.{leaf}"] = value.detach().cpu().clone()
-    gen = torch.Generator().manual_seed(0)
-    out["head.fc.weight"] = torch.randn(1000, tower.num_features,
-                                        generator=gen) * 0.01
-    out["head.fc.bias"] = torch.zeros(1000)
-    return out
-
-
 def _rel_err(ours, ref) -> float:
     ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
     return float(np.abs(ours - ref).max() / np.abs(ref).max())
 
 
 def _timm_checkpoint(path: Path, seed: int) -> str:
-    """A random eca_nfnet_l0 from ``seed`` (He-normal kernels, every StdConv
-    gain drawn from U(0.5, 1): no residual branch starts at 0 as a
-    pretrained one does not), saved by ``torch.save`` under timm's names;
-    the port's converter must give the weights back exactly."""
-    from item_alignment_torch.models.image import (
-        StdConv,
-        init_image_weights,
-    )
+    """``synth_corpus``'s random eca_nfnet_l0 from ``seed``, saved by
+    ``torch.save`` under timm's names; the port's converter must give the
+    weights back exactly."""
     from item_alignment_torch.utils.timm_import import convert_timm_nfnet
 
-    tower = _nfnet()
-    gen = torch.Generator().manual_seed(seed)
-    init_image_weights(tower, gen)
-    with torch.no_grad():
-        for m in tower.modules():
-            if isinstance(m, StdConv):
-                m.gain.uniform_(0.5, 1.0, generator=gen)
+    tower = random_nfnet(seed)
     sd = timm_nfnet_state_dict(tower)
     back = convert_timm_nfnet({k: v.numpy() for k, v in sd.items()})
     state = tower.state_dict()
@@ -4167,7 +4172,7 @@ def phase_images(seed: int, card: str) -> tuple:
         imgs8 = np.stack([eval_transform(load_image(str(
             raw / "item_images_cropped" / f"{iid}.jpg")), IMG_DUMP)
             for iid in ids8])
-        tower = _nfnet().cuda().eval()
+        tower = nfnet_tower().cuda().eval()
         check(tower.num_features == NF_WIDTH, "phase 20: not eca_nfnet_l0")
         tower.load_state_dict(load_timm_backbone(
             tower.state_dict(), load_torch_state_dict(ckpt), "eca_nfnet_l0"))
@@ -5286,6 +5291,320 @@ def phase_parallel_two_processes() -> None:
           f"two processes", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the reproduction pipeline, pipeline/train.sh then predict.sh
+# ---------------------------------------------------------------------------
+
+PIPELINE = ROOT / "item_alignment_torch" / "pipeline"
+# the corpus of synth_corpus (its --flags), cut from the rehearsal's 120k
+# items and 65k train pairs so that the phase takes about six minutes
+PIPELINE_CORPUS = dict(n_items=4000, n_train_pairs=2000, n_valid_pairs=200,
+                       n_test_pairs=200, n_image_pairs=64, n_values=3000)
+# the scripts' own configs at full width, one epoch of every member
+PIPELINE_KNOBS = dict(EPOCHS="1", KGE_EPOCHS="1", BERT_EPOCHS="1",
+                      IMG_SIZE=str(IMG_TRAIN), IMG_EMB_SIZE=str(IMG_DUMP))
+PIPELINE_STEPS = {
+    "train": ("0-prepare", "1-pkgm-pretrain", "2-roberta-flagship",
+              "3-roberta-cls-layers", "4-pkgm-finetune", "5-textcnn",
+              "6a-image-prep", "6b-roberta-image", "7-nfnet",
+              "8-bert-legacy", "9-gcn", "done"),
+    "predict": ("p0-roberta-flagship", "p1-roberta-cls-layers", "p2-pkgm",
+                "p3-textcnn", "p4-roberta-image", "p5-nfnet", "p6-bert",
+                "p7-ensemble", "p8-package")}
+PIPELINE_MARK = re.compile(
+    r"^=== \[(train|predict)\.sh\] step (\S+) @ (\d+) ===$", re.M)
+PIPELINE_COMMANDS = 15 + 9  # ia-torch commands of train.sh and predict.sh
+# the flags by which a command reads parameters that an earlier step wrote
+PARAM_FLAGS = ("--file_state_dict", "--params")
+RECORDS_ENV = "CHIP_SMOKE_RECORDS"
+# the members whose models hold attention (finetune-text and -multimodal)
+ATTENTION_MODELS = ("roberta_large", "pkgm_large", "roberta_image_large")
+
+
+def as_cli(argv: list) -> int:
+    """Phase 24's ``ia-torch``: ``cli.main(argv)`` in this process under
+    ``segmenter``, then one JSON line appended to the file named by
+    $CHIP_SMOKE_RECORDS: the argv and return code, the parameter files it
+    reads and those missing when it started (then it runs nothing and
+    returns 2), its launches of #1-#6, its seconds inside ``cli.main`` and
+    the build seconds of each kernel library it loaded (0: phase 2's build
+    under ``build/`` reused)."""
+    reads = [argv[i + 1] for i, a in enumerate(argv[:-1]) if a in PARAM_FLAGS]
+    record = dict(argv=argv, reads=reads,
+                  missing=[p for p in reads if not os.path.exists(p)])
+    rc = 2
+    if not record["missing"]:
+        zero_counters()
+        t0 = time.perf_counter()
+        with segmenter() as seg:
+            rc = cli.main(argv)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        record.update(seconds=time.perf_counter() - t0, segmenter=seg,
+                      launches=list(counters()), built={
+                          k: v["seconds"] for k, v in _build.BUILD_INFO.items()})
+    with open(os.environ[RECORDS_ENV], "a") as w:
+        w.write(json.dumps(dict(record, rc=rc)) + "\n")
+    return rc
+
+
+# Phase 24's ``IA``: a client that hands its argv, working directory,
+# environment and stdin/stdout/stderr to ``serve_cli`` and exits with the
+# command's code
+CLI_CLIENT = """import json, os, socket, sys
+s = socket.socket(socket.AF_UNIX)
+s.connect("\\0" + {address!r})  # an abstract socket
+socket.send_fds(s, [b"x"], [0, 1, 2])
+s.sendall(json.dumps({{"argv": sys.argv[1:], "cwd": os.getcwd(),
+                      "env": dict(os.environ)}}).encode())
+s.shutdown(socket.SHUT_WR)
+sys.exit(int(s.makefile().readline() or 1))
+"""
+
+
+def serve_cli(address: str) -> None:
+    """``python3 chip_smoke.py --serve-cli ADDRESS``: phase 24's command
+    server on the abstract Unix socket ``address``.  Each ``CLI_CLIENT`` request
+    runs ``as_cli`` in a child forked from this process, with the client's
+    descriptors, directory and environment; the reply is its exit code.
+    This process has imported torch and the port (seconds a process on
+    the card's machine) and never touches the card, so each child starts
+    CUDA afresh and has its own launch counts.  Prints "ready" once
+    listening."""
+    server = socket.socket(socket.AF_UNIX)
+    server.bind("\0" + address)
+    server.listen()
+    print("ready", flush=True)
+    while True:
+        conn, _ = server.accept()
+        _, fds, _, _ = socket.recv_fds(conn, 1, 3)
+        request = json.loads(b"".join(iter(lambda: conn.recv(1 << 16), b"")))
+        sys.stdout.flush()
+        sys.stderr.flush()
+        pid = os.fork()
+        if pid == 0:
+            server.close()
+            conn.close()
+            for target, fd in enumerate(fds):
+                os.dup2(fd, target)
+            os.chdir(request["cwd"])
+            os.environ.clear()
+            os.environ.update(request["env"])
+            rc = 1
+            try:
+                rc = as_cli(request["argv"])
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 1
+            except BaseException:
+                traceback.print_exc()
+            finally:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(rc or 0)
+        for fd in fds:
+            os.close(fd)
+        _, status = os.waitpid(pid, 0)
+        conn.sendall(f"{os.waitstatus_to_exitcode(status)}\n".encode())
+        conn.close()
+
+
+def expected_launches(argv: list) -> str:
+    """What a pipeline command must launch: "train" (#2 and #3, #2 twice
+    as often under --remat, which replays the forward; #1 in its evals),
+    "predict" (#1 alone) or "none"; #4-#6 never (pairs of 510 tokens at
+    most)."""
+    cmd, model = argv[0], argv[argv.index("--model_name") + 1] \
+        if "--model_name" in argv else None
+    if cmd in ("finetune-text", "finetune-multimodal") \
+            and model in ATTENTION_MODELS:
+        return "train" if "--do_train" in argv else "predict"
+    return {"finetune-bert": "train", "pred-bert": "predict",
+            "pred-text": "predict"}.get(cmd, "none")
+
+
+def check_launches(rec: dict) -> None:
+    n1, n2, n3, *long = rec["launches"]
+    kind = expected_launches(rec["argv"])
+    what = f"phase 24: {' '.join(rec['argv'][:1])} ({kind}) launches " \
+           f"(#1..#6) {rec['launches']}"
+    check(not any(long), what)
+    if kind == "train":
+        check(n1 > 0 and n3 > 0 and n2 == n3 * (
+            2 if "--remat" in rec["argv"] else 1), what)
+    elif kind == "predict":
+        check(n1 > 0 and n2 == n3 == 0, what)
+    else:
+        check(n1 == n2 == n3 == 0, what)
+
+
+def run_script(script: Path, env: dict, log: Path, timeout: float) -> tuple:
+    """``bash script`` from the checkout's root in a session of its own,
+    its output to ``log``; at ``timeout``, or if this process stops
+    waiting, the script and every process under it are killed.  Returns
+    (return code, wall seconds, end time as ``date +%s`` reads it)."""
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(["bash", str(script)], stdout=out,
+                                stderr=subprocess.STDOUT, env=env,
+                                cwd=str(ROOT), start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = f"killed at its {timeout:.0f} s limit"
+        finally:  # the script and whatever it left running
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return rc, time.perf_counter() - t0, int(time.time())
+
+
+def step_seconds(text: str, script: str, end: int) -> dict:
+    """Each step's wall seconds from the scripts' own step marks (whole
+    seconds of ``date +%s``, as ``rehearsal.sh`` reads them), the last one
+    up to the script's end."""
+    marks = [(m.group(2), int(m.group(3))) for m in PIPELINE_MARK.finditer(
+        text) if m.group(1) == script]
+    check(tuple(n for n, _ in marks) == PIPELINE_STEPS[script]
+          and "(skipped" not in text and "(stopping" not in text,
+          f"phase 24: {script}.sh step marks {marks}")
+    ends = [t for _, t in marks[1:]] + [end]
+    return {n: e - t for (n, t), e in zip(marks, ends) if n != "done"}
+
+
+def phase_pipeline(seed: int, card: str) -> tuple:
+    """Phase 24: the port's ``pipeline/train.sh`` then ``predict.sh`` as
+    ``bash`` children at the configs' full width on a ``synth_corpus``
+    corpus from ``seed``; ``IA`` is ``CLI_CLIENT``, each command runs in a
+    child of ``serve_cli``.  Returns the launches of #1-#6 summed over the
+    commands."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data, site, bin_dir = root / "data", root / "site", root / "bin"
+        records = root / "commands.jsonl"
+        site.mkdir()
+        bin_dir.mkdir()
+        with segmenter(site) as seg:
+            pass
+        # predict.sh p8's ``python`` is this interpreter (a script, not a
+        # link: a link would lose a virtual environment's packages)
+        (bin_dir / "python").write_text(
+            f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        (bin_dir / "python").chmod(0o755)
+        address = f"chip_smoke_cli_{os.getpid()}"
+        client = root / "ia_client.py"
+        client.write_text(CLI_CLIENT.format(address=address))
+        env = {k: v for k, v in os.environ.items() if k not in (
+            "START_AT", "STOP_AFTER", "RESUME", "OUT", "VOCAB", "PRETRAINED",
+            "BOXES_FILE", "TIMM_NFNET", "EXTRA_FLAGS")}
+        env.update(PIPELINE_KNOBS, DATA_DIR=str(data),
+                   CONFIGS=str(ROOT / "configs"), **{RECORDS_ENV: str(records)},
+                   IA=f"{sys.executable} -I -S {client}",
+                   PATH=os.pathsep.join([str(bin_dir), env.get("PATH", "")]),
+                   PYTHONPATH=os.pathsep.join(
+                       [str(site), str(ROOT)] + ([env["PYTHONPATH"]]
+                                                 if env.get("PYTHONPATH")
+                                                 else [])))
+        flags = [a for k, v in PIPELINE_CORPUS.items()
+                 for a in (f"--{k}", str(v))] + ["--seed", str(seed),
+                                                  "--with_nfnet_ckpt"]
+        t0 = time.perf_counter()
+        made = subprocess.run(
+            [sys.executable, "-m", "item_alignment_torch.pipeline.synth_corpus",
+             "--output_dir", str(data)] + flags, capture_output=True,
+            text=True, cwd=str(ROOT), timeout=600,
+            env=dict(env, PYTHONHASHSEED=str(seed)))  # the images' noise
+        check(made.returncode == 0, f"phase 24: synth_corpus returned "
+              f"{made.returncode}: {made.stderr[-2000:]}")
+        corpus = json.loads(made.stdout.splitlines()[-1])
+        print(f"phase 24 pipeline: segmenter {seg}; corpus "
+              f"`synth_corpus {' '.join(flags)}` in "
+              f"{time.perf_counter() - t0:.1f} s: {corpus}", flush=True)
+
+        t0 = time.perf_counter()
+        server = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--serve-cli",
+             address], stdout=subprocess.PIPE, text=True, env=env,
+            cwd=str(ROOT), start_new_session=True)
+        walls, steps = {}, {}
+        try:
+            check(server.stdout.readline().strip() == "ready",
+                  f"phase 24: the command server ended ({server.poll()})")
+            print(f"phase 24 command server ready in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for script, timeout in (("train", 720), ("predict", 360)):
+                log = root / f"{script}_log.txt"
+                rc, walls[script], end = run_script(
+                    PIPELINE / f"{script}.sh", env, log, timeout)
+                text = log.read_text(errors="replace")
+                check(rc == 0, f"phase 24: {script}.sh returned {rc}; its "
+                      f"output ends:\n{text[-4000:]}")
+                steps[script] = step_seconds(text, script, end)
+                print(f"phase 24 {script}.sh: {walls[script]:.1f} s; steps "
+                      "(s) " + ", ".join(f"{n} {t}" for n, t in
+                                         steps[script].items())
+                      + f"; {card}", flush=True)
+        finally:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(server.pid, signal.SIGKILL)
+            server.wait()
+
+        recs = [json.loads(line) for line in open(records)]
+        check(len(recs) == PIPELINE_COMMANDS and all(
+            r["rc"] == 0 and not r["missing"] for r in recs),
+            "phase 24: commands " + "; ".join(
+                f"{r['argv'][0]} rc {r['rc']} missing {r['missing']}"
+                for r in recs))
+        for rec in recs:
+            check_launches(rec)
+        launches = [sum(r["launches"][k] for r in recs) for k in range(6)]
+        check(launches[0] > 0 and launches[1] > 0 and launches[2] > 0,
+              f"phase 24: launches (#1..#6) {launches}")
+        rebuilt = sorted({k for r in recs for k, v in r["built"].items()
+                          if v > 0})
+        reads = sorted({os.path.relpath(p, data) for r in recs
+                        for p in r["reads"]})
+        print(f"phase 24 launches (#1..#6) over {len(recs)} commands: "
+              f"{launches}; kernel libraries built in the children: "
+              f"{rebuilt or 'none (phase 2 built them)'}; {len(reads)} "
+              f"parameter files each present before the step that reads "
+              f"it: {reads}", flush=True)
+        print("phase 24 seconds inside cli.main: " + ", ".join(
+            f"{r['argv'][0]} {r['seconds']:.1f}" for r in recs), flush=True)
+
+        from item_alignment_torch.aggregate.submit import validate_submission
+
+        result = data / "output" / "ensemble" / "deepAI_result.jsonl"
+        valid = validate_submission(str(result))
+        # the fused score: at or above 0 the ensemble calls a pair the same
+        scores = [json.loads(json.loads(line)["tgt_item_emb"])[0]
+                  for line in open(result)]
+        with zipfile.ZipFile(data / "result.zip") as z:
+            members = sorted(z.namelist())
+            packed = z.read("deepAI_result.jsonl")
+        pairs = {(r["src_item_id"], r["tgt_item_id"]) for r in map(
+            json.loads, open(data / "raw" / "item_test_pair.jsonl"))}
+        check(valid == {"rows": len(pairs), "ok": True}
+              and members == ["deepAI_result.jsonl", "similarity.py"]
+              and packed == result.read_bytes()
+              and all(math.isfinite(x) for x in scores),
+              f"phase 24: result.zip {valid} for {len(pairs)} distinct test "
+              f"pairs, members {members}, the packed rows "
+              f"{'equal' if packed == result.read_bytes() else 'differ'}, "
+              f"scores in [{min(scores)}, {max(scores)}]")
+        size = sum(p.stat().st_size for p in data.rglob("*") if p.is_file())
+        total = walls["train"] + walls["predict"]
+        print(f"phase 24 result.zip: {valid['rows']} rows (the distinct "
+              f"pairs of {corpus['test_pairs']} test pairs), "
+              f"validated, fused scores in [{min(scores):.4f}, "
+              f"{max(scores):.4f}], {sum(x >= 0 for x in scores)} at or "
+              f"above 0; pipeline wall {total:.1f} s (train.sh "
+              f"{walls['train']:.1f}, predict.sh {walls['predict']:.1f}), "
+              f"{size / 2**30:.1f} GiB written; {card}", flush=True)
+    return tuple(launches)
+
+
 def run(args) -> None:
     card = phase_card()
     phase_build()
@@ -5354,6 +5673,7 @@ def run(args) -> None:
     phase_offsets(gen)
     parallel = phase_parallel(cfg, args.seed, gen)  # the parallel path
     phase_parallel_two_processes()
+    pipe = phase_pipeline(args.seed, card)  # the pipeline: #1-#3
 
     src, tpu = "item_alignment_torch/csrc/", "item_alignment_tpu/ops/pallas_attention.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5361,7 +5681,8 @@ def run(args) -> None:
         dict(name="fused_attention", source=src + "fused_attention.cu",
              replaces=tpu + "63",
              launches=(launches + entry[0] + pkgm[0] + mm[0] + legacy[0]
-                       + image[0] + graph[0] + coca[0] + parallel[0]),
+                       + image[0] + graph[0] + coca[0] + parallel[0]
+                       + pipe[0]),
              max_abs_err=max(kernel["max_abs_err"], pkgm_err["serving_err"],
                              legacy_err["serving_err"],
                              coca_err["serving_err"]),
@@ -5369,7 +5690,8 @@ def run(args) -> None:
         dict(name="fused_attention_dropout",
              source=src + "flash_blockwise_fwd.cu", replaces=tpu + "203",
              launches=(trained[1] + entry[1] + pkgm[1] + mm[1] + legacy[1]
-                       + image[1] + graph[1] + coca[1] + parallel[1]),
+                       + image[1] + graph[1] + coca[1] + parallel[1]
+                       + pipe[1]),
              max_abs_err=max(train["fwd_err"], pkgm_err["fwd_err"],
                              mm_err["fwd_err"], legacy_err["fwd_err"],
                              coca_err["fwd_err"]),
@@ -5377,7 +5699,8 @@ def run(args) -> None:
         dict(name="fused_attention_dropout_bwd",
              source=src + "flash_blockwise_bwd.cu", replaces=tpu + "241",
              launches=(trained[2] + entry[2] + pkgm[2] + mm[2] + legacy[2]
-                       + image[2] + graph[2] + coca[2] + parallel[2]),
+                       + image[2] + graph[2] + coca[2] + parallel[2]
+                       + pipe[2]),
              max_abs_err=max(*train["bwd_err"], *pkgm_err["bwd_err"],
                              *mm_err["bwd_err"], *legacy_err["bwd_err"],
                              *coca_err["bwd_err"]),
@@ -5385,17 +5708,17 @@ def run(args) -> None:
         dict(name="flash_blockwise_fwd", source=src + "flash_blockwise_fwd.cu",
              replaces=tpu + "458",
              launches=(served_long + trained_long[3] + image[3] + graph[3]
-                       + coca[3] + parallel[3]),
+                       + coca[3] + parallel[3] + pipe[3]),
              max_abs_err=block["fwd_err"], **block["fwd"]),
         dict(name="flash_blockwise_dq", source=src + "flash_blockwise_bwd.cu",
              replaces=tpu + "522",
              launches=(trained_long[4] + image[4] + graph[4] + coca[4]
-                       + parallel[4]),
+                       + parallel[4] + pipe[4]),
              max_abs_err=block["bwd_err"][0], **block["dq"]),
         dict(name="flash_blockwise_dkv", source=src + "flash_blockwise_bwd.cu",
              replaces=tpu + "571",
              launches=(trained_long[5] + image[5] + graph[5] + coca[5]
-                       + parallel[5]),
+                       + parallel[5] + pipe[5]),
              max_abs_err=max(block["bwd_err"][1:]), **block["dkv"]),
     ]
     print(json.dumps({"kernels": [dict(row, route="cuda") for row in rows]}),
@@ -5406,6 +5729,8 @@ def run(args) -> None:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--serve-cli"]:  # phase 24's command server
+        serve_cli(sys.argv[2])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     try:

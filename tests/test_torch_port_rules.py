@@ -106,10 +106,32 @@ def test_port_imports_no_jax():
             "item_alignment_torch/models/graph.py",
             "item_alignment_torch/utils/flax_msgpack.py",
             "item_alignment_torch/data/native_loader.py",
-            "item_alignment_torch/utils/flops.py"} <= names
+            "item_alignment_torch/utils/flops.py",
+            "item_alignment_torch/pipeline/synth_corpus.py"} <= names
     bad = {f"{p.relative_to(ROOT)}: {name}" for p in files
            for name in _imported_roots(p) if name in FORBIDDEN}
     assert not bad, sorted(bad)
+
+
+def test_pipeline_scripts_name_no_jax():
+    """The port's pipeline scripts name neither the JAX package nor JAX nor
+    a ``.msgpack`` path, p8 packages through the port's submit module, and
+    the scripts ship as package data."""
+    import tomllib
+
+    scripts = sorted((ROOT / "item_alignment_torch" / "pipeline").glob(
+        "*.sh"))
+    assert [p.name for p in scripts] == ["predict.sh", "rehearsal.sh",
+                                         "train.sh"]
+    for path in scripts:
+        text = path.read_text()
+        for word in ("item_alignment_tpu", "jax", ".msgpack"):
+            assert word not in text.lower(), (path.name, word)
+    assert "from item_alignment_torch.aggregate.submit import" in (
+        scripts[0].read_text())
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    assert "pipeline/*.sh" in data["tool"]["setuptools"]["package-data"][
+        "item_alignment_torch"]
 
 
 def test_jieba_only_inside_the_segmenters():
