@@ -1,11 +1,21 @@
-"""Engine ported so far: training with checkpoint/resume, metrics and
-two-tower encode-once inference."""
+"""Engine ported so far: training with checkpoint/resume, metrics,
+two-tower encode-once inference and observability.
 
-from item_alignment_torch.engine.checkpoint import CheckpointManager  # noqa: F401
+The exports below load on first use: the models and ops import
+``engine.observability`` (spans), and ``engine.train`` imports them, so
+importing this package must not import ``train`` back."""
 
-from item_alignment_torch.engine.inference import (  # noqa: F401
-    TwoTowerInference,
-    two_tower_encode_fn,
-    two_tower_head_fn,
-)
-from item_alignment_torch.engine.train import Trainer  # noqa: F401
+import importlib
+
+_EXPORTS = {"CheckpointManager": "checkpoint",
+            "TwoTowerInference": "inference",
+            "two_tower_encode_fn": "inference",
+            "two_tower_head_fn": "inference",
+            "Trainer": "train"}
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+    return getattr(module, name)

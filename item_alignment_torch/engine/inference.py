@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from item_alignment_torch.device import resolve_device
+from item_alignment_torch.engine.observability import span
 from item_alignment_torch.ops.quant import quantize_rowwise
 
 
@@ -45,14 +46,18 @@ class TwoTowerInference:
                     ) -> torch.Tensor:
         """Encode all items once; ``batches`` yields fixed-shape feature
         dicts aligned with ``item_ids`` order (a padded tail is cut)."""
-        embs = [self._encode(batch) for batch in batches]
-        cache = torch.cat(embs)[: len(item_ids)].to(self.device)
-        self.id_to_row = {iid: i for i, iid in enumerate(item_ids)}
-        if self.cache_quant == "int8":
-            self.cache, self.cache_scale = quantize_rowwise(cache)
-        else:
-            self.cache, self.cache_scale = cache, None
-        return self.cache
+        with span("build_cache"):
+            embs = []
+            for batch in batches:
+                with span("encode"):
+                    embs.append(self._encode(batch))
+            cache = torch.cat(embs)[: len(item_ids)].to(self.device)
+            self.id_to_row = {iid: i for i, iid in enumerate(item_ids)}
+            if self.cache_quant == "int8":
+                self.cache, self.cache_scale = quantize_rowwise(cache)
+            else:
+                self.cache, self.cache_scale = cache, None
+            return self.cache
 
     @torch.inference_mode()
     def score_pairs(self, src_idx: np.ndarray, tgt_idx: np.ndarray

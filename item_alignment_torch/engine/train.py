@@ -75,7 +75,11 @@ from item_alignment_torch.engine.checkpoint import (
     load_params,
     save_params,
 )
-from item_alignment_torch.engine.observability import EvalWriter, ScalarLogger
+from item_alignment_torch.engine.observability import (
+    EvalWriter,
+    ScalarLogger,
+    span,
+)
 from item_alignment_torch.engine.optim import Optimizer, make_optimizer
 from item_alignment_torch.ops.dropout import batch_rows, fold_seed
 from item_alignment_torch.parallel.mesh import AXIS_DATA, create_mesh
@@ -151,6 +155,7 @@ class Trainer:
                 for name, shape in noise_spec.items()}
         self.optimizer: Optional[Optimizer] = None
         self.step = 0
+        self.evals = 0  # eval batches answered (the index of their spans)
         self.best_params: Optional[Dict[str, torch.Tensor]] = None
         self.scalars = self.eval_writer = None
         if log_dir and is_writer():
@@ -186,25 +191,27 @@ class Trainer:
         does not hand a pinned block out again before its copy has
         completed.  Under a mesh with a data axis, this rank's rows of each
         batch (``_rows``: their offset, count and the global batch)."""
-        self._rows = None
-        n = len(next(iter(batches[0].values())))
-        rows = slice(0, n)
-        if self.mesh is not None and batch_sharding(self.mesh)[1] > 1:
-            rows = process_slice(n, mesh=self.mesh)
-            self._rows = (rows.start, rows.stop - rows.start, n)
-        pin = self.device.type == "cuda"
-        out = {}
-        for k in batches[0]:
-            parts = [torch.as_tensor(np.asarray(b[k])[rows]) for b in batches]
-            dtype = parts[0].dtype
-            if not parts[0].is_floating_point() and dtype != torch.uint8:
-                dtype = torch.long
-            host = torch.empty((len(parts),) + parts[0].shape, dtype=dtype,
-                               pin_memory=pin)
-            for i, part in enumerate(parts):
-                host[i] = part
-            out[k] = host.to(self.device, non_blocking=True)
-        return out
+        with span("stage"):
+            self._rows = None
+            n = len(next(iter(batches[0].values())))
+            rows = slice(0, n)
+            if self.mesh is not None and batch_sharding(self.mesh)[1] > 1:
+                rows = process_slice(n, mesh=self.mesh)
+                self._rows = (rows.start, rows.stop - rows.start, n)
+            pin = self.device.type == "cuda"
+            out = {}
+            for k in batches[0]:
+                parts = [torch.as_tensor(np.asarray(b[k])[rows])
+                         for b in batches]
+                dtype = parts[0].dtype
+                if not parts[0].is_floating_point() and dtype != torch.uint8:
+                    dtype = torch.long
+                host = torch.empty((len(parts),) + parts[0].shape,
+                                   dtype=dtype, pin_memory=pin)
+                for i, part in enumerate(parts):
+                    host[i] = part
+                out[k] = host.to(self.device, non_blocking=True)
+            return out
 
     def _device_batch(self, batch: Dict[str, np.ndarray]
                       ) -> Dict[str, torch.Tensor]:
@@ -223,41 +230,47 @@ class Trainer:
         mesh are ``_rows``)."""
         if self.optimizer is None:
             self.setup()
-        seed = step_seed(self.config.seed, self.step)
-        rows = self._rows
-        deltas, passed = {}, {}
-        if self.deltas is not None:
-            deltas = {k: d.detach().requires_grad_()
-                      for k, d in self.deltas.items()}
-            passed = {k: d if rows is None else d[rows[0]:rows[0] + rows[1]]
-                      for k, d in deltas.items()}
-        # the backward regenerates the masks, so it runs in the rows too
-        with batch_rows(*rows) if rows else contextlib.nullcontext():
-            out = self.model(**inputs, **passed, deterministic=False,
-                             dropout_seed=seed)
-            loss = _loss_of(out)
-            loss.backward()
-        if self._sharded and all(p.grad is None
-                                 for p in self.optimizer.params.values()):
-            raise RuntimeError("the sharded model reduced no gradient: FSDP2 "
-                               "found no tensor in the model's output")
-        if rows is not None:
-            loss = self._data_mean(loss.detach())
-            for d in deltas.values():
-                # each data rank holds its rows' share of the mean's
-                # gradient; the sum over the ranks is the whole batch's
-                d.grad = self._data_mean(d.grad)
-        self.optimizer.step()
-        self.optimizer.zero_grad()
-        if deltas:
-            mode, epsilon, alpha = self.adversarial
-            with torch.no_grad():
-                self.deltas = update_deltas(
-                    mode, {k: d.detach() for k, d in deltas.items()},
-                    {k: d.grad for k, d in deltas.items()}, epsilon, alpha,
-                    seed=fold_seed(seed, NOISE_SITE))
-        self.step += 1
-        return loss.detach()
+        with span("step", self.step):
+            seed = step_seed(self.config.seed, self.step)
+            rows = self._rows
+            deltas, passed = {}, {}
+            if self.deltas is not None:
+                deltas = {k: d.detach().requires_grad_()
+                          for k, d in self.deltas.items()}
+                passed = {k: d if rows is None
+                          else d[rows[0]:rows[0] + rows[1]]
+                          for k, d in deltas.items()}
+            # the backward regenerates the masks, so it runs in the rows too
+            with batch_rows(*rows) if rows else contextlib.nullcontext():
+                with span("forward"):
+                    out = self.model(**inputs, **passed, deterministic=False,
+                                     dropout_seed=seed)
+                    loss = _loss_of(out)
+                with span("backward"):
+                    loss.backward()
+            if self._sharded and all(
+                    p.grad is None for p in self.optimizer.params.values()):
+                raise RuntimeError("the sharded model reduced no gradient: "
+                                   "FSDP2 found no tensor in the model's "
+                                   "output")
+            if rows is not None:
+                loss = self._data_mean(loss.detach())
+                for d in deltas.values():
+                    # each data rank holds its rows' share of the mean's
+                    # gradient; the sum over the ranks is the whole batch's
+                    d.grad = self._data_mean(d.grad)
+            with span("optim"):
+                self.optimizer.step()
+                self.optimizer.zero_grad()
+            if deltas:
+                mode, epsilon, alpha = self.adversarial
+                with torch.no_grad():
+                    self.deltas = update_deltas(
+                        mode, {k: d.detach() for k, d in deltas.items()},
+                        {k: d.grad for k, d in deltas.items()}, epsilon,
+                        alpha, seed=fold_seed(seed, NOISE_SITE))
+            self.step += 1
+            return loss.detach()
 
     # ------------------------------------------------------------- loops
     def train_epoch(self, dataset: ArrayDataset, epoch: int = 0,
@@ -333,11 +346,15 @@ class Trainer:
     @torch.no_grad()
     def _eval_outputs(self, batch: Dict[str, np.ndarray]):
         self.shard()
-        out = self.model(**self._device_batch(batch), deterministic=True)
-        outs = [x.float() for x in (out.probs, out.src_embeds, out.tgt_embeds)]
-        if self._rows is not None:
-            outs = [self._gather_rows(x) for x in outs]
-        return tuple(x.cpu().numpy() for x in outs)
+        with span("eval", self.evals):
+            self.evals += 1
+            out = self.model(**self._device_batch(batch), deterministic=True)
+            outs = [x.float()
+                    for x in (out.probs, out.src_embeds, out.tgt_embeds)]
+            if self._rows is not None:
+                outs = [self._gather_rows(x) for x in outs]
+            with span("fetch"):
+                return tuple(x.cpu().numpy() for x in outs)
 
     def evaluate(self, dataset: ArrayDataset) -> Dict[str, Any]:
         cfg = self.config

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from item_alignment_torch.config import ModelConfig
+from item_alignment_torch.engine.observability import span
 from item_alignment_torch.models.layers import (
     Dense,
     LayerNorm,
@@ -100,18 +101,21 @@ class RobertaEmbeddings(nn.Module):
         deterministic: bool = True,
         dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
-        cfg = self.config
-        if position_ids is None:
-            position_ids = _checked_position_ids(input_ids, cfg)
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        embeds = embedding_lookup(self.word_embeddings, input_ids)
-        if cate_ids is not None:
-            if not cfg.cate_size:
-                raise ValueError("cate_ids passed but config.cate_size unset")
-            embeds = embeds + embedding_lookup(self.cate_embeddings, cate_ids)
-        return self.post(embeds, token_type_ids, position_ids, deterministic,
-                         dropout_seed)
+        with span("embeddings"):
+            cfg = self.config
+            if position_ids is None:
+                position_ids = _checked_position_ids(input_ids, cfg)
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(input_ids)
+            embeds = embedding_lookup(self.word_embeddings, input_ids)
+            if cate_ids is not None:
+                if not cfg.cate_size:
+                    raise ValueError(
+                        "cate_ids passed but config.cate_size unset")
+                embeds = embeds + embedding_lookup(self.cate_embeddings,
+                                                   cate_ids)
+            return self.post(embeds, token_type_ids, position_ids,
+                             deterministic, dropout_seed)
 
 
 class PKGMEmbeddings(nn.Module):
@@ -174,23 +178,25 @@ class PKGMEmbeddings(nn.Module):
         deterministic: bool = True,
         dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
-        cfg = self.config
-        if cfg.interaction_type == "one_tower":
-            item_id_len = cfg.max_seq_len + cfg.max_pvs + 1
-            embeds = torch.cat((self._split_item(input_ids[:, :item_id_len]),
-                                self._split_item(input_ids[:, item_id_len:])),
-                               dim=1)
-        else:
-            embeds = self._split_item(input_ids)
-        B, S, _ = embeds.shape
-        if position_ids is None:
-            # the datasets give explicit 0..S-1 positions
-            position_ids = torch.arange(S, device=embeds.device).expand(B, S)
-        if token_type_ids is None:
-            token_type_ids = torch.zeros((B, S), dtype=torch.long,
-                                         device=embeds.device)
-        return self.post(embeds, token_type_ids, position_ids, deterministic,
-                         dropout_seed)
+        with span("embeddings"):
+            cfg = self.config
+            if cfg.interaction_type == "one_tower":
+                item_id_len = cfg.max_seq_len + cfg.max_pvs + 1
+                embeds = torch.cat(
+                    (self._split_item(input_ids[:, :item_id_len]),
+                     self._split_item(input_ids[:, item_id_len:])), dim=1)
+            else:
+                embeds = self._split_item(input_ids)
+            B, S, _ = embeds.shape
+            if position_ids is None:
+                # the datasets give explicit 0..S-1 positions
+                position_ids = torch.arange(
+                    S, device=embeds.device).expand(B, S)
+            if token_type_ids is None:
+                token_type_ids = torch.zeros((B, S), dtype=torch.long,
+                                             device=embeds.device)
+            return self.post(embeds, token_type_ids, position_ids,
+                             deterministic, dropout_seed)
 
 
 class ImageSpliceEmbeddings(nn.Module):
@@ -225,23 +231,24 @@ class ImageSpliceEmbeddings(nn.Module):
         deterministic: bool = True,
         dropout_seed: Optional[int] = None,
     ) -> torch.Tensor:
-        cfg = self.config
-        if position_ids is None:
-            # from the attention mask, as the reference derives them
-            position_ids = _checked_position_ids(
-                attention_mask if attention_mask is not None else input_ids,
-                cfg)
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        txt = embedding_lookup(self.word_embeddings, input_ids)
-        if cfg.ensemble == "begin":
-            pos = torch.arange(input_ids.shape[1],
-                               device=txt.device)[None, :, None]
-            txt = torch.where(pos == 1,
-                              self.img2txt(image_embeds[0])[:, None, :], txt)
-            if cfg.interaction_type == "one_tower":
-                txt = torch.where(pos == image_indices[:, None, None],
-                                  self.img2txt(image_embeds[1])[:, None, :],
-                                  txt)
-        return self.post(txt, token_type_ids, position_ids, deterministic,
-                         dropout_seed)
+        with span("embeddings"):
+            cfg = self.config
+            if position_ids is None:
+                # from the attention mask, as the reference derives them
+                position_ids = _checked_position_ids(
+                    attention_mask if attention_mask is not None
+                    else input_ids, cfg)
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(input_ids)
+            txt = embedding_lookup(self.word_embeddings, input_ids)
+            if cfg.ensemble == "begin":
+                pos = torch.arange(input_ids.shape[1],
+                                   device=txt.device)[None, :, None]
+                txt = torch.where(
+                    pos == 1, self.img2txt(image_embeds[0])[:, None, :], txt)
+                if cfg.interaction_type == "one_tower":
+                    txt = torch.where(
+                        pos == image_indices[:, None, None],
+                        self.img2txt(image_embeds[1])[:, None, :], txt)
+            return self.post(txt, token_type_ids, position_ids, deterministic,
+                             dropout_seed)

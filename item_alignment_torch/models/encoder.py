@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (
 )
 
 from item_alignment_torch.config import ModelConfig
+from item_alignment_torch.engine.observability import span
 from item_alignment_torch.models.layers import Dense, LayerNorm, compute_dtype
 from item_alignment_torch.ops.attention import (
     dot_product_attention,
@@ -170,7 +171,10 @@ class TransformerLayer(nn.Module):
                                   fold_seed(seed, 0))
         attn_out = self.dropout(attn_out, fold_seed(seed, 1), deterministic)
         hidden = self.attention_layer_norm(hidden + attn_out)
-        mlp = self.mlp_output(self.act(self.intermediate(hidden)))
+        mlp = self.intermediate(hidden)
+        with span("gelu"):
+            mlp = self.act(mlp)
+        mlp = self.mlp_output(mlp)
         mlp = self.dropout(mlp, fold_seed(seed, 2), deterministic)
         return self.output_layer_norm(hidden + mlp)
 

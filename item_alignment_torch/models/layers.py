@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from item_alignment_torch.engine.observability import span
 from item_alignment_torch.utils.flops import count_as
 
 
@@ -96,8 +97,10 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        with span("cast"):
+            bias = None if self.bias is None else self.bias.to(dt)
+            x, weight = x.to(dt), self.weight.to(dt)
+        return F.linear(x, weight, bias)
 
 
 class StackedDense(nn.Module):
@@ -112,7 +115,9 @@ class StackedDense(nn.Module):
                                                in_features))
 
     def forward(self, x: torch.Tensor, layer: int) -> torch.Tensor:
-        return F.linear(x, self.weight[layer].to(x.dtype))
+        with span("cast"):
+            weight = self.weight[layer].to(x.dtype)
+        return F.linear(x, weight)
 
 
 class LayerNorm(nn.Module):
@@ -128,15 +133,17 @@ class LayerNorm(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
-                          min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean) * mul
-        if self.bias is not None:
-            y = y + self.bias
-        return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
+        with span("layernorm"):
+            xf = x.float()
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True)
+                              - mean * mean, min=0.0)
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (xf - mean) * mul
+            if self.bias is not None:
+                y = y + self.bias
+            return y.to(self.dtype
+                        or torch.promote_types(x.dtype, torch.float32))
 
 
 def compute_dtype(cfg) -> torch.dtype:

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from item_alignment_torch.engine.observability import span
 from item_alignment_torch.ops.cuda_attention import fused_attention
 from item_alignment_torch.ops.cuda_attention_blockwise import (
     fused_attention_blockwise,
@@ -95,8 +96,9 @@ def flash_attention(
     the kernels, CPU tensors take their plain versions.  Under a FLOP
     counter (``utils/flops.py``) a call counts its model FLOPs, whichever
     runs it."""
-    return count_attention(_flash_attention, q, k, v, bias, dropout_rate,
-                           dropout_seed, dtype, head_offset, num_heads)
+    with span("attention"):
+        return count_attention(_flash_attention, q, k, v, bias, dropout_rate,
+                               dropout_seed, dtype, head_offset, num_heads)
 
 
 def _flash_attention(q, k, v, bias, dropout_rate, dropout_seed, dtype,

@@ -41,6 +41,8 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from item_alignment_torch.engine.observability import span
+
 M32 = 0xFFFFFFFF
 
 
@@ -193,4 +195,5 @@ class ReplayDropout(nn.Module):
             return x
         if seed is None:
             raise ValueError("training-mode dropout needs a dropout seed")
-        return replay_dropout(self.rate, seed, x)
+        with span("dropout"):
+            return replay_dropout(self.rate, seed, x)
