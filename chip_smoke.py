@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-6, 11, 7-9, 12-15, 10, 16-24:
+run in the order 1-6, 11, 7-9, 25, 12-15, 10, 16-24:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -341,6 +341,20 @@ run in the order 1-6, 11, 7-9, 12-15, 10, 16-24:
    ``validate_submission`` with a row for each distinct test pair, its
    fused scores finite.  Each step's wall seconds and the whole
    pipeline's, beside the card's name and power limit.
+25. LayerNorm (``csrc/layer_norm.cu``, which replaces no TPU kernel): the
+   kernels' registers (no spill); the forward (y, and the saved mean and
+   variance) and the backward (dx, dw, db, on the kernel's statistics)
+   against their plain versions at the benchmark cells' rows of 1024
+   (40 x 510, 32 x 510, 64 x 510, 64 x 255), at 768 and 3072, and at tiny
+   and odd widths (7 to 8192), in each pair of fp32 and bf16 in and out,
+   with and without a bias, and with a constant row whose variance may
+   round below 0; two backward calls equal bit for bit; the op's gradients
+   against autograd through the plain forward; each kernel timed at the
+   cells' shapes (device time, by the profiler) beside its byte bound, the
+   plain chain and ``F.layer_norm`` (a yardstick only), and the host time
+   a call of the op and of the plain chain; a RoBERTa-large train step through the ``Trainer`` launches
+   each kernel 49 times (24 layers x 2 and the embeddings) and never calls
+   the plain version, a forward without gradients 49 forward launches.
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -359,9 +373,15 @@ commands (a and b; none of #1-#6), phase 21's graph commands (none) and
 phase 22's CoCa commands (as above) and phase 23b (24 calls of #2's and
 #3's contracts a step), and each command of phase 24 in its own process
 (as above); the kernels line adds the launches of phases 16-24.  The
-line before the last is one JSON object with the six kernels' numbers (the
-rows of #1 and #2 with an ``f32`` object too: phase 19e's fp32 ms,
-library_ms, bound_ms and bound_by at B=8, S=512, N=12); the last line is
+LayerNorm kernels' launches (``ln_counters()``, zeroed with the others)
+are checked at 49 forward and 49 backward a RoBERTa-large pass (24 layers
+x 2 and the embeddings; 48 more forward a step under remat) in phases 4,
+5, 8, 12, 14, 23b and 25, and the kernels line counts those.  The line
+before the last is one JSON object with the six kernels' numbers (the rows
+of #1 and #2 with an ``f32`` object too: phase 19e's fp32 ms, library_ms,
+bound_ms and bound_by at B=8, S=512, N=12) and phase 25's LayerNorm
+forward and backward at the train shape, whose ``max_rel_err`` is the
+largest max|err| / max|ref| of phase 25's comparisons; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -437,6 +457,7 @@ from item_alignment_torch.models.text import (
 from item_alignment_torch.ops import _build, _launch, cuda_attention
 from item_alignment_torch.ops import cuda_attention_blockwise as cab
 from item_alignment_torch.ops import cuda_attention_train as cat
+from item_alignment_torch.ops import layer_norm as lnk
 from item_alignment_torch.ops import quant
 from item_alignment_torch.ops import sparse
 from item_alignment_torch.ops.attention import make_attention_bias
@@ -783,7 +804,7 @@ def phase_cross_encoder(cfg: ModelConfig, seed: int, gen: torch.Generator,
     reqs = [pair_batch(batch, S, cfg.vocab_size, gen)
             for _ in range(batches + 1)]
     probs, times = [], []
-    before = counters()[kernel]
+    before, ln_before = counters()[kernel], ln_counters()
     with torch.inference_mode():
         for ids, mask in reqs:  # the first batch warms up
             t0 = time.perf_counter()
@@ -795,6 +816,7 @@ def phase_cross_encoder(cfg: ModelConfig, seed: int, gen: torch.Generator,
     check(launches == LAYERS * len(reqs),
           f"{name}: {launches} launches of kernel #{kernel + 1} for "
           f"{len(reqs)} forwards of {LAYERS} layers")
+    ln = hold_ln(name, ln_before, len(reqs))
     got = torch.cat(probs)
     check(tuple(got.shape) == (batch * len(reqs),)
           and bool(torch.isfinite(got).all()) and got.min() >= 0
@@ -812,7 +834,8 @@ def phase_cross_encoder(cfg: ModelConfig, seed: int, gen: torch.Generator,
     print(f"{name}: {served} pairs at S={S} in batches of {batch} in "
           f"{sum(times[1:]) * 1e3:.2f} ms ({pairs_s:.2f} pairs/s; warm-up "
           f"batch {times[0] * 1e3:.1f} ms), {launches} launches of kernel "
-          f"#{kernel + 1} ({LAYERS}/forward), probs vs plain attention max "
+          f"#{kernel + 1} ({LAYERS}/forward), LayerNorm {ln[0]} forward "
+          f"({LN_PER_PASS}/forward), probs vs plain attention max "
           f"diff {diff:.3e}", flush=True)
     del model, plain
     torch.cuda.empty_cache()
@@ -831,7 +854,7 @@ def phase_mining(cfg: ModelConfig, seed: int, gen: torch.Generator) -> int:
     inf = TwoTowerInference(two_tower_encode_fn(model),
                             two_tower_head_fn(model), batch_size=4096)
 
-    before = cuda_attention.LAUNCHES
+    before, ln_before = cuda_attention.LAUNCHES, ln_counters()
     t0 = time.perf_counter()
     cache = inf.build_cache(item_ids, batches)
     torch.cuda.synchronize()
@@ -846,6 +869,7 @@ def phase_mining(cfg: ModelConfig, seed: int, gen: torch.Generator) -> int:
     check(launches == LAYERS * len(batches),
           f"mining: {launches} kernel launches for {len(batches)} encode "
           f"batches of {LAYERS} layers")
+    ln = hold_ln("mining", ln_before, len(batches))
     check(tuple(cache.shape) == (n_items, cfg.hidden_size),
           f"mining: cache shape {tuple(cache.shape)}")
     check(probs.shape == (len(src),) and bool(
@@ -853,12 +877,13 @@ def phase_mining(cfg: ModelConfig, seed: int, gen: torch.Generator) -> int:
 
     idx = slice(0, 8 * per_item, per_item)  # 8 pairs from 8 source items
     s8, t8 = torch.as_tensor(src[idx]).cuda(), torch.as_tensor(tgt[idx]).cuda()
-    direct_before = cuda_attention.LAUNCHES
+    direct_before, ln_before = cuda_attention.LAUNCHES, ln_counters()
     with torch.inference_mode():
         direct = model(ids[s8], ids[t8], mask[s8], mask[t8]).probs
     direct_launches = cuda_attention.LAUNCHES - direct_before
     check(direct_launches == 2 * LAYERS,
           f"mining: {direct_launches} launches for one two-tower forward")
+    hold_ln("mining: one two-tower forward", ln_before, 2)
     diff = (torch.as_tensor(probs[idx]).cuda() - direct).abs().max().item()
     check(diff <= 2e-2, f"mining: cached vs direct probs differ {diff}")
     pairs_s = len(src) / (encode_s + score_s)
@@ -866,7 +891,8 @@ def phase_mining(cfg: ModelConfig, seed: int, gen: torch.Generator) -> int:
           f"{encode_s:.4f} s, {len(src)} pairs scored in {score_s:.4f} s "
           f"({pairs_s:.1f} pairs/s end to end), {launches} launches "
           f"({LAYERS}/encode batch, {direct_launches}/two-tower pair "
-          f"forward), cached vs direct probs max diff {diff:.3e}", flush=True)
+          f"forward), LayerNorm {ln[0]} forward ({LN_PER_PASS}/encode "
+          f"batch), cached vs direct probs max diff {diff:.3e}", flush=True)
     return launches
 
 
@@ -1468,6 +1494,7 @@ def zero_counters() -> None:
     cuda_attention.LAUNCHES = 0
     cat.FWD_LAUNCHES = cat.BWD_LAUNCHES = 0
     cab.FWD_LAUNCHES = cab.DQ_LAUNCHES = cab.DKV_LAUNCHES = 0
+    lnk.FWD_LAUNCHES = lnk.BWD_LAUNCHES = 0
 
 
 def counters():
@@ -1475,6 +1502,32 @@ def counters():
     contracts, which run on #4 and on delta, #5 and #6)."""
     return (cuda_attention.LAUNCHES, cat.FWD_LAUNCHES, cat.BWD_LAUNCHES,
             cab.FWD_LAUNCHES, cab.DQ_LAUNCHES, cab.DKV_LAUNCHES)
+
+
+def ln_counters() -> tuple:
+    """Forward and backward calls of the LayerNorm kernels; read beside
+    ``counters()``, which the checks compare whole against #1-#6."""
+    return lnk.FWD_LAUNCHES, lnk.BWD_LAUNCHES
+
+
+LN_PER_PASS = 2 * LAYERS + 1  # two a layer and the embeddings'
+LN_COUNTED = [0, 0]  # the LayerNorm launches the checks below counted
+
+
+def hold_ln(name: str, before: tuple, forwards: int, backwards: int = 0,
+            replayed: int = 0) -> tuple:
+    """The LayerNorm launches since ``before`` (``ln_counters()``) must be
+    49 a RoBERTa-large forward and 49 a backward, and 48 more forward for
+    each backward whose layers remat replays; they join the kernels
+    line's count."""
+    got = tuple(a - b for a, b in zip(ln_counters(), before))
+    want = (LN_PER_PASS * forwards + 2 * LAYERS * replayed,
+            LN_PER_PASS * backwards)
+    check(got == want, f"{name}: LayerNorm launches (forward, backward) "
+          f"{got}, expected {want}")
+    LN_COUNTED[0] += got[0]
+    LN_COUNTED[1] += got[1]
+    return got
 
 
 def per_step(short: int = 0, long: int = 0, fwd_factor: int = 1):
@@ -1849,6 +1902,7 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counters()
+        ln_before = ln_counters()
         losses, times = [], []
         try:
             for batch in batches:
@@ -1880,6 +1934,7 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
                       fwd_factor=2 if remat else 1)
     check(launches == expect, f"{name}: launches (#1..#6) {launches} "
           f"over {steps} steps, expected {expect}")
+    ln = hold_ln(name, ln_before, steps, steps, steps * remat)
     step_ms = sum(times[1:]) / (steps - 1) * 1e3
     profiled = profile_step(lambda: trainer.train_step(batches[-1]),
                             step_ms)
@@ -1889,8 +1944,8 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
           f"{[round(x, 6) for x in losses]}; {step_ms:.2f} ms/step over "
           f"{steps - 1} timed steps ({B / step_ms * 1e3:.2f} train pairs/s; "
           f"warm-up step {times[0] * 1e3:.1f} ms); peak memory "
-          f"{peak / 2 ** 30:.2f} GiB; launches #1..#6 {launches}; "
-          f"max |update| "
+          f"{peak / 2 ** 30:.2f} GiB; launches #1..#6 {launches}, "
+          f"LayerNorm forward and backward {ln}; max |update| "
           + ", ".join(f"{n.split('.')[-2]} {v:.3e}" for n, v in moved.items()),
           flush=True)
     print(f"{name}: profile of one more step: {profiled}", flush=True)
@@ -5119,6 +5174,7 @@ def _parallel_steps(mcfg: ModelConfig, tcfg: TrainConfig, seed: int,
     torch.cuda.reset_peak_memory_stats()
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     zero_counters()
+    ln_before = ln_counters()
     losses, times = [], []
     for batch in batches:
         t0 = time.perf_counter()
@@ -5127,6 +5183,7 @@ def _parallel_steps(mcfg: ModelConfig, tcfg: TrainConfig, seed: int,
         times.append(time.perf_counter() - t0)
         losses.append(loss.item())
     launches = counters()
+    ln = hold_ln("phase 23b", ln_before, len(batches), len(batches))
     memory = (f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
               f"allocated, {torch.cuda.memory_stats().get('num_alloc_retries', 0) - retries}"
               " allocator retries")
@@ -5135,8 +5192,8 @@ def _parallel_steps(mcfg: ModelConfig, tcfg: TrainConfig, seed: int,
     profiled = profile_step(lambda: trainer.train_step(batches[-1]), step_ms,
                             host_ranges=FSDP_RANGES)
     return dict(model=model, trainer=trainer, losses=losses, params=params,
-                step_ms=step_ms, launches=launches, profiled=profiled,
-                memory=memory)
+                step_ms=step_ms, launches=launches, ln=ln,
+                profiled=profiled, memory=memory)
 
 
 # FSDP2's profiler ranges (torch/distributed/fsdp/_fully_shard): its hooks'
@@ -5168,7 +5225,7 @@ def phase_parallel(cfg: ModelConfig, seed: int, gen: torch.Generator) -> tuple:
     1).  Against the same steps without a process group: losses and
     parameters within 1e-6 relative (bit for bit expected: a collective of
     one copies), ms/step and the idle share, and 24 calls of #2's and #3's
-    contracts a step.  A third run puts the tensor-parallel styles on by
+    contracts and 49 + 49 of the LayerNorm kernels a step.  A third run puts the tensor-parallel styles on by
     hand as well, which splits the wrappers' cost between the two."""
     from torch.distributed.fsdp import FSDPModule
     from torch.distributed.tensor import DTensor
@@ -5251,7 +5308,8 @@ def phase_parallel(cfg: ModelConfig, seed: int, gen: torch.Generator) -> tuple:
           + f"; wrapper cost: FSDP2 {wrapped['step_ms'] - plain['step_ms']:+.2f}"
           f" ms/step, the tensor-parallel styles on top "
           f"{both['step_ms'] - wrapped['step_ms']:+.2f} ms/step; launches "
-          f"#1..#6 {wrapped['launches']}", flush=True)
+          f"#1..#6 {wrapped['launches']}, LayerNorm {wrapped['ln']}",
+          flush=True)
     return wrapped["launches"]
 
 
@@ -5605,6 +5663,288 @@ def phase_pipeline(seed: int, card: str) -> tuple:
     return tuple(launches)
 
 
+# phase 25: the LayerNorm kernels at the benchmark cells' rows of 1024
+# (label, rows, H) and at the port's other widths; then tiny and odd widths
+LN_SHAPES = (("train", 40 * 510, 1024), ("image train", 32 * 510, 1024),
+             ("score", 64 * 510, 1024), ("mine", 64 * 255, 1024),
+             ("H=768", 16 * 512, 768), ("H=3072", 16 * 512, 3072))
+LN_ODD = ((33, 7), (17, 32), (9, 1000), (4, 1030), (5, 2048), (3, 8192))
+LN_DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+             (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32))
+# y and dx against the plain versions, by the tensor's dtype (a bf16 output
+# may round the other way where the sums' order moves the fp32 value); the
+# fp32 statistics and parameter gradients within 1e-5
+LN_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+LN_EPS = 1e-5
+
+
+def _ln_ptxas(log: str) -> list:
+    """(kernel<in,out,vector>, registers, spill bytes) of the LayerNorm
+    library, from nvcc -Xptxas -v."""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    out, name, spill = [], "?", "0"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"(ia_ln_\w+?_kernel)(?:I(f|13__nv_bfloat16)"
+                          r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E)?", m.group(1))
+            if k and k.group(2):  # S<n>_ repeats the first type
+                dout = types.get(k.group(3), types[k.group(2)])
+                name = (f"{k.group(1)}<{types[k.group(2)]},{dout},"
+                        f"{k.group(4)}>")
+            else:
+                name = k.group(1) if k else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append((name, int(m.group(1)), int(spill)))
+            spill = "0"
+    return out
+
+
+def _ln_inputs(R, H, din, dout, bias, gen, constant_row=True):
+    """x (randn x 2 + 0.5; row 1 the constant 0.1, whose variance may round
+    below 0, where ``constant_row``), weight 1 + 0.1 randn, bias 0.1 randn
+    or None, dy randn."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    x = (randn(R, H) * 2 + 0.5).to(din)
+    if constant_row:
+        x[min(1, R - 1)] = 0.1
+    w = 1 + 0.1 * randn(H)
+    b = 0.1 * randn(H) if bias else None
+    return x, w, b, randn(R, H).to(dout)
+
+
+def ln_case(R, H, din, dout, bias, gen) -> dict:
+    """Both kernels against their plain versions at one shape: y, the saved
+    mean and variance, dx, dw and db (the backward's plain version on the
+    kernel's statistics), each as max|err| / max|ref|; two backward calls
+    must give the same bits."""
+    x, w, b, dy = _ln_inputs(R, H, din, dout, bias, gen)
+    y, mean, var = lnk.launch_fwd(x, w, b, LN_EPS, dout, stats=True)
+    ref_mean, ref_var = lnk.layer_norm_stats(x)
+    dx, dw, db = lnk.launch_bwd(x, w, mean, var, dy, LN_EPS)
+    again = lnk.launch_bwd(x, w, mean, var, dy, LN_EPS)
+    check(all(torch.equal(a, c) for a, c in zip((dx, dw, db), again)),
+          f"LayerNorm backward at {R}x{H} {din}->{dout}: two calls differ")
+    rdx, rdw, rdb = lnk.layer_norm_bwd_reference(x, w, mean, var, dy, LN_EPS)
+    errs = dict(y=_rel(y, lnk.layer_norm_reference(x, w, b, LN_EPS, dout)),
+                mean=_rel(mean, ref_mean), var=_rel(var, ref_var),
+                dx=_rel(dx, rdx), dw=_rel(dw, rdw), db=_rel(db, rdb))
+    limits = dict(y=LN_TOL[dout], dx=LN_TOL[din])
+    bad = {k: e for k, e in errs.items() if not e <= limits.get(k, 1e-5)}
+    check(not bad, f"LayerNorm at {R}x{H} {din}->{dout} bias={bias}: "
+          f"{bad} of max|ref|")
+    return dict(errs, clamped=bool(var[min(1, R - 1)] < 0))
+
+
+def ln_autograd(R, H, din, dout, gen) -> dict:
+    """The public op's gradients (the autograd function on the kernels)
+    against autograd through the plain forward, max|err| / max|ref|.  No
+    constant row: its variance is rounding noise, 1e-9 against eps 1e-5,
+    so its rstd (about 316) and its dx move by 1e-4 with the order of the
+    sums alone (``ln_case`` holds the backward on the kernel's own
+    statistics)."""
+    x, w, b, dy = _ln_inputs(R, H, din, dout, True, gen, constant_row=False)
+    grads = []
+    for fn in (lnk.layer_norm, lnk.layer_norm_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        fn(*leaves, LN_EPS, dout).backward(dy)
+        grads.append([t.grad for t in leaves])
+    errs = dict(zip(("dx", "dw", "db"),
+                    (_rel(a, c) for a, c in zip(*grads))))
+    check(errs["dx"] <= LN_TOL[din] and errs["dw"] <= 1e-4
+          and errs["db"] <= 1e-4, f"LayerNorm autograd at {R}x{H} "
+          f"{din}->{dout}: {errs} of max|ref|")
+    return errs
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time a call of ``fn``: the sum of the device operations that
+    ``iters`` calls ran, by ``torch.profiler``, over ``iters``.  Unlike
+    ``cuda_ms`` it leaves out the time the device waits on the host, which
+    a LayerNorm call's launches take longer than its kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device operation")
+    return us / iters / 1e3
+
+
+def host_us(fn, iters: int = 2000) -> float:
+    """Host time a call of ``fn`` at a shape whose kernels take less than
+    its launches, so the device never holds the host back."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def time_ln(label, R, H, gen) -> dict:
+    """Device ms a call at one shape in bf16 (with bias): the kernels
+    (the backward's two), the plain forward and autograd's backward through
+    it (all their kernels), ``F.layer_norm`` (bf16 weights; a yardstick
+    only: the port never calls it), and the bound: x in and y out (and
+    mean, var) forward; x and dy in, dx out and dw, db backward, at 3.35
+    TB/s."""
+    bf = torch.bfloat16
+    x, w, b, dy = _ln_inputs(R, H, bf, bf, True, gen)
+    _, mean, var = lnk.launch_fwd(x, w, b, LN_EPS, bf, stats=True)
+    ms = dict(fwd=device_ms(lambda: lnk.launch_fwd(x, w, b, LN_EPS, bf,
+                                                   True)),
+              bwd=device_ms(lambda: lnk.launch_bwd(x, w, mean, var, dy,
+                                                   LN_EPS)))
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    plain_y = lnk.layer_norm_reference(*leaves, LN_EPS, bf)
+    lib_leaves = [t.clone().requires_grad_() for t in (x, w.to(bf), b.to(bf))]
+    lib_y = F.layer_norm(lib_leaves[0], (H,), *lib_leaves[1:], LN_EPS)
+    with torch.no_grad():
+        plain = dict(fwd=device_ms(lambda: lnk.layer_norm_reference(
+            x, w, b, LN_EPS, bf)))
+        library = dict(fwd=device_ms(lambda: F.layer_norm(
+            x, (H,), lib_leaves[1].detach(), lib_leaves[2].detach(),
+            LN_EPS)))
+    plain["bwd"] = device_ms(lambda: torch.autograd.grad(
+        plain_y, leaves, dy, retain_graph=True))
+    library["bwd"] = device_ms(lambda: torch.autograd.grad(
+        lib_y, lib_leaves, dy, retain_graph=True))
+    nbytes = dict(fwd=R * H * 4 + R * 8 + H * 8,
+                  bwd=R * H * 6 + R * 8 + H * 4 + H * 8)
+    rows = {d: dict(ms=ms[d], plain_ms=plain[d], library_ms=library[d],
+                    bound_ms=nbytes[d] / PEAK_BYTES * 1e3, bound_by="bytes")
+            for d in ("fwd", "bwd")}
+    print(f"phase 25 LayerNorm device time {label} ({R} rows of {H}, "
+          "bf16): " + "; ".join(
+              f"{d} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it; plain "
+              f"{r['plain_ms']:.4f}, F.layer_norm {r['library_ms']:.4f})"
+              for d, r in rows.items()), flush=True)
+    return rows
+
+
+def ln_host(gen) -> str:
+    """Host us a call (64 rows of 1024, bf16): the op without gradients,
+    its forward and its forward with the backward under autograd, against
+    the plain chain's."""
+    bf = torch.bfloat16
+    x, w, b, dy = _ln_inputs(64, 1024, bf, bf, True, gen)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    out = {}
+    for name, fn in (("kernels", lnk.layer_norm),
+                     ("plain", lnk.layer_norm_reference)):
+        with torch.no_grad():
+            inference = host_us(lambda: fn(x, w, b, LN_EPS, bf))
+        forward = host_us(lambda: fn(*leaves, LN_EPS, bf), 500)
+        both = host_us(lambda: torch.autograd.grad(
+            fn(*leaves, LN_EPS, bf), leaves, dy), 500)
+        out[name] = (inference, forward, both)
+    return "; ".join(f"{k} {i:.1f} us without gradients, {f:.1f} us a "
+                     f"forward, {t:.1f} us forward and backward"
+                     for k, (i, f, t) in out.items())
+
+
+def phase_layer_norm(cfg: ModelConfig, seed: int, gen: torch.Generator
+                     ) -> dict:
+    """Phase 25: the LayerNorm kernels (``csrc/layer_norm.cu``): their
+    registers and spills; both against their plain versions at the cells'
+    shapes and the port's widths in every pair of dtypes, with and without
+    a bias, and at tiny and odd widths; the public op's gradients against
+    autograd through the plain forward; two backward calls equal bit for
+    bit; times beside the bound, the plain chain and ``F.layer_norm``; and
+    a RoBERTa-large train step through the ``Trainer`` with 49 forward and
+    49 backward launches and no call of the plain version, a forward
+    without gradients 49 and 0."""
+    regs = _ln_ptxas(_build.BUILD_INFO["layer_norm"]["log"])
+    print("phase 25 LayerNorm ptxas: " + "; ".join(
+        f"{n} {r} regs" + (f" spill {s} B" if s else "") for n, r, s in regs),
+        flush=True)
+    check(regs and not any(s for _, _, s in regs),
+          f"LayerNorm kernels spill: {regs}")
+    worst: dict = {}
+    clamped = 0
+    cases = [(R, H) for _, R, H in LN_SHAPES] + list(LN_ODD)
+    for R, H in cases:
+        for din, dout in LN_DTYPES:
+            for bias in (True, False):
+                errs = ln_case(R, H, din, dout, bias, gen)
+                clamped += errs.pop("clamped")
+                for k, e in errs.items():
+                    key = (k, din if k == "dx" else dout)
+                    worst[key] = max(worst.get(key, 0.0), e)
+    print(f"phase 25 LayerNorm kernels vs plain: {len(cases)} shapes x "
+          f"{len(LN_DTYPES)} dtype pairs x bias and none; worst of max|ref| "
+          + ", ".join(f"{k} {str(d).split('.')[-1]} {e:.2e}"
+                      for (k, d), e in sorted(worst.items(), key=str))
+          + f"; the constant row's variance below 0 in {clamped} cases; "
+          "two backward calls equal bit for bit in each", flush=True)
+    grads = {f"{str(i).split('.')[-1]}->{str(o).split('.')[-1]}":
+             ln_autograd(40 * 510, 1024, i, o, gen) for i, o in LN_DTYPES}
+    print("phase 25 LayerNorm autograd (the op) vs autograd through the "
+          "plain forward at 20400x1024: " + "; ".join(
+              f"{k} " + ", ".join(f"{n} {e:.2e}" for n, e in v.items())
+              for k, v in grads.items()), flush=True)
+    timed = {label: time_ln(label, R, H, gen) for label, R, H in LN_SHAPES}
+    print(f"phase 25 LayerNorm host time a call: {ln_host(gen)}", flush=True)
+
+    # a train step and a forward of RoBERTa-large through the kernels alone
+    B = 2
+    mcfg = cfg.replace(hidden_dropout_prob=0.1,
+                       attention_probs_dropout_prob=0.1)
+    ids, mask = pair_batch(B, cfg.pair_seq_len, cfg.vocab_size, gen)
+    batch = {"input_ids": ids.cpu().numpy(),
+             "attention_mask": mask.cpu().numpy(),
+             "labels": np.array([0, 1])}
+    trainer = Trainer(RobertaOneTower(mcfg, seed=seed), TrainConfig(
+        seed=seed, train_batch_size=B, log_steps=10 ** 9,
+        optimizer=OptimizerConfig(learning_rate=5e-5, total_steps=16000,
+                                  fused=True, state_dtype="bfloat16"))).setup()
+    plain, calls = lnk.layer_norm_reference, []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    lnk.layer_norm_reference = counted
+    try:
+        before = ln_counters()
+        loss = trainer.train_step(batch).item()
+        step = hold_ln("phase 25: a train step", before, 1, 1)
+        before = ln_counters()
+        with torch.no_grad():
+            trainer.model(ids, mask)
+        forward = hold_ln("phase 25: a forward", before, 1)
+    finally:
+        lnk.layer_norm_reference = plain
+    check(math.isfinite(loss) and not calls,
+          f"phase 25: loss {loss}, the plain LayerNorm called {len(calls)} "
+          "times")
+    print(f"phase 25 LayerNorm launches: a RoBERTa-large train step "
+          f"(batch {B}, S={cfg.pair_seq_len}) {step[0]} forward and "
+          f"{step[1]} backward, a forward without gradients {forward}; the "
+          f"plain version called {len(calls)} times; {card_line()}",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(timed["train"], worst=max(worst.values()))
+
+
 def run(args) -> None:
     card = phase_card()
     phase_build()
@@ -5648,6 +5988,7 @@ def run(args) -> None:
     phase_grad_check(cfg, args.seed, gen)
     trained = phase_train(cfg, args.seed, gen)["launches"]  # the training path
     phase_remat_check(cfg, args.seed, gen)
+    ln = phase_layer_norm(cfg, args.seed, gen)
 
     zero_counters()  # the long serving path
     served_long = phase_cross_encoder(long_cfg, args.seed, gen, batch=4,
@@ -5720,7 +6061,10 @@ def run(args) -> None:
              launches=(trained_long[5] + image[5] + graph[5] + coca[5]
                        + parallel[5] + pipe[5]),
              max_abs_err=max(block["bwd_err"][1:]), **block["dkv"]),
-    ]
+    ] + [dict(name=f"layer_norm_{d}", source=src + "layer_norm.cu",
+              replaces=None, launches=LN_COUNTED[i],
+              max_rel_err=ln["worst"], **ln[d])
+         for i, d in enumerate(("fwd", "bwd"))]
     print(json.dumps({"kernels": [dict(row, route="cuda") for row in rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

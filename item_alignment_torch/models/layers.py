@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from item_alignment_torch.engine.observability import span
+from item_alignment_torch.ops.layer_norm import layer_norm
 from item_alignment_torch.utils.flops import count_as
 
 
@@ -121,7 +122,9 @@ class StackedDense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """``use_bias=False`` has no bias, as Flax's ``use_bias=False``."""
+    """``use_bias=False`` has no bias, as Flax's ``use_bias=False``.  On
+    CUDA the forward and backward are the kernels of ``ops/layer_norm.py``;
+    on the CPU its plain version."""
 
     def __init__(self, features: int, eps: float,
                  dtype: Optional[torch.dtype] = None, use_bias: bool = True):
@@ -134,16 +137,8 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("layernorm"):
-            xf = x.float()
-            mean = xf.mean(dim=-1, keepdim=True)
-            var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True)
-                              - mean * mean, min=0.0)
-            mul = torch.rsqrt(var + self.eps) * self.weight
-            y = (xf - mean) * mul
-            if self.bias is not None:
-                y = y + self.bias
-            return y.to(self.dtype
-                        or torch.promote_types(x.dtype, torch.float32))
+            return layer_norm(x, self.weight, self.bias, self.eps,
+                              self.dtype)
 
 
 def compute_dtype(cfg) -> torch.dtype:

@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("fused_attention", "flash_blockwise_fwd", "flash_blockwise_bwd")
+SOURCES = ("fused_attention", "flash_blockwise_fwd", "flash_blockwise_bwd",
+           "layer_norm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per library: path, build seconds (0 when cached) and nvcc's log
@@ -39,7 +40,7 @@ def _nvcc() -> str:
     if candidate.exists():
         return str(candidate)
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the attention kernels")
+                       "the port's kernels")
 
 
 def _tag() -> str:

@@ -306,17 +306,19 @@ def test_kernel_source_ships_with_the_package():
     from item_alignment_torch.ops import _build
 
     for source in ("fused_attention.cu", "flash_blockwise_fwd.cu",
-                   "flash_blockwise_bwd.cu", "attention_common.cuh",
-                   "attention_f32.cuh", "hopper_common.cuh"):
+                   "flash_blockwise_bwd.cu", "layer_norm.cu",
+                   "attention_common.cuh", "attention_f32.cuh",
+                   "hopper_common.cuh"):
         assert (ROOT / "item_alignment_torch" / "csrc" / source).is_file()
     # kernel #2's contract runs on the forward of flash_blockwise_fwd.cu and
     # #3's on the dQ and dK/dV kernels of flash_blockwise_bwd.cu; their own
     # sources are gone
     for gone in ("attention_dropout_fwd.cu", "attention_dropout_bwd.cu"):
         assert not (ROOT / "item_alignment_torch" / "csrc" / gone).exists()
-    # ops/_build.py names exactly the three sources
+    # ops/_build.py names exactly the four sources
     assert sorted(_build.SOURCES) == ["flash_blockwise_bwd",
-                                      "flash_blockwise_fwd", "fused_attention"]
+                                      "flash_blockwise_fwd", "fused_attention",
+                                      "layer_norm"]
     assert {f"{name}.cu" for name in _build.SOURCES} == {
         p.name for p in _build.CSRC.glob("*.cu")}
 
@@ -349,6 +351,7 @@ def test_kernels_are_built_at_first_use_not_at_import(monkeypatch, tmp_path):
     there is no nvcc raises instead of falling back."""
     from item_alignment_torch.ops import _build
     from item_alignment_torch.ops import cuda_attention_blockwise as cab
+    from item_alignment_torch.ops import layer_norm
 
     assert not _build._LIBS
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -359,6 +362,10 @@ def test_kernels_are_built_at_first_use_not_at_import(monkeypatch, tmp_path):
         cab._launch_fwd(0.0, 0, q, q, q, None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cab._launch_dq(0.0, 0, q, q, q, None, q, q, q)
+    x = torch.zeros(4, 32)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        layer_norm.launch_fwd(x, x[0], None, 1e-5, torch.float32, True)
+    assert layer_norm.FWD_LAUNCHES == 0
 
 
 def _kge_npz(tmp: pathlib.Path) -> str:
