@@ -4,15 +4,19 @@
   the metrics, the cells and their configurations and traffic);
 - ``portbench/workloads/<cell>.json``: the job, the model kind, the
   job's parameters, the per-layer metrics, the check's sizes and limits;
-- ``portbench/configs/<config>.json``: the configuration (its ``model``
-  sizes and its compute ``dtype``);
+- ``portbench/configs/<config>.json``: the configuration (its ``family``,
+  its ``model`` sizes and its compute ``dtype``);
 - ``portbench/traffic/<traffic>.json``: the traffic mix;
 - ``portbench/jobs/<job>.py``: the job's code;
-- ``portbench/metrics/<family>.py``: the reader of each per-layer metric
-  whose name starts with ``<family>`` (up to the first dot).
+- ``portbench/families/<family>.py``: the configuration's model family:
+  the program's model built from the sizes, its weights' layout, its
+  reference, its hand counts and its spans; the jobs reach the model only
+  through it;
+- ``portbench/metrics/<prefix>.py``: the reader of each per-layer metric
+  whose name starts with ``<prefix>`` (up to the first dot).
 
-Adding a cell, a mix or a metric reader is adding files and manifest
-entries; no file here names one.
+Adding a cell, a mix, a metric reader or a model family is adding files
+and manifest entries; no file here names one.
 """
 
 from __future__ import annotations
@@ -50,10 +54,15 @@ def job_module(job: str, root: Path = PACKAGE) -> ModuleType:
     return _module(root / "jobs" / f"{job}.py", f"portbench_job_{job}")
 
 
+def family_module(family: str, root: Path = PACKAGE) -> ModuleType:
+    return _module(root / "families" / f"{family}.py",
+                   f"portbench_family_{family}")
+
+
 def reader(metric: str, root: Path = PACKAGE) -> ModuleType:
-    family = metric.split(".")[0]
-    return _module(root / "metrics" / f"{family}.py",
-                   f"portbench_metric_{family}")
+    prefix = metric.split(".")[0]
+    return _module(root / "metrics" / f"{prefix}.py",
+                   f"portbench_metric_{prefix}")
 
 
 @dataclass
@@ -75,6 +84,10 @@ class Cell:
     def model(self) -> Dict:
         """The configuration's model sizes."""
         return self.config["model"]
+
+    def family(self) -> ModuleType:
+        """The configuration's model family (``families/<family>.py``)."""
+        return family_module(self.config["family"], self.root)
 
     @property
     def end_to_end(self) -> List[str]:

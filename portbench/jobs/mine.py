@@ -30,12 +30,12 @@ from item_alignment_torch.engine.inference import (
     two_tower_head_fn,
 )
 
-from portbench import compare, flops, port, traffic, weights
-from portbench.reference import roberta as ref
-from portbench.reference.layout import param_shapes
+from portbench import compare, port, spans, traffic, weights
 
 
 class Job:
+    STEP_SPAN = "build_cache"  # the program's span of a round's encode
+
     def __init__(self, cell, seed: int, device="cuda",
                  overrides: Optional[Dict] = None):
         self.cell, self.seed = cell, int(seed)
@@ -43,16 +43,17 @@ class Job:
         self.work = cell.workload
         self.sizes = dict(cell.model, **(overrides or {}))
         self.kind = self.work["model"]
+        self.family = cell.family()
         self.attempted = self.failed = 0
         self.done = []  # (pool index, probabilities) of each round
         self.encode_s = self.score_s = 0.0
         self.notes = {"round_s": []}  # each round's seconds, for stderr
 
     def setup(self) -> None:
-        cfg = port.model_config(self.sizes, self.cell.config["dtype"],
-                                interaction_type="two_tower")
-        model = port.build(self.kind, cfg, self.sizes, self.seed,
-                           self.device).eval()
+        model = self.family.build(self.kind, self.sizes,
+                                  self.cell.config["dtype"], self.seed,
+                                  self.device,
+                                  interaction_type="two_tower").eval()
         self.inf = TwoTowerInference(
             two_tower_encode_fn(model), two_tower_head_fn(model),
             batch_size=self.work["score_rows"], device=self.device)
@@ -88,6 +89,11 @@ class Job:
         self.notes["round_s"].append(round(t2 - t0, 4))
         self.done.append((i, probs))
 
+    def unit(self, n: int) -> None:
+        """``n`` rounds, as the window runs them."""
+        for _ in range(n):
+            self._round()
+
     def window(self, seconds: float) -> Dict[str, float]:
         t0 = port.clock(self.device)
         while True:
@@ -100,9 +106,9 @@ class Job:
         self.failed = int(sum((~np.isfinite(p)).sum() for _, p in self.done))
         mix = self.cell.traffic
         self.window_s = t1 - t0
-        self.window_flop = self.rounds * flops.encoder_forward(
-            self.sizes, mix["items"], mix["seq_len"]) \
-            + flops.two_tower_scores(self.sizes, self.attempted)
+        self.window_flop = self.rounds * self.family.forward_flop(
+            self.sizes, self.kind, mix["items"], mix["seq_len"]) \
+            + self.family.pair_score_flop(self.sizes, self.attempted)
         return {"mine_pairs_per_s": self.attempted / self.window_s}
 
     def traced(self) -> Dict:
@@ -110,14 +116,16 @@ class Job:
 
         rounds, enc, sco = self.rounds, self.encode_s, self.score_s
         n = self.work["trace_steps"]
-        _, trace = profiled(lambda: [self._round() for _ in range(n)])
+        _, trace = profiled(lambda: self.unit(n))
         _, labelled = profiled(self._round, host=True)
         mask = self.pool[0]["attention_mask"][:self.work["encode_rows"]]
-        return {"trace": trace, "gaps": labelled.idle_gaps(), "steps": n,
-                "model_flop": self.window_flop, "window_s": self.window_s,
-                "encode_s": enc, "score_s": sco, "rounds": rounds,
-                **port.attention_record(self.sizes, mask, 0.0, False,
-                                        self.device)}
+        rec = {"trace": trace, "gaps": labelled.idle_gaps(), "steps": n,
+               "model_flop": self.window_flop, "window_s": self.window_s,
+               "encode_s": enc, "score_s": sco, "rounds": rounds,
+               **self.family.attention_record(self.sizes, mask, 0.0, False,
+                                              self.device)}
+        rec["spans"] = spans.passes(self, rec)
+        return rec
 
     def release(self) -> None:
         """Keep the check's rows of the last round's cache; free the
@@ -151,8 +159,8 @@ class Job:
             idx = items[s:s + block]
             ids, mask = (torch.as_tensor(r[key][idx], device=self.device)
                          .long() for key in ("input_ids", "attention_mask"))
-            out.append(ref.item_embedding(w, self.sizes, ids, mask,
-                                          precision))
+            out.append(self.family.item_embedding(w, self.sizes, ids, mask,
+                                                  precision))
         return torch.cat(out)
 
     def ours(self) -> Dict:
@@ -165,10 +173,10 @@ class Job:
 
     def reference(self, precision: str = "fp32") -> Dict:
         """The reference's outputs for the same rows and pairs."""
+        fam = self.family
         if self.device.type == "cuda":
-            ref.fp32_exact()
-        w = weights.make(param_shapes(self.sizes, self.kind), self.seed,
-                         self.device)
+            fam.fp32_exact()
+        w = weights.of(fam, self.sizes, self.kind, self.seed, self.device)
         with torch.no_grad():
             emb = self._embed(w, self.pool[self.cached[0]], self.rows,
                               precision)
@@ -177,7 +185,7 @@ class Job:
                 r = self.pool[i]
                 e = self._embed(w, r, np.array([r["src"][j], r["tgt"][j]]),
                                 precision)
-                probs.append(float(ref.two_tower_probs(w, e[:1], e[1:])[0]))
+                probs.append(float(fam.two_tower_probs(w, e[:1], e[1:])[0]))
         return {"emb": emb.cpu(), "probs": np.array(probs)}
 
     @staticmethod

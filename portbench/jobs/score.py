@@ -25,12 +25,12 @@ import torch
 from item_alignment_torch.config import TrainConfig
 from item_alignment_torch.engine.train import Trainer
 
-from portbench import compare, flops, port, traffic, weights
-from portbench.reference import roberta as ref
-from portbench.reference.layout import param_shapes
+from portbench import compare, port, spans, traffic, weights
 
 
 class Job:
+    STEP_SPAN = "eval"  # the program's span of a request
+
     def __init__(self, cell, seed: int, device="cuda",
                  overrides: Optional[Dict] = None):
         self.cell, self.seed = cell, int(seed)
@@ -38,13 +38,14 @@ class Job:
         self.work = cell.workload
         self.sizes = dict(cell.model, **(overrides or {}))
         self.kind = self.work["model"]
+        self.family = cell.family()
         self.attempted = self.failed = 0
         self.answers = []  # (pool index, probabilities)
 
     def setup(self) -> None:
-        cfg = port.model_config(self.sizes, self.cell.config["dtype"])
-        model = port.build(self.kind, cfg, self.sizes, self.seed,
-                           self.device).eval()
+        model = self.family.build(self.kind, self.sizes,
+                                  self.cell.config["dtype"], self.seed,
+                                  self.device).eval()
         self.trainer = Trainer(model, TrainConfig(
             seed=self.seed, eval_batch_size=self.cell.traffic["rows"]),
             device=self.device)
@@ -63,6 +64,10 @@ class Job:
             self.answers.append((i, self._answer(self.pool[i])))
             self.next += 1
 
+    def unit(self, n: int) -> None:
+        """``n`` requests, as the window sends them."""
+        self._requests(n)
+
     def window(self, seconds: float) -> Dict[str, float]:
         latencies = []
         t0 = port.clock(self.device)
@@ -79,8 +84,8 @@ class Job:
         mix = self.cell.traffic
         rows = mix["rows"]
         self.window_s = t1 - t0
-        self.window_flop = self.attempted * flops.one_tower_forward(
-            self.sizes, rows, mix["seq_len"], False)
+        self.window_flop = self.attempted * self.family.forward_flop(
+            self.sizes, self.kind, rows, mix["seq_len"])
         return {"score_pairs_per_s": self.attempted * rows / self.window_s,
                 "score_batch_p95_ms": float(np.percentile(latencies, 95))
                 * 1e3}
@@ -91,11 +96,13 @@ class Job:
         n = self.work["trace_steps"]
         _, trace = profiled(lambda: self._requests(n))
         _, labelled = profiled(lambda: self._requests(1), host=True)
-        return {"trace": trace, "gaps": labelled.idle_gaps(), "steps": n,
-                "model_flop": self.window_flop, "window_s": self.window_s,
-                **port.attention_record(self.sizes,
-                                        self.pool[0]["attention_mask"], 0.0,
-                                        False, self.device)}
+        rec = {"trace": trace, "gaps": labelled.idle_gaps(), "steps": n,
+               "model_flop": self.window_flop, "window_s": self.window_s,
+               **self.family.attention_record(
+                   self.sizes, self.pool[0]["attention_mask"], 0.0, False,
+                   self.device)}
+        rec["spans"] = spans.passes(self, rec)
+        return rec
 
     def release(self) -> None:
         self.trainer = None
@@ -118,10 +125,10 @@ class Job:
     def reference(self, precision: str = "fp32") -> Dict[str, np.ndarray]:
         """The reference's logits and probabilities of the same
         requests."""
+        fam = self.family
         if self.device.type == "cuda":
-            ref.fp32_exact()
-        w = weights.make(param_shapes(self.sizes, self.kind), self.seed,
-                         self.device)
+            fam.fp32_exact()
+        w = weights.of(fam, self.sizes, self.kind, self.seed, self.device)
         block = self.work["check"]["block_rows"]
         out = []
         with torch.no_grad():
@@ -131,9 +138,9 @@ class Job:
                 n = b["input_ids"].shape[0]
                 for r0 in range(0, n, block):
                     rows = slice(r0, min(r0 + block, n))
-                    logits = ref.one_tower_logits(
+                    logits = fam.one_tower_logits(
                         w, self.sizes, {k: v[rows] for k, v in b.items()},
-                        ref.Drops(rows=rows, total=n), precision)
+                        rows, n, precision)
                     out.append(logits.float().cpu())
         logits = torch.cat(out)
         return {"logits": logits.numpy(),

@@ -29,13 +29,13 @@ import torch
 from item_alignment_torch.config import OptimizerConfig, TrainConfig
 from item_alignment_torch.engine.train import Trainer
 
-from portbench import compare, flops, port, traffic, weights
-from portbench.reference import roberta as ref
-from portbench.reference.layout import param_shapes
-from portbench.reference.train import leaf_norms, run_steps
+from portbench import compare, port, spans, traffic, weights
+from portbench.reference.train import leaf_norms
 
 
 class Job:
+    STEP_SPAN = "step"  # the program's span of a train step
+
     def __init__(self, cell, seed: int, device="cuda",
                  overrides: Optional[Dict] = None):
         self.cell, self.seed = cell, int(seed)
@@ -43,16 +43,17 @@ class Job:
         self.work = cell.workload
         self.sizes = dict(cell.model, **(overrides or {}))
         self.kind = self.work["model"]
+        self.family = cell.family()
         self.opt = self.work["optimizer"]
         self.attempted = self.failed = 0
 
     # ------------------------------------------------------------ set-up
     def setup(self) -> None:
         rate = self.work["dropout"]
-        cfg = port.model_config(self.sizes, self.cell.config["dtype"],
-                                hidden_dropout_prob=rate,
-                                attention_probs_dropout_prob=rate)
-        model = port.build(self.kind, cfg, self.sizes, self.seed, self.device)
+        model = self.family.build(self.kind, self.sizes,
+                                  self.cell.config["dtype"], self.seed,
+                                  self.device, hidden_dropout_prob=rate,
+                                  attention_probs_dropout_prob=rate)
         opt = OptimizerConfig(fused=True, **self.opt)
         self.trainer = Trainer(model, TrainConfig(
             seed=self.seed, train_batch_size=self.cell.traffic["rows"],
@@ -69,8 +70,8 @@ class Job:
                          for n, m in adamw.mu.items()}
                 grad_norms = leaf_norms(grads)
                 del grads
-        w0 = weights.make(param_shapes(self.sizes, self.kind), self.seed,
-                          self.device)
+        w0 = weights.of(self.family, self.sizes, self.kind, self.seed,
+                        self.device)
         change = leaf_norms({n: p.detach() - w0[n] for n, p in
                              self.trainer.model.named_parameters()})
         del w0
@@ -87,6 +88,10 @@ class Job:
             self.next += 1
         return losses
 
+    def unit(self, n: int) -> None:
+        """``n`` train steps, as the window runs them."""
+        self._steps(n)
+
     # ------------------------------------------------------------ window
     def window(self, seconds: float) -> Dict[str, float]:
         t0 = port.clock(self.device)
@@ -100,9 +105,8 @@ class Job:
         self.failed = int((~torch.isfinite(torch.stack(losses))).sum())
         mix = self.cell.traffic
         self.window_s = t1 - t0
-        self.window_flop = self.attempted * flops.train_step(
-            self.sizes, mix["rows"], mix["seq_len"],
-            self.kind == "image_one_tower")
+        self.window_flop = self.attempted * self.family.train_flop(
+            self.sizes, self.kind, mix["rows"], mix["seq_len"])
         return {self.work["rate"]: self.attempted * mix["rows"]
                 / self.window_s}
 
@@ -112,11 +116,13 @@ class Job:
         n = self.work["trace_steps"]
         _, trace = profiled(lambda: self._steps(n))
         _, labelled = profiled(lambda: self._steps(1), host=True)
-        return {"trace": trace, "gaps": labelled.idle_gaps(), "steps": n,
-                "model_flop": self.window_flop, "window_s": self.window_s,
-                **port.attention_record(
-                    self.sizes, self.pool[0]["attention_mask"],
-                    self.work["dropout"], True, self.device)}
+        rec = {"trace": trace, "gaps": labelled.idle_gaps(), "steps": n,
+               "model_flop": self.window_flop, "window_s": self.window_s,
+               **self.family.attention_record(
+                   self.sizes, self.pool[0]["attention_mask"],
+                   self.work["dropout"], True, self.device)}
+        rec["spans"] = spans.passes(self, rec)
+        return rec
 
     # ------------------------------------------------------------- check
     def release(self) -> None:
@@ -128,8 +134,9 @@ class Job:
         """The reference's readings of the check's steps; ``rows`` keeps
         only a batch's first rows (a planted fault: the rest left out, the
         mean over these)."""
+        fam = self.family
         if self.device.type == "cuda":
-            ref.fp32_exact()
+            fam.fp32_exact()
         steps = self.work["check"]["steps"]
         batches = []
         for b in self.pool[:steps]:
@@ -137,9 +144,8 @@ class Job:
                  for k, v in b.items()}
             batches.append({k: v.long() if not v.is_floating_point() else v
                             for k, v in t.items()})
-        w0 = weights.make(param_shapes(self.sizes, self.kind), self.seed,
-                          self.device)
-        out = run_steps(w0, self.sizes, batches, self.seed, self.opt,
+        w0 = weights.of(fam, self.sizes, self.kind, self.seed, self.device)
+        out = fam.run_steps(w0, self.sizes, batches, self.seed, self.opt,
                         self.work["dropout"],
                         self.work["check"]["block_rows"], precision)
         del w0

@@ -1,47 +1,20 @@
-"""What the benchmark takes from the program, ``item_alignment_torch``:
-its models, built from a configuration's sizes, its attention entry, and
-its launch counters.  Every job reaches the program through here.
+"""What the benchmark takes from the program, ``item_alignment_torch``,
+whatever the model: its attention entry, its launch counters, and the
+device's clock and memory.  The models themselves are the families'
+(``families/<family>.py``).
 """
 
 from __future__ import annotations
 
 import gc
 import time
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from item_alignment_torch.config import ModelConfig
-from item_alignment_torch.models import RobertaOneTower, RobertaTwoTower
-from item_alignment_torch.models.multimodal import RobertaImageOneTower
 from item_alignment_torch.ops import cuda_attention, cuda_attention_train
 from item_alignment_torch.ops.attention import flash_attention
-
-from portbench import flops, weights
-from portbench.reference.layout import param_shapes
-
-MODELS = {"one_tower": RobertaOneTower, "two_tower": RobertaTwoTower,
-          "image_one_tower": RobertaImageOneTower}
-
-
-def model_config(sizes: Dict, dtype: str, **overrides) -> ModelConfig:
-    """The port's config of a configuration file's ``model`` sizes, with
-    the pair layout of 2 x (``max_seq_len`` + ``max_seq_len_pv``)."""
-    known = set(ModelConfig.__dataclass_fields__)
-    kw = {k: v for k, v in sizes.items() if k in known}
-    kw.update(dtype=dtype, **overrides)
-    return ModelConfig(**kw)
-
-
-def build(kind: str, cfg: ModelConfig, sizes: Dict, seed: int, device
-          ) -> torch.nn.Module:
-    """The port's model of ``kind``, holding the benchmark's weights of
-    ``seed`` (``weights.make``)."""
-    model = MODELS[kind](cfg, device=device, seed=None)
-    weights.load_into(model, weights.make(param_shapes(sizes, kind), seed,
-                                          device))
-    return model
 
 
 def launches() -> Tuple[int, int, int]:
@@ -86,21 +59,6 @@ def attention_seconds(B: int, N: int, S: int, H: int, mask: np.ndarray,
         call(i)
     _, trace = profiled(lambda: [call(i) for i in range(calls)])
     return trace.busy_s / calls
-
-
-def attention_record(sizes: Dict, mask: np.ndarray, rate: float,
-                     backward: bool, device) -> Dict[str, Optional[float]]:
-    """What ``metrics/attn_roofline.py`` reads: the attention entry's
-    device seconds a call (``attention_seconds``) and its least time
-    (``flops.attention_bound_s``) at a batch of ``mask``'s rows and length
-    with a configuration's heads."""
-    B, S = mask.shape
-    N = sizes["num_attention_heads"]
-    H = sizes["hidden_size"] // N
-    return {"attn_s": attention_seconds(B, N, S, H, mask, rate, backward,
-                                        device),
-            "attn_bound_s": flops.attention_bound_s(
-                B, N, S, H, backward, keys=int(mask.sum()))}
 
 
 def free(device) -> None:

@@ -13,7 +13,7 @@ and everything it is made of are found by name (``cell.py``).  A run:
    uses; ``setup_s`` is the process's age when the window starts;
 2. runs the window for ``--seconds`` and reads the device's memory peak;
 3. with ``--trace 1``, profiles a few more steps and reads each per-layer
-   metric from them (``metrics/<family>.py``; a reader that finds nothing
+   metric from them (``metrics/<prefix>.py``; a reader that finds nothing
    leaves its metric out);
 4. frees the program's state and compares what the timed path produced
    with the plain reference (``reference/``), each number beside its limit

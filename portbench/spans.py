@@ -10,21 +10,22 @@ against the device trace: two more profiled passes over a cell's
   ``trace.Trace.idle_gaps``).
 - The attributed pass records host and device activity with the spans on,
   so the profiler also records their ``ia.*`` ranges.  A device operation
-  is charged to the innermost module span (``MODULES``) open when the host
-  launched it; one launched by a backward node, to the span open when that
-  node's forward operation ran (the profiler's sequence numbers link the
-  two).  The ranges' own device-side annotations are left out.
+  is charged to the innermost module span open when the host launched it
+  (``MODULES``, which code shared by every model family opens, and the
+  cell's family's ``SPANS``); one launched by a backward node, to the span
+  open when that node's forward operation ran (the profiler's sequence
+  numbers link the two).  The ranges' own device-side annotations are left
+  out.
 
-A step is a train step (``step`` spans), a request in scoring (``eval``)
-and a round in mining (``build_cache``).  Each traced run prints a table
-of the spans on standard error.
+A step is the job's unit of work (``job.unit``), counted by the job's
+step span (``job.STEP_SPAN``): a train step (``step``), a request in
+scoring (``eval``), a round in mining (``build_cache``).  Each traced run
+prints a table of the spans on standard error.
 
-The harness hands a reader only the traced run's record (``run.run_cell``
-calls ``read(name, rec)``), so ``of(rec)`` finds the cell's job as the
-``job`` that ``run_cell`` holds while it calls the readers, runs the
-passes the first time it is asked and keeps their readings in ``rec``.
-Where the program has no spans (a commit before them) there are no
-readings, and every reader leaves its metric out.
+A job's ``traced()`` runs the passes and keeps their readings in its
+record under ``spans``; ``of(rec)`` returns them.  Where the program has
+no spans (a commit before them) there are no readings, and every reader
+leaves its metric out.
 """
 
 from __future__ import annotations
@@ -32,17 +33,18 @@ from __future__ import annotations
 import statistics
 import sys
 from collections import defaultdict
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional
+from typing import (Callable, Dict, Iterable, List, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 
 from portbench.trace import Trace, group_of
 
-MODULES = ("embeddings", "attention", "layernorm", "dropout", "gelu", "cast",
-           "optim")
+# the module spans of the code every family shares: the attention entry,
+# LayerNorm, dropout, the products' casts and the optimizer
+MODULES = ("attention", "layernorm", "dropout", "cast", "optim")
 ENTRY = ("step", "stage", "forward", "backward", "optim", "eval", "fetch",
          "build_cache", "encode")
-STEP = {"train": "step", "score": "eval", "mine": "build_cache"}
 RANGE = "ia."  # the prefix of the spans' profiler ranges
 RUNTIME = "cu"  # the prefix of the CUDA runtime's and driver's calls
 
@@ -102,10 +104,10 @@ def innermost(ranges: Iterable, points: List[int]) -> List[Optional[str]]:
     return out
 
 
-def charge(host: List[Host], device: List[Device]
-           ) -> List[Optional[str]]:
-    """The module span (``MODULES``) each device operation is charged to,
-    or None.  An operation launched in the forward goes to the module range
+def charge(host: List[Host], device: List[Device],
+           modules: Tuple[str, ...] = MODULES) -> List[Optional[str]]:
+    """The module span (of ``modules``) each device operation is charged
+    to, or None.  An operation launched in the forward goes to the module range
     open on the host when the runtime's call launched it; one launched in
     a backward node, to the range open when the forward operation of the
     same thread and sequence number started (its last such operation: the
@@ -114,10 +116,10 @@ def charge(host: List[Host], device: List[Device]
     for h in host:
         by_thread[h.thread].append(h)
 
-    def modules(thread: int, points: List[int]) -> List[Optional[str]]:
+    def spanned(thread: int, points: List[int]) -> List[Optional[str]]:
         return innermost(((h.start, h.end, h.name[len(RANGE):])
                           for h in by_thread[thread]
-                          if h.name[len(RANGE):] in MODULES
+                          if h.name[len(RANGE):] in modules
                           and h.name.startswith(RANGE)), points)
 
     forward: Dict[tuple, int] = {}  # (thread, seq) -> the op's start
@@ -129,7 +131,7 @@ def charge(host: List[Host], device: List[Device]
     fwd_label: Dict[tuple, Optional[str]] = {}
     for thread in {k[0] for k in keys}:
         mine = [k for k in keys if k[0] == thread]
-        for k, label in zip(mine, modules(thread, [forward[k] for k in mine])):
+        for k, label in zip(mine, spanned(thread, [forward[k] for k in mine])):
             fwd_label[k] = label
 
     # the runtime's call shares the operation's id; an operator's id may be
@@ -144,20 +146,21 @@ def charge(host: List[Host], device: List[Device]
         nodes = innermost(((h.start, h.end, (h.fwd_thread, h.seq))
                            for h in hosts
                            if h.seq >= 0 and h.fwd_thread > 0), points)
-        direct = modules(thread, points)
+        direct = spanned(thread, points)
         for i, node, label in zip(idx, nodes, direct):
             out[i] = fwd_label.get(node) if node is not None else label
     return out
 
 
-def attribute(host: List[Host], device: List[Device]) -> Dict[str, Dict]:
-    """Device ns by module span: all of each span's operations
-    (``all``), and those of the ``rest`` group (``rest``), with the rest
-    charged to none under ``unspanned``."""
+def attribute(host: List[Host], device: List[Device],
+              modules: Tuple[str, ...] = MODULES) -> Dict[str, Dict]:
+    """Device ns by module span (of ``modules``): all of each span's
+    operations (``all``), and those of the ``rest`` group (``rest``), with
+    the rest charged to none under ``unspanned``."""
     total: Dict[str, float] = defaultdict(float)
     rest: Dict[str, float] = defaultdict(float)
     unspanned: Dict[str, float] = defaultdict(float)
-    for d, label in zip(device, charge(host, device)):
+    for d, label in zip(device, charge(host, device, modules)):
         ns = d.end - d.start
         is_rest = group_of(d.name) == "rest"
         if label is not None:
@@ -217,52 +220,42 @@ def _profile(fn: Callable[[], object], host: bool):
     return record.spans, prof.profiler.kineto_results.events(), t0, t1
 
 
-def _job():
-    """The job of the traced run being read: ``run.run_cell``'s ``job``."""
-    frame = sys._getframe(1)
-    while frame is not None:
-        job = frame.f_locals.get("job")
-        if job is not None and hasattr(job, "traced"):
-            return job
-        frame = frame.f_back
-    return None
-
-
-def _work(job) -> Callable[[], object]:
-    n = job.work["trace_steps"]
-    kind = job.work["job"]
-    if kind == "train":
-        return lambda: job._steps(n)
-    if kind == "score":
-        return lambda: job._requests(n)
-    return lambda: [job._round() for _ in range(n)]
-
-
 def _host_ns(spans, name: str) -> float:
     return float(sum(s.end_ns - s.start_ns for s in spans if s.name == name))
 
 
-def passes(job, rec: Dict) -> Dict:
-    """Run the spanned and the attributed pass on ``job`` and read them:
-    ms a step of each entry span on the host, of each module span and of
-    ``unspanned`` on the device, and of idle by phase."""
-    step = STEP[job.work["job"]]
-    spans, events, t0, t1 = _profile(_work(job), host=False)
-    steps = len([s for s in spans if s.name == step])
+def passes(job, rec: Dict) -> Optional[Dict]:
+    """Run the spanned and the attributed pass on ``job`` (``job.unit`` of
+    its ``trace_steps``) and read them: ms a step of each entry span on the
+    host, of each module span and of ``unspanned`` on the device, and of
+    idle by phase; ``rec`` is the traced run's record so far, for the
+    table.  None where the program has no spans."""
+    from item_alignment_torch.engine import observability
+
+    if not hasattr(observability, "tracing"):
+        return None
+    modules = tuple(dict.fromkeys(MODULES + tuple(job.family.SPANS)))
+    units = job.work["trace_steps"]
+
+    def work():
+        job.unit(units)
+
+    spans, events, t0, t1 = _profile(work, host=False)
+    steps = len([s for s in spans if s.name == job.STEP_SPAN])
     host, device = split(events)
     out = {"kind": job.work["job"], "steps": steps,
            "spanned_ranges": sum(h.name.startswith(RANGE) for h in host),
            "spanned_s": (t1 - t0) / 1e9,
            "host_ms": {n: _host_ns(spans, n) / 1e6 / steps for n in ENTRY},
            "calls": {n: len([s for s in spans if s.name == n]) / steps
-                     for n in ENTRY + MODULES},
+                     for n in ENTRY + modules},
            "busy_ms": None, "idle_ms": None, "module_ms": None}
     if device:
         trace = phase_trace(spans, device, t0, t1)
         out["busy_ms"] = trace.busy_s * 1e3 / steps
         out["idle_ms"] = {k: v * 1e3 / steps
                           for k, v in idle_by_phase(trace).items()}
-    spans, events, t0, t1 = _profile(_work(job), host=True)
+    spans, events, t0, t1 = _profile(work, host=True)
     host, device = split(events)
     out["attributed_s"] = (t1 - t0) / 1e9
     out["clock_us"] = clock_agreement(spans, host)
@@ -270,7 +263,7 @@ def passes(job, rec: Dict) -> Dict:
     out["linked"] = sum(d.end - d.start for d in device if d.corr in calls) \
         / max(1, sum(d.end - d.start for d in device))
     if device:
-        ns = attribute(host, device)
+        ns = attribute(host, device, modules)
         out["module_ms"] = {k: v / 1e6 / steps for k, v in ns["all"].items()}
         out["rest_ms"] = {k: v / 1e6 / steps for k, v in ns["rest"].items()}
         out["unspanned_ms"] = sorted(
@@ -319,7 +312,7 @@ def table(out: Dict, rec: Dict) -> None:
     module = out["module_ms"] or {}
     rest = out.get("rest_ms") or {}
     idle = out["idle_ms"] or {}
-    for name in dict.fromkeys(ENTRY + MODULES + ("unspanned",)):
+    for name in dict.fromkeys(tuple(out["calls"]) + ("unspanned",)):
         calls = out["calls"].get(name, 0.0)
         if not calls and name not in module:
             continue
@@ -342,13 +335,7 @@ def table(out: Dict, rec: Dict) -> None:
 
 
 def of(rec: Dict) -> Optional[Dict]:
-    """The spans' readings of the traced run whose record is ``rec``: the
-    passes run the first time, on the job ``run.run_cell`` holds; None
-    where the program has no spans or there is no job."""
-    if "spans" not in rec:
-        from item_alignment_torch.engine import observability
-
-        job = _job()
-        rec["spans"] = passes(job, rec) if job is not None and hasattr(
-            observability, "tracing") else None
-    return rec["spans"]
+    """The spans' readings of the traced run whose record is ``rec``
+    (``passes``, which the job's ``traced()`` ran); None where the
+    program has no spans."""
+    return rec.get("spans")

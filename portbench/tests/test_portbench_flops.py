@@ -14,13 +14,13 @@ from item_alignment_torch.engine.inference import (
 )
 from item_alignment_torch.engine.train import Trainer
 from item_alignment_torch.utils.flops import count_flops
-from portbench import flops, port, traffic
+from portbench import flops, traffic
 
 
 def _build(c, **kw):
     sizes = dict(c.model, **TINY)
-    cfg = port.model_config(sizes, c.config["dtype"], **kw)
-    return sizes, port.build(c.workload["model"], cfg, sizes, 3, "cpu")
+    return sizes, c.family().build(c.workload["model"], sizes,
+                                   c.config["dtype"], 3, "cpu", **kw)
 
 
 @pytest.mark.parametrize("name", ["large-train-s510",

@@ -15,6 +15,10 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
 METRIC_KEYS = {"name", "unit", "better", "source"}
+FAMILY = ("KINDS", "SPANS", "build", "param_shapes", "is_norm_scale",
+          "decays", "fp32_exact", "one_tower_logits", "item_embedding",
+          "two_tower_probs", "run_steps", "forward_flop", "train_flop",
+          "pair_score_flop", "attention_record")
 
 
 def line(text):
@@ -89,8 +93,10 @@ def test_config_file(config):
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_files(name):
     c = cells.load(name)
-    assert c.workload["job"] in ("train", "mine", "score")
-    cells.job_module(c.workload["job"])
+    assert hasattr(cells.job_module(c.workload["job"]), "Job")
+    family = c.family()
+    assert all(hasattr(family, key) for key in FAMILY), family
+    assert c.workload["model"] in family.KINDS
     assert "setup_s" in c.end_to_end and len(c.end_to_end) >= 2
     assert c.per_layer
     for metric in c.per_layer:

@@ -10,11 +10,9 @@ from conftest import TINY
 from item_alignment_torch.ops.cuda_attention_train import keep_mask_reference
 from item_alignment_torch.ops.dropout import fold_seed as port_fold_seed
 from portbench import cell as cells
-from portbench import port, traffic
+from portbench import traffic, weights
 from portbench.reference import dropout as rd
 from portbench.reference import roberta as ref
-from portbench.weights import make
-from portbench.reference.layout import param_shapes
 
 
 def test_fold_seed_and_attention_keep_bits():
@@ -34,15 +32,16 @@ def test_one_tower_forward_with_dropout(tiny, name):
     c = tiny(name)
     sizes = dict(c.model, **TINY)
     kind = c.workload["model"]
-    cfg = port.model_config(sizes, "float32", hidden_dropout_prob=0.1,
-                            attention_probs_dropout_prob=0.1)
-    model = port.build(kind, cfg, sizes, 9, "cpu")
+    family = c.family()
+    model = family.build(kind, sizes, "float32", 9, "cpu",
+                         hidden_dropout_prob=0.1,
+                         attention_probs_dropout_prob=0.1)
     batch = traffic.make(c.traffic, sizes["vocab_size"], 9)[0]
     t = {k: torch.as_tensor(v) for k, v in batch.items()}
     t = {k: v if v.is_floating_point() else v.long() for k, v in t.items()}
     seed = 2 ** 33 + 1
     ours = model(**t, deterministic=False, dropout_seed=seed).logits
-    w = make(param_shapes(sizes, kind), 9, "cpu")
+    w = weights.of(family, sizes, kind, 9, "cpu")
     n = t["input_ids"].shape[0]
     theirs = torch.cat([ref.one_tower_logits(
         w, sizes, {k: v[r0:r0 + 3] for k, v in t.items()},

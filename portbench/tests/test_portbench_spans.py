@@ -46,9 +46,10 @@ def test_rest_is_partitioned_among_the_spans_and_unspanned():
               Device(150, 155, "vectorized_elementwise_kernel_add", 5),
               Device(155, 165, "multi_tensor_apply_kernel", 6),
               Device(165, 166, "Memcpy HtoD (Pinned -> Device)", 99)]
-    assert spans.charge(host, device) == [
+    modules = spans.MODULES + ("embeddings",)  # a family's span
+    assert spans.charge(host, device, modules) == [
         "layernorm", "embeddings", "cast", None, None, "optim", None]
-    ns = spans.attribute(host, device)
+    ns = spans.attribute(host, device, modules)
     assert ns["rest"] == {"layernorm": 10, "embeddings": 3, "cast": 4,
                           "unspanned": 5, "optim": 10}
     assert ns["all"] == ns["rest"]  # the product and the copy: no span
@@ -164,12 +165,15 @@ def test_gaps_go_to_the_phase_open_on_the_host():
 
 
 def test_no_readings_without_spans_or_job(monkeypatch):
-    assert spans.of({}) is None  # no run_cell, no job
-    job = object()
+    assert spans.of({}) is None  # no traced() stored any
+    assert spans.of({"spans": None}) is None
+
+    class Job:
+        def unit(self, n):
+            pytest.fail("ran")
+
     monkeypatch.delattr(observability, "tracing")
-    monkeypatch.setattr(spans, "_job", lambda: job)
-    monkeypatch.setattr(spans, "passes", lambda *a: pytest.fail("ran"))
-    assert spans.of({}) is None
+    assert spans.passes(Job(), {}) is None  # a program without spans
 
 
 def test_a_traced_cpu_run_reads_the_host_spans(tiny):

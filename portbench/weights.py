@@ -2,27 +2,26 @@
 
 ``make`` draws one flat fp32 buffer of normal noise (deviation ``STD``,
 the configurations' ``initializer_range``) with a ``torch.Generator`` on
-the device and hands out views of it, one a parameter, in the layout
-``reference/layout.py`` gives; LayerNorm scales get 1 added.  The same
-seed gives the same tensors on the same device, so the reference works
-from exactly what the program was given, made again after the program's
-state is freed.
+the device and hands out views of it, one a parameter, in the layout the
+model family gives (``param_shapes``); the family's norm scales
+(``is_norm_scale``) get 1 added.  The same seed gives the same tensors on
+the same device, so the reference works from exactly what the program was
+given, made again after the program's state is freed.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Tuple
 
 import torch
-
-from portbench.reference.layout import is_layer_norm_scale
 
 STD = 0.02
 
 
 def make(shapes: Iterable[Tuple[str, Tuple[int, ...]]], seed: int,
-         device) -> Dict[str, torch.Tensor]:
+         device, is_norm_scale: Callable[[str], bool]
+         ) -> Dict[str, torch.Tensor]:
     shapes = list(shapes)
     total = sum(math.prod(s) for _, s in shapes)
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -31,11 +30,19 @@ def make(shapes: Iterable[Tuple[str, Tuple[int, ...]]], seed: int,
     for name, shape in shapes:
         n = math.prod(shape)
         t = flat[off:off + n].view(shape)
-        if is_layer_norm_scale(name):
+        if is_norm_scale(name):
             t.add_(1.0)
         out[name] = t
         off += n
     return out
+
+
+def of(family, sizes: Dict, kind: str, seed: int, device
+       ) -> Dict[str, torch.Tensor]:
+    """The weights of ``seed`` for model ``kind`` of ``family`` (a
+    ``families/<family>.py`` module) at ``sizes``."""
+    return make(family.param_shapes(sizes, kind), seed, device,
+                family.is_norm_scale)
 
 
 def load_into(model: torch.nn.Module, weights: Dict[str, torch.Tensor]
