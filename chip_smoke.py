@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed N]
 
 Phases, one line each (more for most); any failure exits non-zero.  They
-run in the order 1-3, 3b, 4-6, 11, 7-9, 25, 25b, 25c, 12-15, 10, 16-24:
+run in the order 1-3, 3b, 4-6, 11, 7-9, 25, 25b, 25c, 26, 12-15, 10, 16-24:
 
 1. card: name and power limit from nvidia-smi; TF32 off.
 2. build: compile every kernel source in ``item_alignment_torch/csrc``, one
@@ -372,6 +372,17 @@ run in the order 1-3, 3b, 4-6, 11, 7-9, 25, 25b, 25c, 12-15, 10, 16-24:
    RMS mode's forward (24 layers x 2, the 6 attention layers' q and k
    norms, the last), 66 grouped products (3 an expert layer), nothing else
    of #1-#6 or any backward, no plain version called; the request timed.
+26. AdamW (``csrc/adamw.cu``, which replaces no TPU kernel): the kernel's
+   registers (no spill); at both train cells' tables (393 and 395
+   tensors, fp32 parameters and gradients, bf16 moments) three steps
+   against the plain chain, each table's own error, and its time a step
+   (CUDA events, and the profiler's mean over the launches it recorded)
+   beside its byte bound (20 bytes a parameter at 3.35 TB/s), the plain
+   chain's and
+   ``torch.optim.AdamW(fused=True)``'s (a yardstick only: the port never
+   calls it), and the host time a step; three RoBERTa-large ``Trainer``
+   steps launch it once a step over all 393 tensors and never call the
+   plain chain.
 
 Every launch counter is zeroed just before each main path and read just
 after it: phases 4-5 (serving: only #1, once per layer of every forward),
@@ -395,7 +406,11 @@ are checked at 49 forward and 49 backward a RoBERTa-large pass (24 layers
 x 2 and the embeddings; 48 more forward a step under remat) in phases 4,
 5, 8, 12, 14, 23b and 25, and the kernels line counts those; phase 25c
 zeroes them before LFM2's scoring path and checks 6 of #1 and 61 RMS
-forward launches there.  The line
+forward launches there.  The AdamW kernel's (``adamw_counters()``,
+zeroed with the others) are checked at one launch over every parameter a
+step in phases 8 and 14 (393 tensors), 17a (KGE pretraining) and 21d
+(both ``finetune-graph`` runs), and the kernels line counts phase 8's.
+The line
 before the last is one JSON object with the six kernels' numbers (the rows
 of #1 and #2 with an ``f32`` object too: phase 19e's fp32 ms, library_ms,
 bound_ms and bound_by at B=8, S=512, N=12) and phase 25's LayerNorm
@@ -462,7 +477,7 @@ from item_alignment_torch.engine.inference import (
     two_tower_encode_fn,
     two_tower_head_fn,
 )
-from item_alignment_torch.engine.optim import FusedAdamW
+from item_alignment_torch.engine.optim import FusedAdamW, decay_mask
 from item_alignment_torch.engine.train import Trainer
 from item_alignment_torch.kge import evaluation as kev
 from item_alignment_torch.kge import sampling as ksamp
@@ -476,6 +491,7 @@ from item_alignment_torch.models.text import (
     RobertaTwoTower,
 )
 from item_alignment_torch.ops import _build, _launch, cuda_attention
+from item_alignment_torch.ops import adamw as adamw_op
 from item_alignment_torch.ops import cuda_attention_blockwise as cab
 from item_alignment_torch.ops import cuda_attention_train as cat
 from item_alignment_torch.ops import layer_norm as lnk
@@ -1594,6 +1610,7 @@ def zero_counters() -> None:
     cat.FWD_LAUNCHES = cat.BWD_LAUNCHES = 0
     cab.FWD_LAUNCHES = cab.DQ_LAUNCHES = cab.DKV_LAUNCHES = 0
     lnk.FWD_LAUNCHES = lnk.BWD_LAUNCHES = 0
+    adamw_op.LAUNCHES = adamw_op.TENSORS = 0
 
 
 def counters():
@@ -1601,6 +1618,23 @@ def counters():
     contracts, which run on #4 and on delta, #5 and #6)."""
     return (cuda_attention.LAUNCHES, cat.FWD_LAUNCHES, cat.BWD_LAUNCHES,
             cab.FWD_LAUNCHES, cab.DQ_LAUNCHES, cab.DKV_LAUNCHES)
+
+
+def adamw_counters() -> tuple:
+    """The AdamW kernel's launches and the tensors they stepped; read
+    beside ``counters()``."""
+    return adamw_op.LAUNCHES, adamw_op.TENSORS
+
+
+def hold_adamw(name: str, got: tuple, steps: int, tensors: int) -> tuple:
+    """``got`` (``adamw_counters()`` read after a main path that began with
+    ``zero_counters()``) must be ``steps`` optimizer steps' launches of the
+    AdamW kernel, once each over all ``tensors`` tensors (one type triple,
+    so one launch a step)."""
+    check(got == (steps, steps * tensors),
+          f"{name}: AdamW launches and tensors {got}, expected {steps} "
+          f"launches over {steps} x {tensors} tensors")
+    return got
 
 
 def ln_counters() -> tuple:
@@ -2017,7 +2051,7 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
             torch.cuda.empty_cache()
             check(not remat, f"{name}: out of memory even with remat")
             continue
-        launches = counters()
+        launches, adam = counters(), adamw_counters()
         break
     peak = torch.cuda.max_memory_allocated()
     check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
@@ -2034,6 +2068,7 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
     check(launches == expect, f"{name}: launches (#1..#6) {launches} "
           f"over {steps} steps, expected {expect}")
     ln = hold_ln(name, ln_before, steps, steps, steps * remat)
+    hold_adamw(name, adam, steps, len(list(model.parameters())))
     step_ms = sum(times[1:]) / (steps - 1) * 1e3
     profiled = profile_step(lambda: trainer.train_step(batches[-1]),
                             step_ms)
@@ -2044,14 +2079,15 @@ def phase_train(cfg: ModelConfig, seed: int, gen: torch.Generator,
           f"{steps - 1} timed steps ({B / step_ms * 1e3:.2f} train pairs/s; "
           f"warm-up step {times[0] * 1e3:.1f} ms); peak memory "
           f"{peak / 2 ** 30:.2f} GiB; launches #1..#6 {launches}, "
-          f"LayerNorm forward and backward {ln}; max |update| "
+          f"LayerNorm forward and backward {ln}, AdamW {adam[0]} over "
+          f"{adam[1]} tensors; max |update| "
           + ", ".join(f"{n.split('.')[-2]} {v:.3e}" for n, v in moved.items()),
           flush=True)
     print(f"{name}: profile of one more step: {profiled}", flush=True)
     print(f"{name}: {flop_line}; {card_line()}", flush=True)
     del model, trainer
     torch.cuda.empty_cache()
-    return dict(launches=launches)
+    return dict(launches=launches, adamw=adam)
 
 
 def step_flop(trainer, batch, cfg: ModelConfig, B: int, remat: bool,
@@ -2929,6 +2965,7 @@ def _kge_pretrain(root: Path, prepared: Path, seed: int, card: str) -> dict:
                 (kge.KnowledgeGraph, "dict_of_tails", timed(host, "dict_of")),
                 (kge.KnowledgeGraph, "dict_of_heads", timed(host, "dict_of"))):
             stack.enter_context(wrapped(owner, attr, around))
+        zero_counters()  # the KGE pretraining path
         out, wall = run_cli([
             "pkgm-pretrain", "--data_dir", str(kg_dir), "--output_dir",
             str(out_dir), "--model_name", "pkgm", "--embedding_dim",
@@ -2967,6 +3004,8 @@ def _kge_pretrain(root: Path, prepared: Path, seed: int, card: str) -> dict:
     check(worst <= SCORE_REL_TOL, f"phase 17a: all-candidate tail scores "
           f"vs pointwise differ by {worst} (relative)")
     steps = host["step"]
+    adam = hold_adamw("phase 17a", adamw_counters(), len(steps),
+                      len(trainer.params))
     step_ms = 1e3 * sum(steps[1:]) / (len(steps) - 1)
     # one more step: the first KGE_BATCH facts and their negatives
     h_all, t_all, r_all = trainer.sampler.kg_arrays
@@ -2979,7 +3018,8 @@ def _kge_pretrain(root: Path, prepared: Path, seed: int, card: str) -> dict:
           f"{KG_RELATIONS} relations, {KG_TRAIN_FACTS} train facts "
           f"({kg['items']} smoke-corpus items first), batch {KGE_BATCH}, "
           f"n_neg 3, "
-          f"2 epochs of {len(steps) // 2} steps: {step_ms:.3f} ms/step "
+          f"2 epochs of {len(steps) // 2} steps (AdamW {adam[0]} launches "
+          f"over {adam[1]} tensors): {step_ms:.3f} ms/step "
           f"after the first ({1e3 * steps[0]:.1f} ms), epoch wall "
           f"{[round(h['wall_s'], 3) for h in history]} s, losses "
           f"{[round(x, 3) for x in losses]}, final_loss {res['final_loss']}; "
@@ -3039,7 +3079,7 @@ def _pkgm_step_profile(model, trainer, batches, card) -> str:
     adam = FusedAdamW({"e": leaf}, lambda step: 5e-5, 0.9, 0.98, 1e-8, 0.01,
                       {"e": True}, torch.bfloat16)
     grad = {"e": torch.randn_like(leaf)}
-    adam_ms = cuda_ms(lambda: adam.update(grad), 10)
+    adam_ms = cuda_ms(lambda: adam.step(grad), 10)
     del leaf, g, adam, grad
     return (f"{step_ms:.2f} ms/step over {len(batches) - 1} timed steps "
             f"({40 / step_ms * 1e3:.2f} train pairs/s); {profiled}; alone at "
@@ -4149,13 +4189,13 @@ def _accumulation_check(state: dict, seed: int) -> float:
                                   grad_accumulation_steps=NF_ACCUM))).setup()
     held = {}
 
-    def hold(update):
-        def call(grads):
+    def hold(step):
+        def call(grads, *args, **kwargs):
             held.update({k: g.detach().clone() for k, g in grads.items()})
-            return update(grads)
+            return step(grads, *args, **kwargs)
         return call
 
-    with wrapped(trainer.optimizer.adamw, "update", hold):
+    with wrapped(trainer.optimizer.adamw, "step", hold):
         for k in range(NF_ACCUM):
             trainer.train_step({key: v[4 * k:4 * k + 4]
                                 for key, v in batch.items()})
@@ -4835,7 +4875,7 @@ def phase_graph(seed: int, card: str) -> tuple:
               and "encoder.conv.weight.weight" in params[0],
               f"phase 21d finetune-graph: {results}, steps "
               f"{len(steps[0])}, repeat {repeat}")
-        launches = counters()
+        launches, adam_counts = counters(), adamw_counters()
 
         feats = np.load(g / "feats.npy")
         adj = cli.load_graph(str(g / "edges.npz"), GRAPH_NODES, GRAPH_CHUNK,
@@ -4844,6 +4884,8 @@ def phase_graph(seed: int, card: str) -> tuple:
                           gcn_layers=GRAPH_LAYERS, gcn_feature_dim=GRAPH_FEATS)
         model = GCNTwoTower(cfg, device="cuda", seed=None)
         model.load_state_dict(params[0])
+        hold_adamw("phase 21d: two finetune-graph runs", adam_counts,
+                   2 * n_steps, len(list(model.parameters())))
         adam = cli.graph_adam(model, 1e-2)
         features = torch.from_numpy(feats).cuda()
         del feats
@@ -4891,8 +4933,8 @@ def phase_graph(seed: int, card: str) -> tuple:
           f"one step profiled: {profiled}; the second run's gcn_params.pt "
           f"equal bit for bit: {repeat}; a 3,000-node graph's trained "
           f"probabilities on the card vs the CPU max diff {cpu_diff:.3e} "
-          f"(limit {GRAPH_CPU_TOL}); launches #1..#6 {launches}; "
-          f"wall times " + ", ".join(f"{k} {v:.3f} s" for k, v in
+          f"(limit {GRAPH_CPU_TOL}); launches #1..#6 {launches}, AdamW "
+          f"{adam_counts[0]} over {adam_counts[1]} tensors; wall times " + ", ".join(f"{k} {v:.3f} s" for k, v in
                                      walls.items()) + f"; {card}",
           flush=True)
     return launches
@@ -6045,6 +6087,27 @@ def device_ms(fn, iters: int = 20) -> float:
     return us / iters / 1e3
 
 
+def kernel_launch_ms(fn, name: str, iters: int = 10) -> tuple:
+    """Mean device time of one launch of the kernel whose name holds
+    ``name`` over ``iters`` calls of ``fn``, by ``torch.profiler``: the sum
+    over the launches it recorded, divided by their number (which it
+    returns too), so a launch the profiler drops does not read as a faster
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    check(us, f"the profiler recorded no launch of {name}")
+    return sum(us) / len(us) / 1e3, len(us)
+
+
 def host_us(fn, iters: int = 2000) -> float:
     """Host time a call of ``fn`` at a shape whose kernels take less than
     its launches, so the device never holds the host back."""
@@ -6207,6 +6270,194 @@ def phase_layer_norm(cfg: ModelConfig, seed: int, gen: torch.Generator
     return dict(timed["train"], worst=max(worst.values()))
 
 
+ADAMW_TABLES = (("train", "roberta_large.json", RobertaOneTower, 393),
+                ("image train", "roberta_image_large.json",
+                 RobertaImageOneTower, 395))
+ADAMW_HYPER = dict(b1=0.9, b2=0.98, eps=1e-8, wd=0.01)
+
+
+def _adamw_ptxas(log: str) -> list:
+    """(kernel<mangled types>, registers, spill bytes) of the AdamW
+    library, from nvcc -Xptxas -v."""
+    out, name, spill = [], "?", 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"ia_adamw_kernelI(\w+?)EEv", m.group(1))
+            name = f"ia_adamw_kernel<{k.group(1)}>" if k else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.append((name, int(m.group(1)), spill))
+            spill = 0
+    return out
+
+
+def adamw_table(config: str, cls, seed: int, count: int) -> dict:
+    """A train cell's optimizer state on the card: its parameters' names
+    and shapes (the model built on the meta device), fp32 parameters and
+    gradients, bf16 moments, the decay mask."""
+    cfg = ModelConfig.from_json(str(ROOT / "configs" / config),
+                                max_seq_len=50, max_seq_len_pv=205)
+    shapes = {n: p.shape for n, p in cls(cfg, device="meta", seed=None
+                                         ).named_parameters()}
+    check(len(shapes) == count, f"{config}: {len(shapes)} tensors")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = [torch.randn(s, generator=gen, device="cuda") * 0.02
+         for s in shapes.values()]
+    return dict(p=p,
+                g=[torch.randn(s, generator=gen, device="cuda") * 1e-3
+                   for s in shapes.values()],
+                m=[torch.zeros_like(t, dtype=torch.bfloat16) for t in p],
+                v=[torch.zeros_like(t, dtype=torch.bfloat16) for t in p],
+                decay=list(decay_mask(list(shapes)).values()),
+                numel=sum(t.numel() for t in p))
+
+
+def adamw_gap(t: dict) -> tuple:
+    """Three steps of the kernel against the plain chain from the same
+    state: the worst parameter gap over its tensor's largest value, and
+    the worst moment gap in bf16 ulps."""
+    h = ADAMW_HYPER
+    sides = []
+    for _ in range(2):
+        sides.append(([x.clone() for x in t["p"]],
+                      [x.clone() for x in t["m"]], [x.clone() for x in t["v"]]))
+    trained = [True] * len(t["p"])
+    for step in (1, 2, 3):
+        for fn, (p, m, v) in zip((adamw_op.adamw_step,
+                                  adamw_op.adamw_reference), sides):
+            fn(p, t["g"], m, v, t["decay"], trained, 1e-3 * step, h["b1"],
+               h["b2"], h["eps"], h["wd"], step)
+    torch.cuda.synchronize()
+    (pk, mk, vk), (pp, mp, vp) = sides
+    p_gap = max(((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(pk, pp))
+    ulp = 0.0
+    for a, b in zip(mk + vk, mp + vp):
+        w = b.float()
+        e = torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126)))
+        ulp = max(ulp, ((a.float() - w).abs() / torch.exp2(e - 7)).max().item())
+    return p_gap, ulp
+
+
+def time_adamw(label: str, t: dict) -> dict:
+    """The kernel, the plain chain and ``torch.optim.AdamW(fused=True)`` a
+    step at one table: ms by CUDA events and by the profiler's device
+    time, the bound, and host us a step of the kernel's path with its
+    ``Table`` kept (as ``FusedAdamW`` keeps it) and built afresh."""
+    h = ADAMW_HYPER
+    trained = [True] * len(t["p"])
+    args = (t["decay"], trained, 1e-5, h["b1"], h["b2"], h["eps"], h["wd"],
+            100)
+    kept = adamw_op.Table()
+
+    def kernel(table=kept):
+        adamw_op.adamw_step(t["p"], t["g"], t["m"], t["v"], *args,
+                            table=table)
+
+    plain = lambda: adamw_op.adamw_reference(t["p"], t["g"], t["m"], t["v"],  # noqa: E731
+                                             *args)
+    leaves = [torch.nn.Parameter(x.clone()) for x in t["p"]]
+    for leaf, g in zip(leaves, t["g"]):
+        leaf.grad = g
+    lib = torch.optim.AdamW(leaves, lr=1e-5, betas=(h["b1"], h["b2"]),
+                            eps=h["eps"], weight_decay=h["wd"], fused=True)
+    launch_ms, recorded = kernel_launch_ms(kernel, "ia_adamw_kernel", 10)
+    out = dict(bound_ms=20 * t["numel"] / 3.35e12 * 1e3, bound_by="bytes",
+               ms=cuda_ms(kernel, 20), device_ms=launch_ms,
+               plain_ms=cuda_ms(plain, 5), library_ms=cuda_ms(lib.step, 10))
+    launches = adamw_op.LAUNCHES
+    for key, table in (("host_us", kept), ("fresh_host_us", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            kernel(table)
+        out[key] = (time.perf_counter() - t0) / 20 * 1e6
+    out["launches"] = (adamw_op.LAUNCHES - launches) / 40
+    torch.cuda.synchronize()
+    del leaves, lib
+    print(f"phase 26 AdamW {label} ({len(t['p'])} tensors, {t['numel']:,} "
+          f"parameters): kernel {out['ms']:.4f} ms a step (events; the "
+          f"profiler's mean launch {out['device_ms']:.4f} over the {recorded} "
+          f"of 10 launches it recorded), {out['launches']:g} launches, host "
+          f"{out['host_us']:.1f} us a step ({out['fresh_host_us']:.1f} with "
+          f"the table built afresh); bound {out['bound_ms']:.4f} ms "
+          f"(20 B a parameter at 3.35 TB/s: {out['bound_ms'] / out['ms']:.1%} "
+          f"of it); plain chain {out['plain_ms']:.4f} ms; "
+          f"torch.optim.AdamW(fused=True, fp32 moments) "
+          f"{out['library_ms']:.4f} ms", flush=True)
+    return out
+
+
+def phase_adamw(cfg: ModelConfig, seed: int) -> dict:
+    """Phase 26: the AdamW kernel (``csrc/adamw.cu``) against the plain
+    chain, timed at both train tables, and its launches over RoBERTa-large
+    ``Trainer`` steps (module docstring)."""
+    info = _build.BUILD_INFO["adamw"]
+    if info["seconds"]:
+        regs = _adamw_ptxas(info["log"])
+        print("phase 26 AdamW ptxas: " + "; ".join(
+            f"{n} {r} regs" + (f" spill {s} B" if s else "")
+            for n, r, s in regs), flush=True)
+        check(len(regs) == 8 and not any(s for _, _, s in regs),
+              f"the AdamW kernels (8 type triples) spill: {regs}")
+    else:
+        print(f"phase 26 AdamW ptxas: not read, the library came from the "
+              f"cache ({info['path']})", flush=True)
+    timed = {}
+    for i, (label, config, cls, count) in enumerate(ADAMW_TABLES):
+        table = adamw_table(config, cls, seed + i, count)
+        p_gap, ulp = adamw_gap(table)
+        print(f"phase 26 AdamW kernel vs plain chain, 3 steps at the "
+              f"{label} table ({count} tensors): parameters {p_gap:.2e} of "
+              f"their largest, moments {ulp:g} bf16 ulp at most", flush=True)
+        check(p_gap <= 1e-6 and ulp <= 1,
+              f"AdamW at the {label} table: parameters {p_gap}, moments "
+              f"{ulp} ulp")
+        timed[label] = dict(time_adamw(label, table), max_rel_err=p_gap)
+        del table
+        torch.cuda.empty_cache()
+
+    B = 2
+    ids, mask = pair_batch(B, cfg.pair_seq_len, cfg.vocab_size,
+                           torch.Generator(device="cuda").manual_seed(seed))
+    batch = {"input_ids": ids.cpu().numpy(),
+             "attention_mask": mask.cpu().numpy(),
+             "labels": np.array([0, 1])}
+    trainer = Trainer(RobertaOneTower(cfg, seed=seed), TrainConfig(
+        seed=seed, train_batch_size=B, log_steps=10 ** 9,
+        optimizer=OptimizerConfig(learning_rate=5e-5, total_steps=16000,
+                                  fused=True, state_dtype="bfloat16"))).setup()
+    plain, calls = adamw_op.adamw_reference, []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    adamw_op.adamw_reference = counted
+    before = (adamw_op.LAUNCHES, adamw_op.TENSORS)
+    try:
+        losses = [trainer.train_step(batch).item() for _ in range(3)]
+    finally:
+        adamw_op.adamw_reference = plain
+    torch.cuda.synchronize()
+    got = (adamw_op.LAUNCHES - before[0], adamw_op.TENSORS - before[1])
+    check(got == (3, 3 * 393) and not calls and all(map(math.isfinite, losses)),
+          f"phase 26: 3 train steps launched AdamW {got[0]} times over "
+          f"{got[1]} tensors, the plain chain {len(calls)} times, losses "
+          f"{losses}")
+    print(f"phase 26 AdamW launches: 3 RoBERTa-large train steps (batch {B},"
+          f" S={cfg.pair_seq_len}) {got[0]} launches over {got[1]} tensors; "
+          f"the plain chain called {len(calls)} times; {card_line()}",
+          flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(timed["train"], launches=got[0])
+
+
 def run(args) -> None:
     card = phase_card()
     phase_build()
@@ -6249,11 +6500,13 @@ def run(args) -> None:
     block = dict(timed, fwd_err=max(r["fwd_err"] for r in runs),
                  bwd_err=[max(e) for e in zip(*(r["bwd_err"] for r in runs))])
     phase_grad_check(cfg, args.seed, gen)
-    trained = phase_train(cfg, args.seed, gen)["launches"]  # the training path
+    phase8 = phase_train(cfg, args.seed, gen)  # the training path
+    trained = phase8["launches"]
     phase_remat_check(cfg, args.seed, gen)
     ln = phase_layer_norm(cfg, args.seed, gen)
     rms = phase_rms_norm(gen)
     lfm2 = phase_lfm2_forward(args.seed, gen)  # the LFM2 scoring path
+    adam = phase_adamw(cfg, args.seed)  # the optimizer of every train path
 
     zero_counters()  # the long serving path
     served_long = phase_cross_encoder(long_cfg, args.seed, gen, batch=4,
@@ -6339,6 +6592,10 @@ def run(args) -> None:
                   replaces=None, launches=n, max_rel_err=rms["worst"],
                   **rms[d])
              for d, n in (("fwd", lfm2["rms"]), ("bwd", 0))]
+    rows += [dict(name="adamw", source=src + "adamw.cu", replaces=None,
+                  launches=phase8["adamw"][0],
+                  max_rel_err=adam["max_rel_err"],
+                  **{k: adam[k] for k in keys})]
     print(json.dumps({"kernels": [dict(row, route="cuda") for row in rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

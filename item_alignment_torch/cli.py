@@ -1903,11 +1903,8 @@ def gcn_train_step(model, adam, features, adj, src, tgt, labels,
     out = model(features, adj, src, tgt, labels=labels, deterministic=False,
                 dropout_seed=dropout_seed)
     out.loss.backward()
-    params = adam.params
-    upd = adam.update({n: torch.zeros_like(q) if q.grad is None else q.grad
-                       for n, q in params.items()})
-    with torch.no_grad():
-        torch._foreach_add_(list(params.values()), [upd[n] for n in params])
+    adam.step({n: torch.zeros_like(q) if q.grad is None else q.grad
+               for n, q in adam.params.items()})
     return out.loss.detach()
 
 

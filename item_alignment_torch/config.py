@@ -252,8 +252,9 @@ class OptimizerConfig:
     # substring patterns matched against the '/'-joined Flax parameter path;
     # matching parameters receive zero updates
     freeze_patterns: Tuple[str, ...] = ()
-    # the JAX package's single-pass AdamW; the port always takes one pass
-    # per tensor, and False only keeps the moments in float32
+    # the JAX package's single-pass AdamW; the port always updates every
+    # tensor of a step in one pass (ops/adamw.py: one kernel on the card),
+    # and False only keeps the moments in float32
     fused: bool = True
     # storage dtype of the fused optimizer's moments ("float32" |
     # "bfloat16"); their arithmetic stays fp32

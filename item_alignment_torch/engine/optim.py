@@ -4,8 +4,10 @@ decay schedule.
 Port of ``item_alignment_tpu/engine/optim.py``.  Parameters are the model's
 ``named_parameters()``; the masks name them by their Flax paths
 (``convert.flax_path``), so they select the same parameters as the JAX
-package's masks do on the Flax tree.  Plain torch (``torch._foreach_*``):
-the JAX package has no Pallas kernel for the optimizer.
+package's masks do on the Flax tree.  The update is ``ops/adamw.py``'s:
+one hand-written CUDA kernel over every tensor of a step on the card, its
+plain ``torch._foreach_*`` chain on the CPU (the JAX package has no Pallas
+kernel for the optimizer).
 
 ``Optimizer`` is ``make_optimizer``'s chain: optional global-norm clipping,
 ``FusedAdamW``, zeroed updates for frozen parameters, and optional gradient
@@ -19,13 +21,14 @@ norm is taken over the whole gradients, and ``state_dict`` /
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Mapping
+from typing import Callable, Collection, Dict, Iterable, Mapping, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
 
 from item_alignment_torch.config import OptimizerConfig
 from item_alignment_torch.convert import flax_path
+from item_alignment_torch.ops import adamw as adamw_op
 from item_alignment_torch.parallel.sharding import distribute_like, full_tensor
 
 
@@ -69,10 +72,10 @@ def linear_warmup_decay(cfg: OptimizerConfig) -> Callable[[int], float]:
 
 
 class FusedAdamW:
-    """AdamW in one pass over the tensors: fp32 arithmetic, moments stored
-    in ``state_dtype``, bias correction, weight decay where ``decay`` says.
-    ``update`` returns the updates (``-lr * (m_hat / (sqrt(v_hat) + eps) +
-    wd * p)``) without applying them."""
+    """AdamW in one pass over the tensors, in place: fp32 arithmetic,
+    moments stored in ``state_dtype``, bias correction, weight decay where
+    ``decay`` says (``p += -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``,
+    ``ops/adamw.py:adamw_step``)."""
 
     def __init__(self, params: Mapping[str, torch.Tensor],
                  schedule: Callable[[int], float], b1: float, b2: float,
@@ -81,41 +84,33 @@ class FusedAdamW:
         self.params = dict(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
-        self.decay = [n for n in self.params if decay[n]] if weight_decay else []
+        self.decay = [bool(weight_decay and decay[n]) for n in self.params]
         self.count = 0
+        self.table = adamw_op.Table()  # the kernel's launches, kept
         self.mu = {n: torch.zeros_like(local(p), dtype=state_dtype)
                    for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(local(p), dtype=state_dtype)
                    for n, p in self.params.items()}
 
     @torch.no_grad()
-    def update(self, grads: Mapping[str, torch.Tensor]
-               ) -> Dict[str, torch.Tensor]:
+    def step(self, grads: Mapping[str, torch.Tensor],
+             trained: Optional[Collection[str]] = None,
+             params: Optional[Mapping[str, torch.Tensor]] = None) -> None:
+        """One step with ``grads`` (name -> gradient): every moment
+        advances, and the parameters named in ``trained`` (all when None)
+        move; ``params`` gives the tensors by name where the caller has
+        replaced those it was built with."""
         names = list(self.params)
+        params = self.params if params is None else params
         lr = self.schedule(self.count)
         self.count += 1
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
-        g32 = [local(grads[n]).float() for n in names]
-        mu = torch._foreach_mul([self.mu[n].float() for n in names], self.b1)
-        torch._foreach_add_(mu, g32, alpha=1.0 - self.b1)
-        nu = torch._foreach_mul([self.nu[n].float() for n in names], self.b2)
-        torch._foreach_addcmul_(nu, g32, g32, value=1.0 - self.b2)
-        denom = torch._foreach_div(nu, c2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, c1)
-        torch._foreach_div_(upd, denom)
-        out = dict(zip(names, upd))
-        if self.decay:
-            torch._foreach_add_([out[n] for n in self.decay],
-                                [local(self.params[n]).float()
-                                 for n in self.decay],
-                                alpha=self.wd)
-        torch._foreach_mul_(upd, -lr)
-        torch._foreach_copy_([self.mu[n] for n in names], mu)
-        torch._foreach_copy_([self.nu[n] for n in names], nu)
-        return out
+        moved = [True] * len(names) if trained is None else [
+            n in trained for n in names]
+        adamw_op.adamw_step([local(params[n]) for n in names],
+                            [local(grads[n]) for n in names],
+                            list(self.mu.values()), list(self.nu.values()),
+                            self.decay, moved, lr, self.b1, self.b2,
+                            self.eps, self.wd, self.count, self.table)
 
 
 class Optimizer:
@@ -132,7 +127,7 @@ class Optimizer:
                                 cfg.b2, cfg.eps, cfg.weight_decay,
                                 decay_mask(names), state_dtype)
         frozen = freeze_mask(names, cfg.freeze_patterns)
-        self.trained = [n for n in names if not frozen[n]]
+        self.trained = {n for n in names if not frozen[n]}
         self.mini_step = 0
         self.acc: Dict[str, torch.Tensor] = {}
 
@@ -174,9 +169,7 @@ class Optimizer:
             grads, self.acc = self.acc, {}
         if self.cfg.max_grad_norm:
             grads = clip_by_global_norm(grads, self.cfg.max_grad_norm)
-        upd = self.adamw.update(grads)
-        torch._foreach_add_([local(self.params[n]) for n in self.trained],
-                            [upd[n] for n in self.trained])
+        self.adamw.step(grads, self.trained)
         return True
 
     def zero_grad(self) -> None:

@@ -136,9 +136,7 @@ class KGETrainer:
                 if self.mini_step:
                     return loss.detach()
                 grads, self.acc = self.acc, {}
-            upd = self.adam.update(grads)
-            for k, p in self.params.items():
-                p.add_(upd[k])
+            self.adam.step(grads, params=self.params)
         return loss.detach()
 
     def run(self) -> Dict[str, Any]:

@@ -24,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("fused_attention", "flash_blockwise_fwd", "flash_blockwise_bwd",
-           "layer_norm")
+           "layer_norm", "adamw")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per library: path, build seconds (0 when cached) and nvcc's log

@@ -306,7 +306,7 @@ def test_kernel_source_ships_with_the_package():
     from item_alignment_torch.ops import _build
 
     for source in ("fused_attention.cu", "flash_blockwise_fwd.cu",
-                   "flash_blockwise_bwd.cu", "layer_norm.cu",
+                   "flash_blockwise_bwd.cu", "layer_norm.cu", "adamw.cu",
                    "attention_common.cuh", "attention_f32.cuh",
                    "hopper_common.cuh"):
         assert (ROOT / "item_alignment_torch" / "csrc" / source).is_file()
@@ -315,8 +315,8 @@ def test_kernel_source_ships_with_the_package():
     # sources are gone
     for gone in ("attention_dropout_fwd.cu", "attention_dropout_bwd.cu"):
         assert not (ROOT / "item_alignment_torch" / "csrc" / gone).exists()
-    # ops/_build.py names exactly the four sources
-    assert sorted(_build.SOURCES) == ["flash_blockwise_bwd",
+    # ops/_build.py names exactly the five sources
+    assert sorted(_build.SOURCES) == ["adamw", "flash_blockwise_bwd",
                                       "flash_blockwise_fwd", "fused_attention",
                                       "layer_norm"]
     assert {f"{name}.cu" for name in _build.SOURCES} == {
@@ -349,7 +349,7 @@ def test_native_loader_source_ships_with_the_package():
 def test_kernels_are_built_at_first_use_not_at_import(monkeypatch, tmp_path):
     """Importing the port builds nothing and needs no nvcc; a launch where
     there is no nvcc raises instead of falling back."""
-    from item_alignment_torch.ops import _build
+    from item_alignment_torch.ops import _build, adamw
     from item_alignment_torch.ops import cuda_attention_blockwise as cab
     from item_alignment_torch.ops import layer_norm
 
@@ -366,6 +366,10 @@ def test_kernels_are_built_at_first_use_not_at_import(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         layer_norm.launch_fwd(x, x[0], None, 1e-5, torch.float32, True)
     assert layer_norm.FWD_LAUNCHES == 0
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        adamw.launch([x], [x], [x], [x], [False], [True], 1e-3, 0.9, 0.98,
+                     1e-8, 0.0, 1)
+    assert (adamw.LAUNCHES, adamw.TENSORS) == (0, 0)
 
 
 def _kge_npz(tmp: pathlib.Path) -> str:
